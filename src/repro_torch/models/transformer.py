@@ -1,0 +1,275 @@
+"""Dense decoder-only transformer LM (dense family of ``repro.models.transformer``).
+
+The parameter layout is the JAX package's: a nested dict with the per-layer
+weights stacked on a leading L axis (``params["layers"]["wq"]`` is
+(L, d, H·hd)), so ``repro_torch.testing.bridge`` moves weights one-to-one.
+Layers run as a Python loop over that axis.  ``DenseLM`` holds the stacked
+parameters as an ``nn.Module`` and delegates to the functions here.
+
+The MoE, VLM (M-RoPE) and audio (encoder-decoder) families raise
+``NotImplementedError`` until their ROADMAP items are ported.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import layers as L
+
+_LATER = {
+    "moe": "ROADMAP Queue A, MoE",
+    "vlm": "ROADMAP Queue A, VLM and audio families",
+    "audio": "ROADMAP Queue A, VLM and audio families",
+    "ssm": "ROADMAP Queue A, SSM",
+    "hybrid": "ROADMAP Queue A, Hybrid",
+}
+
+
+def _require_ported(cfg: ArchConfig) -> None:
+    if cfg.family in _LATER:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family is not ported yet ({_LATER[cfg.family]})")
+
+
+# ---------------------------------------------------------------------------
+# parameter init
+# ---------------------------------------------------------------------------
+
+
+def _attn_params(gen, cfg: ArchConfig, n_layers: int, dtype):
+    d, hd = cfg.d_model, cfg.kq_head_dim
+    h, kv = cfg.n_heads, cfg.n_kv_heads
+    return {
+        "wq": L.dense_init(gen, (n_layers, d, h * hd), dtype=dtype),
+        "wk": L.dense_init(gen, (n_layers, d, kv * hd), dtype=dtype),
+        "wv": L.dense_init(gen, (n_layers, d, kv * hd), dtype=dtype),
+        "wo": L.dense_init(gen, (n_layers, h * hd, d), dtype=dtype),
+    }
+
+
+def _mlp_params(gen, cfg: ArchConfig, n_layers: int, dtype):
+    d, f = cfg.d_model, cfg.d_ff
+    if cfg.act == "swiglu":
+        return {
+            "w_gate": L.dense_init(gen, (n_layers, d, f), dtype=dtype),
+            "w_up": L.dense_init(gen, (n_layers, d, f), dtype=dtype),
+            "w_down": L.dense_init(gen, (n_layers, f, d), dtype=dtype),
+        }
+    return {
+        "w_up": L.dense_init(gen, (n_layers, d, f), dtype=dtype),
+        "b_up": torch.zeros((n_layers, f), dtype=dtype, device=gen.device),
+        "w_down": L.dense_init(gen, (n_layers, f, d), dtype=dtype),
+        "b_down": torch.zeros((n_layers, d), dtype=dtype, device=gen.device),
+    }
+
+
+def init_params(cfg: ArchConfig, gen: torch.Generator, dtype=torch.bfloat16):
+    """Random weights on ``gen.device``, drawn from ``gen`` in a fixed order.
+
+    The layout and scales are the JAX package's; the numbers are not, since a
+    torch.Generator and a jax.random key give different draws from one seed.
+    """
+    _require_ported(cfg)
+    d = cfg.d_model
+    layer = {
+        "attn_norm": _stack_norm(cfg, cfg.n_layers, gen.device),
+        "mlp_norm": _stack_norm(cfg, cfg.n_layers, gen.device),
+        **_attn_params(gen, cfg, cfg.n_layers, dtype),
+        **_mlp_params(gen, cfg, cfg.n_layers, dtype),
+    }
+    params = {
+        "embed": L.embed_init(gen, (cfg.vocab, d), dtype=dtype),
+        "layers": layer,
+        "final_norm": L.norm_params(d, cfg.norm_type, device=gen.device),
+    }
+    if not cfg.tie_embeddings:
+        params["unembed"] = L.dense_init(gen, (d, _padded_vocab(cfg)), dtype=dtype)
+    return params
+
+
+def _padded_vocab(cfg: ArchConfig) -> int:
+    if not cfg.vocab_pad_to:
+        return cfg.vocab
+    p = cfg.vocab_pad_to
+    return (cfg.vocab + p - 1) // p * p
+
+
+def _stack_norm(cfg: ArchConfig, n: int, device=None):
+    base = L.norm_params(cfg.d_model, cfg.norm_type, device=device)
+    return {k: a.expand((n,) + a.shape).clone() for k, a in base.items()}
+
+
+def _layer(tree, i: int):
+    """Layer ``i`` of a layer-stacked param tree."""
+    return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+
+
+def _unembed(params):
+    return params["unembed"] if "unembed" in params else params["embed"].T
+
+
+# ---------------------------------------------------------------------------
+# forward (prefill)
+# ---------------------------------------------------------------------------
+
+
+def _positions_default(tokens):
+    b, s = tokens.shape[:2]
+    return torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
+
+
+def _apply_pos(cfg, q, k, positions):
+    if cfg.rope_type == "rope":
+        return (
+            L.apply_rope(q, positions, cfg.rope_theta),
+            L.apply_rope(k, positions, cfg.rope_theta),
+        )
+    return q, k
+
+
+def _attn_block(cfg: ArchConfig, p, x, positions, causal, window, use_kernel=False):
+    """p holds per-layer (unstacked) attention params."""
+    b, s, d = x.shape
+    hd = cfg.kq_head_dim
+    h, kv = cfg.n_heads, cfg.n_kv_heads
+    q = (x @ p["wq"]).reshape(b, s, h, hd)
+    k = (x @ p["wk"]).reshape(b, s, kv, hd)
+    v = (x @ p["wv"]).reshape(b, s, kv, hd)
+    q, k = _apply_pos(cfg, q, k, positions)
+    o = L.attention(
+        q, k, v, causal=causal, window=window,
+        chunk_threshold=cfg.attn_chunk * 2, chunk=cfg.attn_chunk,
+        use_kernel=use_kernel,
+    )
+    return o.reshape(b, s, h * hd) @ p["wo"]
+
+
+def _mlp_block(cfg: ArchConfig, p, x):
+    if cfg.act == "swiglu":
+        return L.swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
+    return L.gelu_mlp(x, p["w_up"], p["b_up"], p["w_down"], p["b_down"])
+
+
+def forward(
+    cfg: ArchConfig,
+    params,
+    tokens: torch.Tensor,
+    positions: torch.Tensor | None = None,
+    remat: bool = True,
+    use_kernel: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full forward pass -> (logits, moe_aux_loss), tokens (B, S) integer.
+
+    ``remat`` is accepted for the JAX signature and has no effect: this
+    serving path keeps no activations for a backward pass.
+    """
+    _require_ported(cfg)
+    if positions is None:
+        positions = _positions_default(tokens)
+    x = params["embed"][tokens.long()]
+    for i in range(cfg.n_layers):
+        lp = _layer(params["layers"], i)
+        a = L.apply_norm(x, lp["attn_norm"], cfg.norm_type)
+        x = x + _attn_block(cfg, lp, a, positions, causal=True, window=0,
+                            use_kernel=use_kernel)
+        m = L.apply_norm(x, lp["mlp_norm"], cfg.norm_type)
+        x = x + _mlp_block(cfg, lp, m)
+    x = L.apply_norm(x, params["final_norm"], cfg.norm_type)
+    logits = x @ _unembed(params)
+    if logits.shape[-1] != cfg.vocab:  # padded vocab: mask the tail
+        keep = torch.arange(logits.shape[-1], device=logits.device) < cfg.vocab
+        logits = torch.where(keep, logits, torch.tensor(-1e30, dtype=logits.dtype,
+                                                        device=logits.device))
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)  # dense: no MoE loss
+    return logits, aux
+
+
+# ---------------------------------------------------------------------------
+# KV-cache serving path
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
+               device=None):
+    _require_ported(cfg)
+    hd = cfg.kq_head_dim
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, hd)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "len": 0,
+    }
+
+
+def decode_step(cfg: ArchConfig, params, cache, tokens, positions=None):
+    """One-token decode: tokens (B, 1) -> (logits (B,1,V), cache).
+
+    Unlike the JAX version, which returns a new cache, this writes the new
+    keys and values into ``cache["k"]``/``cache["v"]`` in place and advances
+    ``cache["len"]``, a Python int, so a step needs no copy of the cache and
+    no host sync.  The cache passed in is the one returned.
+    """
+    _require_ported(cfg)
+    b = tokens.shape[0]
+    hd = cfg.kq_head_dim
+    h_, kv = cfg.n_heads, cfg.n_kv_heads
+    pos = cache["len"]
+    if positions is None:
+        positions = torch.full((b, 1), pos, dtype=torch.int32, device=tokens.device)
+    x = params["embed"][tokens.long()]
+    for i in range(cfg.n_layers):
+        lp = _layer(params["layers"], i)
+        a = L.apply_norm(x, lp["attn_norm"], cfg.norm_type)
+        q = (a @ lp["wq"]).reshape(b, 1, h_, hd)
+        k = (a @ lp["wk"]).reshape(b, 1, kv, hd)
+        v = (a @ lp["wv"]).reshape(b, 1, kv, hd)
+        q, k = _apply_pos(cfg, q, k, positions)
+        kc, vc = cache["k"][i], cache["v"][i]
+        kc[:, pos:pos + 1] = k
+        vc[:, pos:pos + 1] = v
+        o = L.attention_decode(q, kc, vc, pos + 1)
+        x = x + o.reshape(b, 1, h_ * hd) @ lp["wo"]
+        m = L.apply_norm(x, lp["mlp_norm"], cfg.norm_type)
+        x = x + _mlp_block(cfg, lp, m)
+    x = L.apply_norm(x, params["final_norm"], cfg.norm_type)
+    logits = x @ _unembed(params)
+    cache["len"] = pos + 1
+    return logits, cache
+
+
+class DenseLM(nn.Module):
+    """The stacked parameters as an ``nn.Module``; ``forward`` delegates to the function.
+
+    ``state_dict()`` keys are the JAX pytree paths joined by dots
+    (``layers.wq``, ``final_norm.scale``).
+    """
+
+    def __init__(self, cfg: ArchConfig, params: dict):
+        super().__init__()
+        self.cfg = cfg
+        _register(self, params)
+
+    def params(self) -> dict:
+        """The parameter tree the functions of this module take."""
+        return _tree(self)
+
+    def forward(self, tokens, positions=None, use_kernel: bool = False):
+        return forward(self.cfg, self.params(), tokens, positions, use_kernel=use_kernel)
+
+
+def _register(module: nn.Module, tree: dict) -> None:
+    for name, value in tree.items():
+        if isinstance(value, dict):
+            child = nn.Module()
+            _register(child, value)
+            module.add_module(name, child)
+        else:
+            module.register_parameter(name, nn.Parameter(value, requires_grad=False))
+
+
+def _tree(module: nn.Module) -> dict:
+    out = dict(module.named_parameters(recurse=False))
+    out.update({name: _tree(child) for name, child in module.named_children()})
+    return out

@@ -1,0 +1,100 @@
+"""The port's flash-attention op and RMSNorm reference against the JAX package's.
+
+On the CPU the port's op computes its plain version; the JAX op runs its
+Pallas kernel in interpret mode, as tests/test_kernels.py runs it.  Inputs
+are made with NumPy from a seed and handed to both.  The tolerances are
+those of tests/test_kernels.py.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro_torch.kernels import flash_attention as tfa  # noqa: E402
+from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
+
+torch.set_num_threads(2)
+
+CASES = [
+    # b, sq, sk, h, kv, d, causal, window, dtype, tol  (tests/test_kernels.py CASES)
+    (1, 128, 128, 4, 4, 64, True, 0, "float32", 2e-5),
+    (2, 256, 256, 4, 2, 64, True, 0, "float32", 2e-5),
+    (1, 128, 384, 4, 1, 64, False, 0, "float32", 2e-5),  # cross-attn, MQA
+    (1, 256, 256, 8, 2, 32, True, 64, "float32", 2e-5),  # sliding window
+    (1, 200, 200, 2, 2, 64, True, 0, "float32", 2e-5),   # non-block-multiple
+    (1, 128, 128, 4, 4, 128, True, 0, "float32", 2e-5),  # d=128
+    (1, 128, 128, 4, 4, 64, True, 0, "bfloat16", 3e-2),
+    (2, 128, 128, 2, 1, 64, False, 32, "bfloat16", 3e-2),
+]
+
+_JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+_TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _qkv(b, sq, sk, h, kv, d, seed=42):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, sq, h, d), dtype=np.float32),
+            rng.standard_normal((b, sk, kv, d), dtype=np.float32),
+            rng.standard_normal((b, sk, kv, d), dtype=np.float32))
+
+
+def _f32(x):
+    return np.asarray(x.float().numpy() if isinstance(x, torch.Tensor) else x, np.float32)
+
+
+@pytest.mark.parametrize("case", CASES, ids=[str(c[:9]) for c in CASES])
+def test_flash_op_matches_jax(case):
+    b, sq, sk, h, kv, d, causal, window, dt, tol = case
+    arrs = _qkv(b, sq, sk, h, kv, d)
+    want = jops.flash_attention(*(jnp.asarray(a, _JDT[dt]) for a in arrs), causal, window)
+    before = tfa.launches
+    got = tops.flash_attention(*(torch.from_numpy(a).to(_TDT[dt]) for a in arrs),
+                               causal=causal, window=window)
+    assert got.dtype == _TDT[dt] and got.shape == (b, sq, h, d)
+    assert tfa.launches == before  # the CPU path is the plain version, not a launch
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol, atol=tol)
+
+
+def test_flash_gradients_match_jax():
+    q, k, v = _qkv(1, 128, 128, 4, 2, 64, seed=0)
+    gj = jax.grad(lambda a, b_, c: jops.flash_attention(a, b_, c).sum(), argnums=(0, 1, 2))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_(True) for a in (q, k, v))
+    tops.flash_attention(tq, tk, tv).sum().backward()
+    for a, b_ in zip((tq.grad, tk.grad, tv.grad), gj):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b_), rtol=1e-4, atol=1e-5)
+
+
+def test_flash_wrapper_never_falls_back_off_the_cpu():
+    # a tensor that is not on the CPU goes to the kernel's checks, never to the
+    # plain version: here a meta tensor, which the kernel cannot take
+    q = torch.empty((1, 8, 2, 16), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_attention_fwd(q, q, q)
+
+
+RMS_CASES = [
+    ((4, 128), "float32"),
+    ((2, 200, 64), "float32"),   # non-multiple rows
+    ((1, 64, 256), "bfloat16"),
+]
+
+
+@pytest.mark.parametrize("case", RMS_CASES, ids=[str(c) for c in RMS_CASES])
+def test_rmsnorm_ref_matches_jax(case):
+    shape, dt = case
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal(shape, dtype=np.float32)
+    g = rng.standard_normal((shape[-1],), dtype=np.float32) * 0.1
+    want = jref.rmsnorm_ref(jnp.asarray(x, _JDT[dt]), jnp.asarray(g))
+    got = tref.rmsnorm_ref(torch.from_numpy(x).to(_TDT[dt]), torch.from_numpy(g))
+    assert got.dtype == _TDT[dt]
+    tol = 2e-2 if dt == "bfloat16" else 2e-6
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol, atol=tol)
