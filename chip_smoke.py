@@ -4,21 +4,35 @@
 
 Builds every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
 with nvcc (sm_90a), holds each against its plain PyTorch version on the card,
-then serves llama3.2-3b at full width with random weights from a seed:
+then serves and trains llama3.2-3b at full width with random weights from a
+seed:
 
 1. device and toolchain: card name and power limit, torch and nvcc versions;
-2. build, timed;
+2. build, timed (one nvcc per source, all started together);
 3. flash_attention_fwd against its plain version at every shape of the JAX
    package's kernel tests and at the llama3.2-3b prefill shape, fp32 and bf16,
    with its time, the plain version's, SDPA's (a yardstick only) and its bound;
-4. a full-width bf16 prefill (batch 4, prompt 2048) through
+   and timed at the training shape (batch 2, fp32);
+4. rmsnorm against its plain version at the shapes of the JAX package's
+   kernel tests, at the llama3.2-3b activation shape of the training batch
+   (4096, 3072) and at ragged and misaligned shapes, fp32 and bf16, with its
+   time, the plain version's, ``F.rms_norm``'s (a yardstick only) and its
+   bound.  No path of the model runs it (nor its JAX twin): 0 launches;
+5. a full-width bf16 prefill (batch 4, prompt 2048) through
    ``make_prefill_step(use_kernel=True)``: the kernel launches once a layer;
-5. the same prefill in fp32 at batch 1 with and without the kernel;
-6. the serving loop of ``repro_torch.launch.serve`` (batch 4, prompt 128,
+6. the same prefill in fp32 at batch 1 with and without the kernel;
+7. the serving loop of ``repro_torch.launch.serve`` (batch 4, prompt 128,
    32 decoded) in bf16, timed; then the decode loop's last prompt-step
    logits against the prefill step's on the same prompt, held in fp32 and
    measured in bf16;
-7. one JSON line on every kernel, the card's name and power limit, and last
+8. full-width fp32 training (batch 2 x 2048, remat): one loss and gradient
+   through the kernel against one through the plain path, beside the fp32
+   floor of two plain paths (see FLOOR_CHUNK), then 3 timed
+   ``make_train_step`` steps with AdamW through the kernel, which launches
+   twice a layer a step (forward and remat recompute);
+9. the train driver of ``repro_torch.launch.train`` at smoke width: 30 steps,
+   checkpoints, a board failure at step 15, remap and restore from step 10;
+10. one JSON line on every kernel, the card's name and power limit, and last
    the JSON result line.
 
 Any failure raises and exits nonzero; without a CUDA device, or without the
@@ -28,9 +42,14 @@ result.  It imports nothing of JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import io
 import json
+import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -68,6 +87,29 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_DECODE = 4, 128, 32
 # prefill with and without the kernel; the decode loop and the prefill): both
 # sum in fp32, in different orders, through 28 layers.
 FP32_TOL = 1e-3
+# rmsnorm: tests/test_kernels.py's tolerances (rtol = atol) and shapes, then
+# the activation shape of the training batch, ragged rows and widths, and an
+# input 4 bytes off a 16-byte boundary (the kernel's element-wise path)
+RMS_TOL = {torch.float32: 2e-6, torch.bfloat16: 2e-2}
+RMS_CASES = [
+    ((4, 128), torch.float32),
+    ((2, 200, 64), torch.float32),
+    ((1, 64, 256), torch.bfloat16),
+]
+RMS_MORE = [(4096, 3072), (333, 200), (7, 77), (3, 1000)]
+# Training: batch 2 x 2048 of llama3.2-3b in fp32; the kernel-vs-plain gate.
+# The loss is held to LOSS_RTOL and the global gradient norm to GRAD_RTOL,
+# relative.  Each leaf's gradient is held to a relative L2 of GRAD_RTOL, or
+# to the fp32 floor of the model where that is larger: the difference, in the
+# same run, between two plain paths that differ only in summation order (the
+# dense attention and the JAX package's chunked online-softmax attention with
+# chunks of FLOOR_CHUNK keys).  The init's attention scores of order 100 make
+# the softmax nearly one-hot, so the backward pass through 28 layers
+# amplifies fp32 rounding: on the H100 the two plain paths differ by ~2.5e-2
+# per layer-stacked leaf, the kernel and the dense path by ~5e-3.
+TRAIN_BATCH, TRAIN_LEN, TRAIN_STEPS = 2, 2048, 3
+LOSS_RTOL, GRAD_RTOL = 1e-4, 1e-3
+FLOOR_CHUNK = 256
 
 
 def log(msg: str) -> None:
@@ -86,6 +128,36 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Mean device time of ``fn`` in ms, replaying a CUDA graph of ``reps`` calls.
+
+    For kernels of a few microseconds, whose eager launches from Python leave
+    the card idle between them: the graph replays the launches back to back.
+    """
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (3 * reps)
+    del graph
+    torch.cuda.empty_cache()
+    return ms
 
 
 def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -203,7 +275,105 @@ def phase_kernel_checks() -> dict:
         results[dtype] = r
         del q, k, v, qt, kt, vt, got, want, sdpa, err
     torch.cuda.empty_cache()
-    return results[torch.bfloat16]  # the main path runs bf16
+
+    # the training shape: batch 2, fp32, as the training step calls it
+    q, k, v = _qkv(TRAIN_BATCH, TRAIN_LEN, TRAIN_LEN, 24, 8, 128, torch.float32, gen)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    bound_ms, bound_by = _attention_bound_ms(q, k, v, True, 0)
+    train = {
+        "ms": cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, True, 0)),
+        "plain_ms": cuda_ms(lambda: fa.plain(q, k, v, True, 0), reps=5),
+        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)),
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+    }
+    log(f"[kernel] flash_attention_fwd training shape B={TRAIN_BATCH} S={TRAIN_LEN} H=24 KV=8 "
+        f"D=128 causal torch.float32: kernel_ms {train['ms']:.4f} plain_ms "
+        f"{train['plain_ms']:.4f} library_ms(SDPA) {train['library_ms']:.4f} bound_ms "
+        f"{bound_ms:.4f} ({bound_by})")
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return {**results[torch.bfloat16], "train_shape_fp32": train}  # the main path runs bf16
+
+
+def _rms_input(shape, dtype, gen, misaligned=False):
+    n = math.prod(shape)
+    flat = torch.randn(n + 1, generator=gen, device="cuda").to(dtype)
+    x = (flat[1:] if misaligned else flat[:n]).view(shape)
+    g = torch.randn(shape[-1], generator=gen, device="cuda") * 0.1
+    return x, g
+
+
+def _rms_check(x, g, label):
+    from repro_torch.kernels import rmsnorm as rms
+
+    got = rms.rmsnorm(x, g)
+    want = rms.plain(x, g)
+    torch.cuda.synchronize()
+    if got.dtype != x.dtype or got.shape != x.shape:
+        raise AssertionError(f"rmsnorm {label}: got {got.dtype} {tuple(got.shape)}")
+    tol = RMS_TOL[x.dtype]
+    err = (got.float() - want.float()).abs()
+    if (err > tol * (1 + want.float().abs())).any():
+        raise AssertionError(f"rmsnorm {label}: max_abs_err {float(err.max()):.3e} over "
+                             f"tolerance {tol}")
+    return float(err.max())
+
+
+def phase_rmsnorm_checks() -> dict:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import rmsnorm as rms
+
+    gen = torch.Generator("cuda").manual_seed(1)
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    n = 0
+    for shape, dtype in RMS_CASES:
+        worst[dtype] = max(worst[dtype], _rms_check(*_rms_input(shape, dtype, gen),
+                                                    f"{shape} {dtype}"))
+        n += 1
+    for shape in RMS_MORE:
+        for dtype in (torch.float32, torch.bfloat16):
+            for misaligned in (False, True):
+                x, g = _rms_input(shape, dtype, gen, misaligned)
+                worst[dtype] = max(worst[dtype], _rms_check(
+                    x, g, f"{shape} {dtype} misaligned={misaligned}"))
+                n += 1
+    log(f"[kernel] rmsnorm: {n} shapes within {RMS_TOL[torch.float32]} (fp32, max_abs_err "
+        f"{worst[torch.float32]:.3e}) and {RMS_TOL[torch.bfloat16]} (bf16, max_abs_err "
+        f"{worst[torch.bfloat16]:.3e})")
+
+    results = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x, g = _rms_input(RMS_MORE[0], dtype, gen)
+        err = _rms_check(x, g, f"{RMS_MORE[0]} {dtype}")
+        w = (1.0 + g).to(dtype)
+        d = x.shape[-1]
+        lib = F.rms_norm(x, (d,), weight=w, eps=1e-6)
+        if (lib.float() - rms.plain(x, g).float()).abs().max() > 5 * RMS_TOL[dtype] * (
+                1 + float(x.float().abs().max())):
+            raise AssertionError("F.rms_norm yardstick does not compute the same function")
+        nbytes = 2 * x.numel() * x.element_size() + g.numel() * g.element_size()
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = 4.0 * x.numel() / PEAK_FLOPS[torch.float32] * 1e3  # fp32 math on CUDA cores
+        r = {
+            "max_abs_err": err,
+            "ms": graph_ms(lambda: rms.rmsnorm(x, g)),
+            "plain_ms": graph_ms(lambda: rms.plain(x, g)),
+            "library_ms": graph_ms(lambda: F.rms_norm(x, (d,), weight=w, eps=1e-6)),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "ms_eager": cuda_ms(lambda: rms.rmsnorm(x, g), reps=50),
+        }
+        log(f"[kernel] rmsnorm {tuple(x.shape)} {dtype}: max_abs_err {err:.3e} kernel_ms "
+            f"{r['ms']:.4f} (eager launches {r['ms_eager']:.4f}) plain_ms {r['plain_ms']:.4f} "
+            f"library_ms(F.rms_norm) {r['library_ms']:.4f} bound_ms {r['bound_ms']:.4f} "
+            f"({r['bound_by']}: {nbytes / 1e6:.1f} MB)")
+        results[dtype] = r
+        del x, g, w, lib
+    torch.cuda.empty_cache()
+    return {**results[torch.bfloat16], "fp32": results[torch.float32]}
 
 
 def _prefill(cfg, params, tokens, use_kernel: bool):
@@ -220,13 +390,15 @@ def _prefill(cfg, params, tokens, use_kernel: bool):
 def phase_prefill(cfg, params, smi) -> dict:
     from repro_torch.data.pipeline import make_batch
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rms
 
     tokens = torch.from_numpy(make_batch(cfg, PREFILL_LEN, PREFILL_BATCH)["tokens"]).cuda()
     torch.cuda.reset_peak_memory_stats()
     fa.launches = 0
+    rms.launches = 0
     logits, secs = _prefill(cfg, params, tokens, use_kernel=True)
-    launches = {"flash_attention_fwd": fa.launches}
-    if launches["flash_attention_fwd"] != cfg.n_layers:
+    launches = {"flash_attention_fwd": fa.launches, "rmsnorm": rms.launches}
+    if launches["flash_attention_fwd"] != cfg.n_layers or launches["rmsnorm"]:
         raise AssertionError(f"prefill launched the flash kernel {launches} times, "
                              f"want {cfg.n_layers}")
     if logits.shape != (PREFILL_BATCH, 1, cfg.vocab) or not torch.isfinite(logits).all():
@@ -313,6 +485,192 @@ def phase_serve(cfg, params, params32, smi) -> None:
         raise AssertionError(f"decode loop disagrees with prefill: fp32 rel_l2 {err32:.3e}")
 
 
+def _named_leaves(tree, prefix=""):
+    """(path, tensor) pairs of a param tree, in the flatten order (sorted keys)."""
+    for key in sorted(tree):
+        if isinstance(tree[key], dict):
+            yield from _named_leaves(tree[key], f"{prefix}{key}.")
+        else:
+            yield prefix + key, tree[key]
+
+
+def _loss_and_grads(cfg, params, batch, use_kernel: bool):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.train import steps as st
+
+    grad_fn = st.value_and_grad(st.make_loss_fn(
+        cfg, st.TrainOptions(use_kernel=use_kernel, remat=True)))
+    fa.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (_, (loss, _)), grads = grad_fn(params, batch)
+    torch.cuda.synchronize()
+    return {"loss": float(loss), "grads": grads, "launches": fa.launches,
+            "s": time.perf_counter() - t0, "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def phase_train(cfg, smi) -> dict:
+    """Full-width fp32 training: the kernel-vs-plain gate, then timed AdamW steps."""
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rms
+    from repro_torch.models import get_model
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import steps as st
+
+    params = get_model(cfg).init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                                        dtype=torch.float32)
+    n_params = sum(p.numel() for _, p in _named_leaves(params))
+
+    def batch_of(step):
+        return {k: torch.from_numpy(v).cuda()
+                for k, v in make_batch(cfg, TRAIN_LEN, TRAIN_BATCH, step=step).items()}
+
+    # -- gate: one loss and gradient through the kernel against the plain path,
+    #    beside the fp32 floor (plain chunked against plain dense)
+    batch = batch_of(0)
+    runs, host = {}, {}
+    for name, c, use_kernel in (("kernel", cfg, True),
+                                ("chunked", dataclasses.replace(cfg, attn_chunk=FLOOR_CHUNK),
+                                 False),
+                                ("plain", cfg, False)):
+        runs[name] = _loss_and_grads(c, params, batch, use_kernel=use_kernel)
+        runs[name]["norm"] = float(opt.global_norm(runs[name]["grads"]))
+        if name != "plain":  # keep on the host, free the card
+            host[name] = {n: g.cpu() for n, g in _named_leaves(runs[name].pop("grads"))}
+            torch.cuda.empty_cache()
+    k, c, p = runs["kernel"], runs["chunked"], runs["plain"]
+    leaf_err, leaf_floor = {}, {}
+    for n, g in _named_leaves(p.pop("grads")):
+        leaf_err[n] = rel_l2(host["kernel"][n].cuda(), g)
+        leaf_floor[n] = rel_l2(host["chunked"][n].cuda(), g)
+    del host
+    torch.cuda.empty_cache()
+    loss_err = abs(k["loss"] - p["loss"]) / abs(p["loss"])
+    norm_err = abs(k["norm"] - p["norm"]) / p["norm"]
+    norm_floor = abs(c["norm"] - p["norm"]) / p["norm"]
+    bad = [n for n in leaf_err if leaf_err[n] > max(GRAD_RTOL, leaf_floor[n])]
+    log(f"[train] gate {cfg.name} fp32 batch {TRAIN_BATCH} x {TRAIN_LEN}, remat: loss kernel "
+        f"{k['loss']:.7f} plain {p['loss']:.7f} chunked {c['loss']:.7f} (kernel rel "
+        f"{loss_err:.2e}, tol {LOSS_RTOL}); grad norm kernel {k['norm']:.6e} plain "
+        f"{p['norm']:.6e} (rel {norm_err:.2e}, tol {GRAD_RTOL}; chunked rel {norm_floor:.2e}); "
+        f"flash launches {k['launches']}, {c['launches']}, {p['launches']}; "
+        f"{k['s']:.2f}s, {c['s']:.2f}s, {p['s']:.2f}s; peak {k['peak_gib']:.1f}, "
+        f"{c['peak_gib']:.1f}, {p['peak_gib']:.1f} GiB")
+    for n in leaf_err:
+        log(f"[train] gate leaf {n:24s} rel_l2 kernel {leaf_err[n]:.2e} vs floor (chunked) "
+            f"{leaf_floor[n]:.2e}, tol max({GRAD_RTOL}, floor)")
+    if k["launches"] != 2 * cfg.n_layers or c["launches"] or p["launches"]:
+        raise AssertionError(f"loss and gradient launched the flash kernel {k['launches']} "
+                             f"times with it and {c['launches']}, {p['launches']} without; "
+                             f"want {2 * cfg.n_layers} and 0")
+    if bad or not (loss_err <= LOSS_RTOL and norm_err <= GRAD_RTOL
+                   and math.isfinite(k["loss"]) and math.isfinite(k["norm"])):
+        raise AssertionError(f"training gate: the kernel's loss, gradient norm or gradients "
+                             f"{bad} disagree with the plain path's")
+
+    # -- timed AdamW steps through the kernel (the slice's main path)
+    ocfg = opt.AdamWConfig(lr=3e-3, warmup_steps=1, total_steps=TRAIN_STEPS,
+                           schedule=cfg.schedule)
+    step_fn = st.make_train_step(cfg, ocfg, st.TrainOptions(use_kernel=True, remat=True))
+    ostate = opt.init(params)
+    batches = [batch_of(s) for s in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = 0
+    rms.launches = 0
+    secs, per_step = [], []
+    for s in range(TRAIN_STEPS):
+        before = fa.launches
+        t0 = time.perf_counter()
+        params, ostate, m = step_fn(params, ostate, batches[s])
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        per_step.append(fa.launches - before)
+        loss, gnorm, lr = float(m["loss"]), float(m["grad_norm"]), float(m["lr"])
+        log(f"[train] step {s + 1}: loss {loss:.6f} grad_norm {gnorm:.6e} lr {lr:.3e} "
+            f"{secs[-1]:.3f}s ({TRAIN_BATCH * TRAIN_LEN / secs[-1]:.0f} tok/s), flash "
+            f"launches {per_step[-1]}")
+        if not (math.isfinite(loss) and math.isfinite(gnorm)):
+            raise AssertionError(f"training step {s + 1}: loss {loss}, grad norm {gnorm}")
+    launches = {"flash_attention_fwd": fa.launches, "rmsnorm": rms.launches}
+    peak = torch.cuda.max_memory_allocated()
+    if per_step != [2 * cfg.n_layers] * TRAIN_STEPS or launches["rmsnorm"] != 0:
+        raise AssertionError(f"training steps launched {per_step} flash kernels a step, want "
+                             f"{2 * cfg.n_layers}; rmsnorm {launches['rmsnorm']}, want 0")
+    steady = sorted(secs[1:])[len(secs[1:]) // 2]
+    log(f"[train] {cfg.name} fp32, {n_params / 1e9:.3f}G params, batch {TRAIN_BATCH} x "
+        f"{TRAIN_LEN}, remat, AdamW: {TRAIN_STEPS} steps in {[round(x, 3) for x in secs]} s; "
+        f"steady {steady:.3f} s/step ({TRAIN_BATCH * TRAIN_LEN / steady:.0f} tok/s); peak "
+        f"{peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB); launches {launches} [{smi}]")
+    _profile_step(step_fn, params, ostate, batches[0])
+    del params, ostate, batches, batch, m
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _profile_step(step_fn, params, ostate, batch, top: int = 10) -> None:
+    """One more train step under torch.profiler: device time by kernel, and idle share.
+
+    Not part of the timed steps or their launch counts.
+    """
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(params, ostate, batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    if not kernels:
+        log("[profile] the profiler saw no device time; the step times above are the measure")
+        return
+    groups = {"matmul (gemm)": 0.0, "flash_attention_fwd kernel": 0.0, "other": 0.0}
+    for e in kernels:
+        name = e.key.lower()
+        key = ("flash_attention_fwd kernel" if "flash_fwd" in name
+               else "matmul (gemm)" if "gemm" in name or "cutlass" in name else "other")
+        groups[key] += e.self_device_time_total
+    log(f"[profile] one train step under torch.profiler: wall {wall_us / 1e6:.3f}s, device busy "
+        f"{busy_us / 1e6:.3f}s, idle share {max(0.0, 1 - busy_us / wall_us):.3f}; "
+        + "; ".join(f"{k} {v / 1e6:.3f}s ({v / busy_us:.1%})" for k, v in groups.items()))
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
+        log(f"[profile] {e.self_device_time_total / 1e3:9.1f} ms {e.count:6d}x  {e.key[:110]}")
+
+
+def phase_train_driver() -> dict:
+    """The train driver at smoke width: checkpoints, board failure, remap, restore."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rms
+    from repro_torch.launch import train as train_cli
+
+    fa.launches = 0
+    rms.launches = 0
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as ckpt_dir, contextlib.redirect_stdout(out):
+        res = train_cli.main(["--arch", "llama3.2-3b-smoke", "--steps", "30",
+                              "--checkpoint-every", "10", "--simulate-failure", "15",
+                              "--checkpoint-dir", ckpt_dir])
+    secs = time.perf_counter() - t0
+    text = out.getvalue()
+    for line in text.splitlines():
+        log(f"[driver] {line}")
+    for want in ("[failure] board (", "[failure] remapped to rows=",
+                 "[failure] restarted from checkpoint step 10", "[train] step   30 loss"):
+        if want not in text:
+            raise AssertionError(f"train driver: no line with {want!r}")
+    if res["step"] != 30 or not math.isfinite(res["loss"]):
+        raise AssertionError(f"train driver ended at step {res['step']} with loss {res['loss']}")
+    log(f"[driver] llama3.2-3b-smoke: 30 steps with a failure at 15 and a restart from 10 in "
+        f"{secs:.1f}s, final loss {res['loss']:.4f}")
+    return {"flash_attention_fwd": fa.launches, "rmsnorm": rms.launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -324,21 +682,37 @@ def main() -> int:
     smi = phase_device()
     phase_build()
     kernel = phase_kernel_checks()
+    rms_kernel = phase_rmsnorm_checks()
 
     cfg = get_config("llama3.2-3b")
     params = get_model(cfg).init_params(cfg, torch.Generator("cuda").manual_seed(0))
-    launches = phase_prefill(cfg, params, smi)
+    prefill = phase_prefill(cfg, params, smi)
     params32 = phase_e2e_fp32(cfg)
     phase_serve(cfg, params, params32, smi)
+    del params, params32  # 7.2 + 14.4 GB, before training takes the card
+    torch.cuda.empty_cache()
+    train = phase_train(cfg, smi)
+    driver = phase_train_driver()
 
+    paths = {"prefill": prefill, "train_steps": train, "train_driver": driver}
     line = {"kernels": [{
         "name": "flash_attention_fwd",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:37",
-        "launches": launches["flash_attention_fwd"],
+        "launches": train["flash_attention_fwd"],
+        "launches_by_path": {k: v.get("flash_attention_fwd", 0) for k, v in paths.items()},
         "checked": True,
         **kernel,
+    }, {
+        "name": "rmsnorm",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+        "replaces": "src/repro/kernels/rmsnorm.py:18",
+        "launches": train["rmsnorm"],
+        "launches_by_path": {k: v.get("rmsnorm", 0) for k, v in paths.items()},
+        "checked": True,
+        **rms_kernel,
     }]}
     log(json.dumps(line))
     log(f"[done] {time.perf_counter() - t_start:.1f}s")

@@ -1,0 +1,80 @@
+"""Fused RMSNorm forward: the CUDA kernel's wrapper and its plain version.
+
+Counterpart of ``repro.kernels.rmsnorm.rmsnorm``.  On a CUDA tensor the
+wrapper launches the hand-written kernel of ``csrc/rmsnorm.cu`` (see the note
+at its top for its design and its bound); on CPU tensors it computes the
+plain version, ``ref.rmsnorm_ref``.  It never falls back from the one to the
+other: a CUDA input the kernel cannot take raises.  Forward only, as in the
+JAX package, whose ``pallas_call`` has no VJP; the models' norms do not call
+it, as the JAX models do not.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import _build, ref
+
+SOURCE = "rmsnorm"
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# Kernel launches since the caller last set this to 0 (plain calls not counted).
+launches = 0
+
+
+def plain(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """The function the kernel computes, in plain torch."""
+    return ref.rmsnorm_ref(x, gamma, eps)
+
+
+@functools.cache
+def _entry():
+    fn = _build.load(SOURCE).repro_rmsnorm_fwd
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(x, gamma):
+    if not (x.is_cuda and gamma.is_cuda) or x.device != gamma.device:
+        raise ValueError("rmsnorm: x and gamma must lie on one CUDA device")
+    if x.dtype not in _DTYPE_CODES or gamma.dtype != torch.float32:
+        raise TypeError(f"rmsnorm takes float32 or bfloat16 x and float32 gamma; got "
+                        f"{x.dtype}, {gamma.dtype}")
+    if x.dim() == 0 or gamma.shape != (x.shape[-1],):
+        raise ValueError(f"rmsnorm wants x (..., d) and gamma (d,); got {tuple(x.shape)}, "
+                         f"{tuple(gamma.shape)}")
+    d = x.shape[-1]
+    if d == 0 or x.numel() // d >= 2**31 or d >= 2**31:
+        raise ValueError(f"rmsnorm: unsupported shape {tuple(x.shape)}")
+    if not (x.is_contiguous() and gamma.is_contiguous()):
+        raise ValueError("rmsnorm: x and gamma must be contiguous")
+
+
+def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """x (..., d), gamma (d,) -> x·rsqrt(mean(x², -1) + eps)·(1 + gamma), in x's dtype.
+
+    The JAX version's TPU tiling knob ``block_rows`` and its ``interpret``
+    switch have no counterpart: the kernel's layout is fixed (a warp a row),
+    and CPU tensors take the plain version.
+    """
+    global launches
+    if x.device.type == gamma.device.type == "cpu":
+        return plain(x, gamma, eps)
+    _check(x, gamma)
+    d = x.shape[-1]
+    rows = x.numel() // d
+    y = torch.empty_like(x)
+    if rows == 0:
+        return y
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _entry()(x.data_ptr(), gamma.data_ptr(), y.data_ptr(), _DTYPE_CODES[x.dtype],
+                       rows, d, float(eps), stream)
+    if err:
+        raise RuntimeError(f"rmsnorm: kernel launch failed with cudaError {err}")
+    launches += 1
+    return y

@@ -3,8 +3,9 @@
 The parameter layout is the JAX package's: a nested dict with the per-layer
 weights stacked on a leading L axis (``params["layers"]["wq"]`` is
 (L, d, H·hd)), so ``repro_torch.testing.bridge`` moves weights one-to-one.
-Layers run as a Python loop over that axis.  ``DenseLM`` holds the stacked
-parameters as an ``nn.Module`` and delegates to the functions here.
+Layers run as a Python loop over that axis, each stacked weight unbound once
+per call.  ``DenseLM`` holds the stacked parameters as an ``nn.Module`` and
+delegates to the functions here.
 
 The MoE, VLM (M-RoPE) and audio (encoder-decoder) families raise
 ``NotImplementedError`` until their ROADMAP items are ported.
@@ -13,6 +14,7 @@ The MoE, VLM (M-RoPE) and audio (encoder-decoder) families raise
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
@@ -101,9 +103,20 @@ def _stack_norm(cfg: ArchConfig, n: int, device=None):
     return {k: a.expand((n,) + a.shape).clone() for k, a in base.items()}
 
 
-def _layer(tree, i: int):
-    """Layer ``i`` of a layer-stacked param tree."""
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+def _unstack(tree, n: int) -> list[dict]:
+    """The ``n`` per-layer trees of a layer-stacked param tree.
+
+    Each stacked weight is unbound once, so under autograd its gradient is
+    one ``stack`` of the ``n`` slice gradients.  Indexing ``w[i]`` per layer
+    would instead allocate a zeroed full-size (L, ...) gradient for every
+    layer and sum them.
+    """
+    out: list[dict] = [{} for _ in range(n)]
+    for k, v in tree.items():
+        parts = _unstack(v, n) if isinstance(v, dict) else torch.unbind(v, 0)
+        for i in range(n):
+            out[i][k] = parts[i]
+    return out
 
 
 def _unembed(params):
@@ -159,30 +172,44 @@ def forward(
     positions: torch.Tensor | None = None,
     remat: bool = True,
     use_kernel: bool = False,
+    return_hidden: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Full forward pass -> (logits, moe_aux_loss), tokens (B, S) integer.
 
-    ``remat`` is accepted for the JAX signature and has no effect: this
-    serving path keeps no activations for a backward pass.
+    With ``remat`` and autograd on, each layer runs under
+    ``torch.utils.checkpoint`` (the counterpart of ``jax.checkpoint`` around
+    the JAX layer): only its input is kept, and the backward pass runs the
+    layer again.  Without autograd (serving) it has no effect.  With
+    ``return_hidden`` the final-norm hidden states (B, S, d) come back in place
+    of the logits, for the chunked cross-entropy.
     """
     _require_ported(cfg)
     if positions is None:
         positions = _positions_default(tokens)
     x = params["embed"][tokens.long()]
-    for i in range(cfg.n_layers):
-        lp = _layer(params["layers"], i)
-        a = L.apply_norm(x, lp["attn_norm"], cfg.norm_type)
-        x = x + _attn_block(cfg, lp, a, positions, causal=True, window=0,
+
+    def layer_fn(h, lp):
+        a = L.apply_norm(h, lp["attn_norm"], cfg.norm_type)
+        h = h + _attn_block(cfg, lp, a, positions, causal=True, window=0,
                             use_kernel=use_kernel)
-        m = L.apply_norm(x, lp["mlp_norm"], cfg.norm_type)
-        x = x + _mlp_block(cfg, lp, m)
+        m = L.apply_norm(h, lp["mlp_norm"], cfg.norm_type)
+        return h + _mlp_block(cfg, lp, m)
+
+    checkpointed = remat and torch.is_grad_enabled()
+    for lp in _unstack(params["layers"], cfg.n_layers):
+        if checkpointed:
+            x = torch.utils.checkpoint.checkpoint(layer_fn, x, lp, use_reentrant=False)
+        else:
+            x = layer_fn(x, lp)
     x = L.apply_norm(x, params["final_norm"], cfg.norm_type)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)  # dense: no MoE loss
+    if return_hidden:
+        return x, aux
     logits = x @ _unembed(params)
     if logits.shape[-1] != cfg.vocab:  # padded vocab: mask the tail
         keep = torch.arange(logits.shape[-1], device=logits.device) < cfg.vocab
         logits = torch.where(keep, logits, torch.tensor(-1e30, dtype=logits.dtype,
                                                         device=logits.device))
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)  # dense: no MoE loss
     return logits, aux
 
 
@@ -219,8 +246,7 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, positions=None):
     if positions is None:
         positions = torch.full((b, 1), pos, dtype=torch.int32, device=tokens.device)
     x = params["embed"][tokens.long()]
-    for i in range(cfg.n_layers):
-        lp = _layer(params["layers"], i)
+    for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
         a = L.apply_norm(x, lp["attn_norm"], cfg.norm_type)
         q = (a @ lp["wq"]).reshape(b, 1, h_, hd)
         k = (a @ lp["wk"]).reshape(b, 1, kv, hd)

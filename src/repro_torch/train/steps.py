@@ -1,7 +1,11 @@
-"""Serving steps (the serving part of ``repro.train.steps``).
+"""Train and serving steps (counterpart of ``repro.train.steps``).
 
-Loss, optimizer, gradient sync and the train step come with the training
-slice (ROADMAP Queue A).  The steps run without autograd.
+The train step runs with ``sync="auto"``, the JAX package's baseline: one
+process computes the loss and its gradient with autograd and applies AdamW.
+The paper's gradient-sync modes (``sync`` in ring / bidir / torus /
+hamiltonian) and top-k compression (``compress_k > 0``) come with the
+gradient-sync slice (ROADMAP Queue A item 3) and raise until then.  The
+serving steps run without autograd.
 """
 
 from __future__ import annotations
@@ -9,15 +13,151 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.utils.checkpoint
 
+from repro_torch import tree as tree_lib
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import get_model
+from repro_torch.train import optimizer as opt
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainOptions:
-    remat: bool = True  # accepted for the JAX signature; no effect when serving
+    sync: str = "auto"  # auto | ring | bidir | torus | hamiltonian (only auto is ported)
+    remat: bool = True
     use_kernel: bool = False
+    compress_k: int = 0
+    moe_aux_weight: float = 0.01
+    # sequence-chunked CE: compute unembed+loss in S-chunks so the full
+    # (tokens, vocab) logits are never materialized (0 = off).
+    ce_chunk: int = 0
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean of logsumexp minus the label's logit, in float32.
+
+    The JAX version contracts a one-hot of the labels with the logits, so a
+    vocab-sharded layout stays sharded; the sum has one nonzero term, so a
+    gather of the label's logit gives the same number without a (B, S, V)
+    one-hot.
+    """
+    return torch.mean(_token_losses(logits.float(), labels))
+
+
+def _token_losses(logits, labels):
+    """logsumexp minus the label's logit, per token."""
+    lse = torch.logsumexp(logits, dim=-1)
+    return lse - torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+
+
+def make_loss_fn(cfg: ArchConfig, options: TrainOptions, act_specs=None):
+    """loss_fn(params, batch) -> (loss + moe_aux_weight·aux, (loss, aux)).
+
+    ``act_specs`` (activation shardings) is accepted for the JAX signature.
+    """
+    model = get_model(cfg)
+
+    def loss_fn(params, batch):
+        extras = {}
+        if "positions" in batch:
+            extras["positions"] = batch["positions"]
+        if options.ce_chunk and cfg.family in ("dense", "moe", "vlm"):
+            hidden, aux = model.forward(
+                cfg, params, batch["tokens"], remat=options.remat,
+                use_kernel=options.use_kernel, return_hidden=True, **extras,
+            )
+            unembed = params["unembed"] if "unembed" in params else params["embed"].T
+            loss = chunked_cross_entropy(
+                hidden, unembed, batch["labels"], cfg.vocab, options.ce_chunk)
+        else:
+            logits, aux = model.forward(
+                cfg, params, batch["tokens"], remat=options.remat,
+                use_kernel=options.use_kernel, **extras,
+            )
+            loss = cross_entropy(logits, batch["labels"])
+        return loss + options.moe_aux_weight * aux, (loss, aux)
+
+    return loss_fn
+
+
+def _chunk_loss_sum(h, unembed, labels, vocab: int):
+    logits = (h @ unembed).float()
+    if logits.shape[-1] != vocab:
+        keep = torch.arange(logits.shape[-1], device=logits.device) < vocab
+        logits = torch.where(keep, logits, torch.tensor(-1e30, device=logits.device))
+    return torch.sum(_token_losses(logits, labels))
+
+
+def chunked_cross_entropy(hidden, unembed, labels, vocab: int, chunk: int):
+    """CE without materializing the full (tokens, V) logits.
+
+    Each sequence chunk computes its own unembed product and loss sum; under
+    autograd a chunk runs again in the backward pass
+    (``torch.utils.checkpoint``, as the JAX version's ``jax.checkpoint``
+    around its scan body), so only one chunk's logits are alive at a time.
+    The last chunk is shorter when ``chunk`` does not divide S, where the JAX
+    version pads and masks.
+    """
+    b, s, _ = hidden.shape
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0 in range(0, s, chunk):
+        h, lab = hidden[:, c0:c0 + chunk], labels[:, c0:c0 + chunk]
+        if torch.is_grad_enabled():
+            part = torch.utils.checkpoint.checkpoint(
+                _chunk_loss_sum, h, unembed, lab, vocab, use_reentrant=False)
+        else:
+            part = _chunk_loss_sum(h, unembed, lab, vocab)
+        total = total + part
+    return total / (b * s)
+
+
+def value_and_grad(loss_fn):
+    """``jax.value_and_grad(loss_fn, has_aux=True)`` for a tree of tensors.
+
+    Returns f(params, batch) -> ((value, aux), grads), the gradient of the
+    value with respect to every leaf of ``params`` (a tree of the same
+    structure).  The caller's tensors are not changed: the loss sees detached
+    views of them that require grad.
+    """
+
+    def f(params, batch):
+        flat, spec = tree_lib.flatten(params)
+        views = [p.detach().requires_grad_(True) for p in flat]
+        value, aux = loss_fn(tree_lib.unflatten(spec, views), batch)
+        grads = torch.autograd.grad(value, views, allow_unused=True, materialize_grads=True)
+        aux = tree_lib.tree_map(lambda t: t.detach(), aux)
+        return (value.detach(), aux), tree_lib.unflatten(spec, list(grads))
+
+    return f
+
+
+def make_train_step(cfg: ArchConfig, ocfg: opt.AdamWConfig, options: TrainOptions,
+                    policy=None, mesh=None, act_specs=None):
+    """Returns train_step(params, opt_state, batch) -> (params, opt_state, metrics).
+
+    ``policy``, ``mesh`` and ``act_specs`` are accepted for the JAX signature;
+    with ``sync="auto"`` the JAX version does not read ``policy`` or ``mesh``
+    either.  The step updates ``params`` and the moments in place
+    (``optimizer.apply``) and returns them.
+    """
+    if options.sync != "auto" or options.compress_k:
+        raise NotImplementedError(
+            f"sync={options.sync!r}, compress_k={options.compress_k}: the paper's gradient-sync "
+            "modes come with the gradient-sync slice (ROADMAP Queue A item 3); only "
+            "sync='auto' without compression is ported")
+    grad_fn = value_and_grad(make_loss_fn(cfg, options, act_specs=act_specs))
+
+    def train_step(params, opt_state, batch):
+        (_, (loss, aux)), grads = grad_fn(params, batch)
+        params, opt_state, m = opt.apply(ocfg, opt_state, params, grads)
+        return params, opt_state, {"loss": loss, "aux": aux, **m}
+
+    return train_step
+
+
+# ---------------------------------------------------------------------------
+# serving steps
+# ---------------------------------------------------------------------------
 
 
 def make_prefill_step(cfg: ArchConfig, options: TrainOptions):

@@ -1,7 +1,7 @@
-"""The port's flash-attention op and RMSNorm reference against the JAX package's.
+"""The port's flash-attention op and RMSNorm kernel wrapper against the JAX package's.
 
-On the CPU the port's op computes its plain version; the JAX op runs its
-Pallas kernel in interpret mode, as tests/test_kernels.py runs it.  Inputs
+On the CPU the port's wrappers compute their plain versions; the JAX kernels
+run in Pallas interpret mode, as tests/test_kernels.py runs them.  Inputs
 are made with NumPy from a seed and handed to both.  The tolerances are
 those of tests/test_kernels.py.
 """
@@ -16,9 +16,11 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels import rmsnorm as jrms  # noqa: E402
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.kernels import rmsnorm as trms  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -98,3 +100,32 @@ def test_rmsnorm_ref_matches_jax(case):
     assert got.dtype == _TDT[dt]
     tol = 2e-2 if dt == "bfloat16" else 2e-6
     np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("case", RMS_CASES, ids=[str(c) for c in RMS_CASES])
+def test_rmsnorm_wrapper_matches_jax_kernel(case):
+    # the JAX Pallas kernel in interpret mode against the port's wrapper on CPU
+    # tensors (its plain version), at tests/test_kernels.py's tolerances
+    shape, dt = case
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal(shape, dtype=np.float32)
+    g = rng.standard_normal((shape[-1],), dtype=np.float32) * 0.1
+    want = jrms.rmsnorm(jnp.asarray(x, _JDT[dt]), jnp.asarray(g))
+    before = trms.launches
+    got = trms.rmsnorm(torch.from_numpy(x).to(_TDT[dt]), torch.from_numpy(g))
+    assert trms.launches == before  # the CPU path is the plain version, not a launch
+    assert got.dtype == _TDT[dt] and tuple(got.shape) == shape
+    tol = 2e-2 if dt == "bfloat16" else 2e-6
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("x_dev,g_dev", [("meta", "meta"), ("meta", "cpu"), ("cpu", "meta")])
+def test_rmsnorm_wrapper_never_falls_back_off_the_cpu(x_dev, g_dev):
+    # anything not wholly on the CPU goes to the kernel's checks, never to the
+    # plain version: meta tensors, which the kernel cannot take, raise
+    x = torch.empty((4, 64), device=x_dev)
+    g = torch.empty((64,), device=g_dev)
+    before = trms.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        trms.rmsnorm(x, g)
+    assert trms.launches == before

@@ -1,0 +1,246 @@
+"""The port's training slice against the JAX package's, on the CPU.
+
+Weights are the JAX package's float32 init, moved into the port through
+``repro_torch.testing.bridge``; batches come from the (bit-identical) data
+pipelines.  Tolerances, and why:
+
+* loss, grad norm and gradients: rtol 1e-4, atol 1e-4 of the leaf's largest
+  magnitude (XLA on the CPU and ATen sum in different orders, float32);
+* lr: rtol 1e-6 (a few float32 operations on a scalar);
+* updated parameters after one AdamW step: the first update is
+  lr·(u(g) + wd·p) with u(g) = g/(|g| + eps), about ±lr wherever |g| ≫ eps.
+  u is steep near 0: for two gradients g1, g2 of one sign
+  |u(g1) − u(g2)| = eps·|g1 − g2| / ((|g1| + eps)(|g2| + eps)), and across a
+  sign change it is up to 2.  So a gradient element of ~1e-6 that differs in
+  its few-ulp-of-the-leaf's-largest digits (allowed above) moves the two
+  parameters apart by ~1e-6.  Each element is held to lr times that bound,
+  computed from the clipped gradient each package used (m / (1 − b1) after
+  one step), plus rtol 1e-6 and atol 1e-7 for the rest of the update's
+  float32 arithmetic.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs.base import ArchConfig as JArchConfig  # noqa: E402
+from repro.data import pipeline as jpipe  # noqa: E402
+from repro.models import transformer as JT  # noqa: E402
+from repro.parallel.sharding import Policy  # noqa: E402
+from repro.train import optimizer as jopt  # noqa: E402
+from repro.train import steps as jsteps  # noqa: E402
+from repro_torch import tree as tree_lib  # noqa: E402
+from repro_torch.configs.base import ArchConfig  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, SyntheticLM, make_batch  # noqa: E402
+from repro_torch.kernels import flash_attention as tfa  # noqa: E402
+from repro_torch.models import transformer as TT  # noqa: E402
+from repro_torch.testing import bridge  # noqa: E402
+from repro_torch.train import optimizer as opt  # noqa: E402
+from repro_torch.train import steps as steps_lib  # noqa: E402
+
+torch.set_num_threads(2)
+
+CFG = ArchConfig("tiny", "dense", 2, 64, 4, 2, 128, 256)  # tests/test_train.py CFG
+JCFG = JArchConfig(**dataclasses.asdict(CFG))
+OCFG = dict(lr=1e-2, warmup_steps=5, total_steps=100)
+
+
+def _jax_params(cfg=JCFG):
+    return JT.init_params(cfg, jax.random.PRNGKey(0), dtype=jnp.float32)
+
+
+def _tbatch(seq=16, batch=4, step=0, cfg=CFG):
+    return {k: torch.from_numpy(v) for k, v in make_batch(cfg, seq, batch, step=step).items()}
+
+
+def _jbatch(seq=16, batch=4, step=0, cfg=JCFG):
+    return {k: jnp.asarray(v) for k, v in jpipe.make_batch(cfg, seq, batch, step=step).items()}
+
+
+def _close(got, want, rtol=1e-4):
+    want = np.asarray(want, np.float32)
+    atol = rtol * max(1e-30, float(np.abs(want).max()))
+    np.testing.assert_allclose(np.asarray(got.detach().float()), want, rtol=rtol, atol=atol)
+
+
+def _setup():
+    params = TT.init_params(CFG, torch.Generator().manual_seed(0), dtype=torch.float32)
+    step = steps_lib.make_train_step(CFG, opt.AdamWConfig(**OCFG),
+                                     steps_lib.TrainOptions(remat=False))
+    return params, opt.init(params), step
+
+
+# ---------------------------------------------------------------------------
+# one train step against JAX's make_train_step
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("remat,use_kernel,ce_chunk,seq", [
+    (False, False, 0, 16),
+    (True, False, 0, 16),
+    (True, True, 0, 16),
+    (False, True, 0, 16),
+    (True, False, 8, 16),
+    (False, False, 8, 12),   # the last chunk is short (JAX pads and masks it)
+    (True, True, 5, 16),
+])
+def test_train_step_matches_jax(remat, use_kernel, ce_chunk, seq):
+    jopts = jsteps.TrainOptions(remat=remat, use_kernel=use_kernel, ce_chunk=ce_chunk)
+    topts = steps_lib.TrainOptions(remat=remat, use_kernel=use_kernel, ce_chunk=ce_chunk)
+    jparams = _jax_params()
+    jstate = jopt.init(jparams)
+    tparams = bridge.params_from_numpy(jax.device_get(jparams))
+    tstate = opt.init(tparams)
+
+    # the gradients themselves
+    (_, (jloss, _)), jgrads = jax.jit(jax.value_and_grad(
+        jsteps.make_loss_fn(JCFG, jopts), has_aux=True))(jparams, _jbatch(seq))
+    (_, (tloss, aux)), tgrads = steps_lib.value_and_grad(
+        steps_lib.make_loss_fn(CFG, topts))(tparams, _tbatch(seq))
+    _close(tloss, jloss)
+    assert float(aux) == 0.0
+    jflat, tflat = jax.tree.leaves(jgrads), tree_lib.leaves(tgrads)
+    assert len(jflat) == len(tflat)
+    for t, j in zip(tflat, jflat):
+        _close(t, j)
+
+    # one whole step
+    jstep = jax.jit(jsteps.make_train_step(JCFG, jopt.AdamWConfig(**OCFG), jopts, Policy()))
+    jnew, jstate, jm = jstep(jparams, jstate, _jbatch(seq))
+    tstep = steps_lib.make_train_step(CFG, opt.AdamWConfig(**OCFG), topts)
+    before = tfa.launches
+    tnew, tstate, tm = tstep(tparams, tstate, _tbatch(seq))
+    assert tfa.launches == before  # CPU tensors take the plain version
+    assert tnew is tparams  # updated in place
+    _close(tm["loss"], jm["loss"])
+    _close(tm["grad_norm"], jm["grad_norm"])
+    np.testing.assert_allclose(float(tm["lr"]), float(jm["lr"]), rtol=1e-6)
+    assert int(tstate.step) == int(jstate.step) == 1 and tstate.step.dtype == torch.int32
+    for name in ("m", "v"):
+        for t, j in zip(tree_lib.leaves(getattr(tstate, name)),
+                        jax.tree.leaves(getattr(jstate, name))):
+            _close(t, j)
+    # after one step m = (1 - b1)·g for the clipped gradient g each package used
+    lr, ocfg = float(jm["lr"]), jopt.AdamWConfig(**OCFG)
+    eps = ocfg.eps
+    for t, j, mt, mj in zip(tree_lib.leaves(tnew), jax.tree.leaves(jnew),
+                            tree_lib.leaves(tstate.m), jax.tree.leaves(jstate.m)):
+        t, j = t.numpy(), np.asarray(j)
+        gt, gj = mt.double().numpy() / (1 - ocfg.b1), np.asarray(mj, np.float64) / (1 - ocfg.b1)
+        du = np.where(np.sign(gt) == np.sign(gj),
+                      eps * np.abs(gt - gj) / ((np.abs(gt) + eps) * (np.abs(gj) + eps)), 2.0)
+        bound = lr * du + 1e-6 * np.abs(j) + 1e-7
+        assert np.all(np.abs(t - j) <= bound), float(np.max(np.abs(t - j) - bound))
+
+
+def test_loss_fn_defaults_match_jax():
+    # TrainOptions' fields and defaults are the JAX package's
+    assert dataclasses.asdict(steps_lib.TrainOptions()) == dataclasses.asdict(
+        jsteps.TrainOptions())
+    assert dataclasses.asdict(opt.AdamWConfig()) == dataclasses.asdict(jopt.AdamWConfig())
+
+
+def test_cross_entropy_matches_jax():
+    rng = np.random.default_rng(0)
+    logits = rng.standard_normal((2, 5, 37), dtype=np.float32) * 3
+    labels = rng.integers(0, 37, (2, 5), dtype=np.int32)
+    want = jsteps.cross_entropy(jnp.asarray(logits), jnp.asarray(labels))
+    got = steps_lib.cross_entropy(torch.from_numpy(logits), torch.from_numpy(labels))
+    _close(got, want, rtol=1e-6)
+
+
+@pytest.mark.parametrize("sync,compress_k", [("ring", 0), ("hamiltonian", 0), ("auto", 8)])
+def test_unported_sync_modes_raise(sync, compress_k):
+    with pytest.raises(NotImplementedError, match="Queue A item 3"):
+        steps_lib.make_train_step(CFG, opt.AdamWConfig(),
+                                  steps_lib.TrainOptions(sync=sync, compress_k=compress_k))
+
+
+def test_global_norm_and_apply_match_jax_with_bf16_leaf():
+    # two AdamW steps on a mixed-dtype tree; moments stay float32
+    rng = np.random.default_rng(3)
+    p = {"a": rng.standard_normal((3, 4), dtype=np.float32),
+         "b": {"c": rng.standard_normal((5,), dtype=np.float32)}}
+    gs = [{"a": rng.standard_normal((3, 4), dtype=np.float32) * 2,
+           "b": {"c": rng.standard_normal((5,), dtype=np.float32)}} for _ in range(2)]
+    cfg_kw = dict(lr=1e-2, warmup_steps=1, total_steps=10, clip_norm=1.0)
+    jp = jax.tree.map(jnp.asarray, p)
+    jp["b"]["c"] = jp["b"]["c"].astype(jnp.bfloat16)
+    js = jopt.init(jp)
+    tp = bridge.params_from_numpy(jax.device_get(jp))
+    ts = opt.init(tp)
+    assert ts.m["b"]["c"].dtype == torch.float32 and tp["b"]["c"].dtype == torch.bfloat16
+    for g in gs:
+        _close(opt.global_norm(bridge.params_from_numpy(g)),
+               jopt.global_norm(jax.tree.map(jnp.asarray, g)), rtol=1e-6)
+        jp, js, jm = jopt.apply(jopt.AdamWConfig(**cfg_kw), js, jp, jax.tree.map(jnp.asarray, g))
+        tp, ts, tm = opt.apply(opt.AdamWConfig(**cfg_kw), ts, tp, bridge.params_from_numpy(g))
+        _close(tm["grad_norm"], jm["grad_norm"], rtol=1e-6)
+    # bf16 leaves round once a step; the float32 ones agree to a few ulp
+    np.testing.assert_allclose(tp["a"].numpy(), np.asarray(jp["a"]), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(tp["b"]["c"].float().numpy(),
+                               np.asarray(jp["b"]["c"], np.float32), rtol=1e-2, atol=1e-2)
+    for name in ("m", "v"):
+        for t, j in zip(tree_lib.leaves(getattr(ts, name)), jax.tree.leaves(getattr(js, name))):
+            _close(t, j, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# ports of tests/test_train.py
+# ---------------------------------------------------------------------------
+
+
+def test_loss_descends():
+    params, ostate, step = _setup()
+    losses = []
+    for s in range(20):
+        params, ostate, metrics = step(params, ostate, _tbatch(step=s))
+        losses.append(float(metrics["loss"]))
+    assert losses[-1] < losses[0] - 0.3
+
+
+def test_data_pipeline_deterministic():
+    gen = SyntheticLM(DataConfig(vocab=256, seq_len=16, global_batch=4, seed=3))
+    a = gen.batch(7)
+    b = gen.batch(7)
+    np.testing.assert_array_equal(a["tokens"], b["tokens"])
+    c = gen.batch(8)
+    assert not np.array_equal(a["tokens"], c["tokens"])
+    # labels are next-token shifted
+    full = SyntheticLM(DataConfig(256, 16, 4, 3))
+    d = full.batch(0)
+    np.testing.assert_array_equal(d["tokens"][:, 1:], d["labels"][:, :-1])
+
+
+def test_schedules():
+    cos = opt.AdamWConfig(lr=1.0, warmup_steps=10, total_steps=110, schedule="cosine")
+    wsd = opt.AdamWConfig(lr=1.0, warmup_steps=10, total_steps=110, schedule="wsd")
+    i32 = lambda n: torch.tensor(n, dtype=torch.int32)  # noqa: E731
+    assert float(opt.schedule_lr(cos, i32(0))) == 0.0
+    assert float(opt.schedule_lr(cos, i32(10))) == 1.0
+    assert float(opt.schedule_lr(cos, i32(110))) < 0.01
+    assert float(opt.schedule_lr(wsd, i32(60))) == 1.0  # stable plateau
+    assert float(opt.schedule_lr(wsd, i32(110))) < 0.2  # decayed
+
+
+@pytest.mark.parametrize("schedule", ["cosine", "wsd", "constant"])
+def test_schedule_values_match_jax(schedule):
+    kw = dict(lr=3e-3, warmup_steps=7, total_steps=50, schedule=schedule)
+    for s in (0, 1, 6, 7, 8, 20, 41, 45, 50, 60):
+        want = float(jopt.schedule_lr(jopt.AdamWConfig(**kw), jnp.int32(s)))
+        got = opt.schedule_lr(opt.AdamWConfig(**kw), torch.tensor(s, dtype=torch.int32))
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(float(got), want, rtol=1e-6, atol=1e-12)
+
+
+def test_grad_clip():
+    g = {"w": torch.ones((4,)) * 100.0}
+    clipped, norm = opt.clip_by_global_norm(g, 1.0)
+    assert float(norm) == 200.0
+    np.testing.assert_allclose(float(torch.linalg.vector_norm(clipped["w"])), 1.0, rtol=1e-5)
