@@ -8,18 +8,29 @@ then serves and trains llama3.2-3b at full width with random weights from a
 seed:
 
 1. device and toolchain: card name and power limit, torch and nvcc versions;
-2. build, timed (one nvcc per source, all started together);
-3. flash_attention_fwd against its plain version at every shape of the JAX
-   package's kernel tests and at the llama3.2-3b prefill shape, fp32 and bf16,
-   with its time, the plain version's, SDPA's (a yardstick only) and its bound;
-   and timed at the training shape (batch 2, fp32);
+2. build, timed (one nvcc per source, all started together), with ptxas's
+   register and spill line for every kernel; then the SASS of the sm90
+   flash kernel, counted by ``cuobjdump`` for HGMMA (wgmma) and UTMALDG (TMA
+   loads) instructions;
+3. flash attention against its plain version at every shape of the JAX
+   package's kernel tests and more (GQA groups 3 and 6, a ragged 1000, a
+   window at head_dim 128), fp32 and bf16, through every kernel that takes
+   the case (``flash_attention.variant`` picks sm90 for bf16 at head_dim >=
+   16, simt otherwise; simt takes bf16 too, for the record), each line naming
+   the kernel that ran; at the llama3.2-3b prefill shape the bf16 kernels are
+   timed in turns (sm90, simt, SDPA) beside the plain version and the bound,
+   with achieved TFLOP/s, and again at head_dim 64 (the minicpm-2b widths);
+   fp32 at the prefill shape and at the training shape (batch 2) on simt;
 4. rmsnorm against its plain version at the shapes of the JAX package's
    kernel tests, at the llama3.2-3b activation shape of the training batch
    (4096, 3072) and at ragged and misaligned shapes, fp32 and bf16, with its
    time, the plain version's, ``F.rms_norm``'s (a yardstick only) and its
    bound.  No path of the model runs it (nor its JAX twin): 0 launches;
 5. a full-width bf16 prefill (batch 4, prompt 2048) through
-   ``make_prefill_step(use_kernel=True)``: the kernel launches once a layer;
+   ``make_prefill_step(use_kernel=True)``, one warm-up call and three timed
+   (their median): each launches the flash kernel once a layer, all through
+   sm90; in turns with it, for the record, the same prefill with the flash
+   op routed to the simt kernel; then one prefill under torch.profiler;
 6. the same prefill in fp32 at batch 1 with and without the kernel;
 7. the serving loop of ``repro_torch.launch.serve`` (batch 4, prompt 128,
    32 decoded) in bf16, timed; then the decode loop's last prompt-step
@@ -29,7 +40,7 @@ seed:
    through the kernel against one through the plain path, beside the fp32
    floor of two plain paths (see FLOOR_CHUNK), then 3 timed
    ``make_train_step`` steps with AdamW through the kernel, which launches
-   twice a layer a step (forward and remat recompute);
+   twice a layer a step (forward and remat recompute), all through simt;
 9. the train driver of ``repro_torch.launch.train`` at smoke width: 30 steps,
    checkpoints, a board failure at step 15, remap and restore from step 10;
 10. one JSON line on every kernel, the card's name and power limit, and last
@@ -44,9 +55,12 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import io
 import json
 import math
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -80,7 +94,15 @@ CASES = [
     (1, 33, 33, 2, 1, 8, True, 0),
     (1, 100, 60, 4, 2, 32, True, 0),
     (1, 96, 200, 4, 2, 64, True, 48),
+    # GQA groups 3 and 6, a ragged long sequence, a window at head_dim 128
+    (1, 256, 256, 6, 2, 128, True, 0),
+    (1, 192, 192, 12, 2, 64, True, 0),
+    (1, 1000, 1000, 8, 2, 128, True, 0),
+    (2, 512, 512, 8, 8, 128, True, 200),
 ]
+# the prefill shape of llama3.2-3b at head_dim 128, and of minicpm-2b at 64:
+# (b, s, h, kv, d), causal
+PREFILL_SHAPES = {"d128": (4, 2048, 24, 8, 128), "d64": (4, 2048, 36, 36, 64)}
 PREFILL_BATCH, PREFILL_LEN = 4, 2048
 SERVE_BATCH, SERVE_PROMPT, SERVE_DECODE = 4, 128, 32
 # Relative L2 error of fp32 logits between two paths of the full model (the
@@ -182,6 +204,30 @@ def phase_device() -> str:
     return smi
 
 
+def _demangle(names: list[str]) -> dict[str, str]:
+    """Short readable names of kernels (``flash_fwd_sm90<128>``), by c++filt if present."""
+    out = dict(zip(names, names))
+    if names and shutil.which("c++filt"):
+        plain = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                               text=True, timeout=60).stdout.splitlines()
+        for mangled, full in zip(names, plain):
+            out[mangled] = full.split("::")[-1].split("(")[0]
+    return out
+
+
+def _ptxas_report(text: str) -> dict[str, list[str]]:
+    """ptxas -v lines on registers and spills, by entry function."""
+    rows, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
+        if m:
+            name = m.group(1)
+            rows.setdefault(name, [])
+        elif name and ("registers" in line or "spill" in line):
+            rows[name].append(line.replace("ptxas info    :", "").strip())
+    return rows
+
+
 def phase_build() -> None:
     from repro_torch.kernels import _build
 
@@ -189,10 +235,45 @@ def phase_build() -> None:
     logs = _build.build()
     log(f"[build] {len(_build.sources())} source(s), {len(logs)} compiled in "
         f"{time.perf_counter() - t0:.1f}s into {_build.BUILD_DIR.relative_to(ROOT)}")
-    for name, out in logs.items():
-        for line in out.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+    for source, text in logs.items():
+        report = _ptxas_report(text)
+        names = _demangle(list(report))
+        for fn, lines in report.items():
+            log(f"[build] {source}: {names[fn]}: {'; '.join(lines)}")
+        for line in text.splitlines():
+            if "warning" in line.lower():
+                log(f"[build] {source}: {line.strip()}")
+
+
+def phase_sass() -> dict:
+    """HGMMA and UTMALDG instructions in the SASS of the built sm90 flash kernel."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+
+    tool = Path(_build.nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        raise RuntimeError(f"cuobjdump not found beside nvcc ({tool})")
+    lib = _build.library_path(fa.SOURCES["sm90"])
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    counts, per_fn, fn = {"HGMMA": 0, "UTMALDG": 0}, {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            fn = m.group(1)
+            per_fn[fn] = dict.fromkeys(counts, 0)
+        for op in counts:
+            if re.search(rf"\b{op}\b", line):
+                counts[op] += 1
+                if fn:
+                    per_fn[fn][op] += 1
+    names = _demangle(list(per_fn))
+    log(f"[sass] {lib.name}: HGMMA {counts['HGMMA']}, UTMALDG {counts['UTMALDG']}; "
+        + "; ".join(f"{names[f]}: {c['HGMMA']} HGMMA, {c['UTMALDG']} UTMALDG"
+                    for f, c in per_fn.items()))
+    if not all(counts.values()):
+        raise AssertionError(f"the sm90 flash kernel's SASS lacks wgmma or TMA loads: {counts}")
+    return counts
 
 
 def _qkv(b, sq, sk, h, kv, d, dtype, gen):
@@ -202,8 +283,9 @@ def _qkv(b, sq, sk, h, kv, d, dtype, gen):
     return rnd(b, sq, h, d), rnd(b, sk, kv, d), rnd(b, sk, kv, d)
 
 
-def _attention_bound_ms(q, k, v, causal, window) -> tuple[float, str]:
-    """Least time for the work these inputs need: unmasked (q, k) pairs and bytes."""
+def _attention_bound(q, k, v, causal, window) -> tuple[float, str, float]:
+    """Least time for the work these inputs need (unmasked (q, k) pairs and bytes), its
+    limit, and the operations themselves."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     qpos = torch.arange(sq, device="cuda")[:, None]
@@ -217,84 +299,118 @@ def _attention_bound_ms(q, k, v, causal, window) -> tuple[float, str]:
     nbytes = (q.numel() * 2 + k.numel() + v.numel()) * q.element_size()  # q, k, v in; o out
     t_ops = flops / PEAK_FLOPS[q.dtype] * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", flops
 
 
-def phase_kernel_checks() -> dict:
+def _kernels_for(dtype, d) -> list[str]:
+    """Every flash kernel that takes (dtype, d): the one ``variant`` picks, then simt."""
+    from repro_torch.kernels import flash_attention as fa
+
+    chosen = fa.variant(dtype, d)
+    return [chosen] if chosen == "simt" else [chosen, "simt"]
+
+
+def _flash_check(q, k, v, causal, window, kernel, label) -> float:
+    """max_abs_err of one kernel against the plain version; raises over TOL."""
+    from repro_torch.kernels import flash_attention as fa
+
+    got = fa.launch(q, k, v, causal, window, kernel=kernel)
+    want = fa.plain(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs()
+    tol = TOL[q.dtype]
+    if (err > tol * (1 + want.float().abs())).any():
+        raise AssertionError(f"flash attention {label} {q.dtype} via {kernel}: max_abs_err "
+                             f"{float(err.max()):.3e} over tolerance {tol}")
+    return float(err.max())
+
+
+def _time_flash(q, k, v, kernels, rounds=3) -> dict:
+    """Times of the named kernels and SDPA at one causal shape, taken in turns
+    (kernel by kernel, then again), with the plain version's and the bound."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
 
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    want = fa.plain(q, k, v, True, 0)
+    sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    if (sdpa.transpose(1, 2).float() - want.float()).abs().max() > 10 * TOL[q.dtype]:
+        raise AssertionError("SDPA yardstick does not compute the same function")
+    del want, sdpa
+    fns = {name: functools.partial(fa.launch, q, k, v, True, 0, kernel=name) for name in kernels}
+    fns["sdpa"] = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                         enable_gqa=True)
+    turns = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            turns[name].append(cuda_ms(fn))
+    bound_ms, bound_by, flops = _attention_bound(q, k, v, True, 0)
+    r = {name: sorted(ts)[len(ts) // 2] for name, ts in turns.items()}
+    r.update(plain_ms=cuda_ms(lambda: fa.plain(q, k, v, True, 0), reps=5), bound_ms=bound_ms,
+             bound_by=bound_by, flops=flops, turns=turns)
+    return r
+
+
+def phase_kernel_checks() -> dict:
+    """Every flash kernel against the plain version, then the timings; returns, per
+    kernel, its numbers at the shape of its main path."""
     gen = torch.Generator("cuda").manual_seed(0)
+    worst = {}
     for dtype in (torch.float32, torch.bfloat16):
-        worst = 0.0
         for case in CASES:
             *shape, causal, window = case
             q, k, v = _qkv(*shape, dtype, gen)
-            got = fa.flash_attention_fwd(q, k, v, causal, window)
-            want = fa.plain(q, k, v, causal, window)
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs()
-            bad = err > TOL[dtype] * (1 + want.float().abs())
-            if bad.any():
-                raise AssertionError(f"flash_attention_fwd {case} {dtype}: max_abs_err "
-                                     f"{float(err.max()):.3e} over tolerance {TOL[dtype]}")
-            worst = max(worst, float(err.max()))
-        log(f"[kernel] flash_attention_fwd {dtype}: {len(CASES)} test shapes within "
-            f"{TOL[dtype]} (max_abs_err {worst:.3e})")
+            errs = {name: _flash_check(q, k, v, causal, window, name, str(case))
+                    for name in _kernels_for(dtype, shape[-1])}
+            for name, err in errs.items():
+                worst[name, dtype] = max(worst.get((name, dtype), 0.0), err)
+            log(f"[kernel] flash {case} {dtype}: "
+                + ", ".join(f"{name} max_abs_err {err:.3e}" for name, err in errs.items()))
+    for (name, dtype), err in sorted(worst.items(), key=str):
+        log(f"[kernel] flash via {name} {dtype}: every case within {TOL[dtype]} (max_abs_err "
+            f"{err:.3e})")
 
-    b, s = PREFILL_BATCH, PREFILL_LEN
-    results = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        q, k, v = _qkv(b, s, s, 24, 8, 128, dtype, gen)
-        got = fa.flash_attention_fwd(q, k, v, True, 0)
-        want = fa.plain(q, k, v, True, 0)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs()
-        if (err > TOL[dtype] * (1 + want.float().abs())).any():
-            raise AssertionError(f"flash_attention_fwd prefill shape {dtype}: max_abs_err "
-                                 f"{float(err.max()):.3e} over tolerance {TOL[dtype]}")
-        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
-        if (sdpa.transpose(1, 2).float() - want.float()).abs().max() > 10 * TOL[dtype]:
-            raise AssertionError("SDPA yardstick does not compute the same function")
-        bound_ms, bound_by = _attention_bound_ms(q, k, v, True, 0)
-        r = {
-            "max_abs_err": float(err.max()),
-            "ms": cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, True, 0)),
-            "plain_ms": cuda_ms(lambda: fa.plain(q, k, v, True, 0), reps=5),
-            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True)),
-            "bound_ms": bound_ms,
-            "bound_by": bound_by,
-        }
-        log(f"[kernel] flash_attention_fwd prefill shape B={b} S={s} H=24 KV=8 D=128 causal "
-            f"{dtype}: max_abs_err {r['max_abs_err']:.3e} kernel_ms {r['ms']:.4f} "
-            f"plain_ms {r['plain_ms']:.4f} library_ms(SDPA) {r['library_ms']:.4f} "
-            f"bound_ms {bound_ms:.4f} ({bound_by})")
-        results[dtype] = r
-        del q, k, v, qt, kt, vt, got, want, sdpa, err
-    torch.cuda.empty_cache()
+    out = {"sm90": {}, "simt": {}}
+    for tag, (b, s, h, kv, d) in PREFILL_SHAPES.items():
+        q, k, v = _qkv(b, s, s, h, kv, d, torch.bfloat16, gen)
+        errs = {name: _flash_check(q, k, v, True, 0, name, f"prefill shape {tag}")
+                for name in ("sm90", "simt")}
+        r = _time_flash(q, k, v, ("sm90", "simt"))
+        log(f"[kernel] flash prefill shape B={b} S={s} H={h} KV={kv} D={d} causal bf16: "
+            f"sm90 {r['sm90']:.4f} ms ({r['flops'] / r['sm90'] / 1e9:.0f} TFLOP/s), simt "
+            f"{r['simt']:.4f} ms ({r['flops'] / r['simt'] / 1e9:.1f} TFLOP/s), SDPA "
+            f"{r['sdpa']:.4f} ms ({r['flops'] / r['sdpa'] / 1e9:.0f} TFLOP/s), plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}); "
+            f"sm90/SDPA {r['sm90'] / r['sdpa']:.2f}; max_abs_err sm90 {errs['sm90']:.3e}, "
+            f"simt {errs['simt']:.3e}; turns {json.dumps(r['turns'])}")
+        for name in ("sm90", "simt"):
+            out[name][f"prefill_{tag}_bf16"] = {
+                "max_abs_err": errs[name], "ms": r[name], "plain_ms": r["plain_ms"],
+                "library_ms": r["sdpa"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "tflops": r["flops"] / r[name] / 1e9}
+        del q, k, v
+        torch.cuda.empty_cache()
 
-    # the training shape: batch 2, fp32, as the training step calls it
-    q, k, v = _qkv(TRAIN_BATCH, TRAIN_LEN, TRAIN_LEN, 24, 8, 128, torch.float32, gen)
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    bound_ms, bound_by = _attention_bound_ms(q, k, v, True, 0)
-    train = {
-        "ms": cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, True, 0)),
-        "plain_ms": cuda_ms(lambda: fa.plain(q, k, v, True, 0), reps=5),
-        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)),
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-    }
-    log(f"[kernel] flash_attention_fwd training shape B={TRAIN_BATCH} S={TRAIN_LEN} H=24 KV=8 "
-        f"D=128 causal torch.float32: kernel_ms {train['ms']:.4f} plain_ms "
-        f"{train['plain_ms']:.4f} library_ms(SDPA) {train['library_ms']:.4f} bound_ms "
-        f"{bound_ms:.4f} ({bound_by})")
-    del q, k, v, qt, kt, vt
-    torch.cuda.empty_cache()
-    return {**results[torch.bfloat16], "train_shape_fp32": train}  # the main path runs bf16
+    # fp32 on simt: the prefill shape, and the training shape (batch 2), as the
+    # training step calls it
+    for tag, batch in (("prefill_d128_fp32", PREFILL_BATCH), ("train_fp32", TRAIN_BATCH)):
+        q, k, v = _qkv(batch, PREFILL_LEN, PREFILL_LEN, 24, 8, 128, torch.float32, gen)
+        err = _flash_check(q, k, v, True, 0, "simt", tag)
+        r = _time_flash(q, k, v, ("simt",), rounds=1)
+        out["simt"][tag] = {"max_abs_err": err, "ms": r["simt"], "plain_ms": r["plain_ms"],
+                            "library_ms": r["sdpa"], "bound_ms": r["bound_ms"],
+                            "bound_by": r["bound_by"], "tflops": r["flops"] / r["simt"] / 1e9}
+        log(f"[kernel] flash {tag} B={batch} S={PREFILL_LEN} H=24 KV=8 D=128 causal fp32: simt "
+            f"{r['simt']:.4f} ms ({r['flops'] / r['simt'] / 1e9:.1f} TFLOP/s), SDPA "
+            f"{r['sdpa']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), max_abs_err {err:.3e}")
+        del q, k, v
+        torch.cuda.empty_cache()
+    out["sm90"]["cases_max_abs_err"] = worst["sm90", torch.bfloat16]
+    out["simt"]["cases_max_abs_err"] = {str(dt).removeprefix("torch."): worst["simt", dt]
+                                        for dt in (torch.float32, torch.bfloat16)}
+    return out
 
 
 def _rms_input(shape, dtype, gen, misaligned=False):
@@ -387,27 +503,65 @@ def _prefill(cfg, params, tokens, use_kernel: bool):
     return logits, time.perf_counter() - t0
 
 
-def phase_prefill(cfg, params, smi) -> dict:
-    from repro_torch.data.pipeline import make_batch
+def _reset_counts() -> None:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rmsnorm as rms
 
-    tokens = torch.from_numpy(make_batch(cfg, PREFILL_LEN, PREFILL_BATCH)["tokens"]).cuda()
-    torch.cuda.reset_peak_memory_stats()
     fa.launches = 0
+    fa.launches_by_variant = dict.fromkeys(fa.SOURCES, 0)
     rms.launches = 0
-    logits, secs = _prefill(cfg, params, tokens, use_kernel=True)
-    launches = {"flash_attention_fwd": fa.launches, "rmsnorm": rms.launches}
-    if launches["flash_attention_fwd"] != cfg.n_layers or launches["rmsnorm"]:
-        raise AssertionError(f"prefill launched the flash kernel {launches} times, "
-                             f"want {cfg.n_layers}")
-    if logits.shape != (PREFILL_BATCH, 1, cfg.vocab) or not torch.isfinite(logits).all():
-        raise AssertionError(f"prefill logits {tuple(logits.shape)} not finite or misshapen")
+
+
+def _counts() -> dict:
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rms
+
+    return {"flash_attention_fwd": fa.launches, **{f"flash_attention_fwd_{name}": n for name, n
+                                                   in fa.launches_by_variant.items()},
+            "rmsnorm": rms.launches}
+
+
+def phase_prefill(cfg, params, smi) -> dict:
+    """bf16 prefills, in turns through the sm90 kernel (the main path) and, for the
+    record, through the SIMT kernel: one warm-up call each, then three timed rounds;
+    every call launches its kernel once a layer.  Then one prefill under the profiler."""
+    from unittest import mock
+
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.kernels import flash_attention as fa
+
+    tokens = torch.from_numpy(make_batch(cfg, PREFILL_LEN, PREFILL_BATCH)["tokens"]).cuda()
+    routes = {"sm90": contextlib.nullcontext,
+              "simt": lambda: mock.patch.object(fa, "variant", lambda dtype, d: "simt")}
+    torch.cuda.reset_peak_memory_stats()
+    secs, launches = {name: [] for name in routes}, {}
+    for _ in range(4):
+        for name, route in routes.items():
+            _reset_counts()
+            with route():
+                logits, t = _prefill(cfg, params, tokens, use_kernel=True)
+            launches[name] = _counts()
+            want = {"flash_attention_fwd": cfg.n_layers, "rmsnorm": 0,
+                    **{f"flash_attention_fwd_{v}": cfg.n_layers * (v == name) for v in routes}}
+            if launches[name] != want:
+                raise AssertionError(f"prefill through {name} launched {launches[name]}, want "
+                                     f"{want}")
+            if logits.shape != (PREFILL_BATCH, 1, cfg.vocab) or not torch.isfinite(logits).all():
+                raise AssertionError(f"prefill logits {tuple(logits.shape)} not finite or "
+                                     "misshapen")
+            secs[name].append(t)
     ntok = PREFILL_BATCH * PREFILL_LEN
-    log(f"[prefill] {cfg.name} bf16 batch {PREFILL_BATCH} x {PREFILL_LEN} through the kernel: "
-        f"{secs:.3f}s ({ntok / secs:.0f} tok/s), launches {launches}, peak "
+    median = {name: sorted(ts[1:])[1] for name, ts in secs.items()}
+    log(f"[prefill] {cfg.name} bf16 batch {PREFILL_BATCH} x {PREFILL_LEN} through the sm90 "
+        f"kernel: {median['sm90']:.3f}s median of 3 after a warm-up "
+        f"({ntok / median['sm90']:.0f} tok/s; calls {[round(x, 3) for x in secs['sm90']]} s), "
+        f"launches a call {launches['sm90']}, peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB [{smi}]")
-    return launches
+    log(f"[prefill] the same through the simt kernel, in turns, for the record: "
+        f"{median['simt']:.3f}s ({ntok / median['simt']:.0f} tok/s; calls "
+        f"{[round(x, 3) for x in secs['simt']]} s), launches a call {launches['simt']}")
+    _profile("one bf16 prefill", lambda: _prefill(cfg, params, tokens, use_kernel=True))
+    return launches["sm90"]
 
 
 def phase_e2e_fp32(cfg):
@@ -500,21 +654,21 @@ def _loss_and_grads(cfg, params, batch, use_kernel: bool):
 
     grad_fn = st.value_and_grad(st.make_loss_fn(
         cfg, st.TrainOptions(use_kernel=use_kernel, remat=True)))
-    fa.launches = 0
+    _reset_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     (_, (loss, _)), grads = grad_fn(params, batch)
     torch.cuda.synchronize()
     return {"loss": float(loss), "grads": grads, "launches": fa.launches,
-            "s": time.perf_counter() - t0, "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+            "simt": fa.launches_by_variant["simt"], "s": time.perf_counter() - t0,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
 
 
 def phase_train(cfg, smi) -> dict:
     """Full-width fp32 training: the kernel-vs-plain gate, then timed AdamW steps."""
     from repro_torch.data.pipeline import make_batch
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import rmsnorm as rms
     from repro_torch.models import get_model
     from repro_torch.train import optimizer as opt
     from repro_torch.train import steps as st
@@ -561,10 +715,11 @@ def phase_train(cfg, smi) -> dict:
     for n in leaf_err:
         log(f"[train] gate leaf {n:24s} rel_l2 kernel {leaf_err[n]:.2e} vs floor (chunked) "
             f"{leaf_floor[n]:.2e}, tol max({GRAD_RTOL}, floor)")
-    if k["launches"] != 2 * cfg.n_layers or c["launches"] or p["launches"]:
+    if k["launches"] != k["simt"] or k["launches"] != 2 * cfg.n_layers or c["launches"] or \
+            p["launches"]:
         raise AssertionError(f"loss and gradient launched the flash kernel {k['launches']} "
-                             f"times with it and {c['launches']}, {p['launches']} without; "
-                             f"want {2 * cfg.n_layers} and 0")
+                             f"times ({k['simt']} simt) with it and {c['launches']}, "
+                             f"{p['launches']} without; want {2 * cfg.n_layers} simt and 0")
     if bad or not (loss_err <= LOSS_RTOL and norm_err <= GRAD_RTOL
                    and math.isfinite(k["loss"]) and math.isfinite(k["norm"])):
         raise AssertionError(f"training gate: the kernel's loss, gradient norm or gradients "
@@ -578,8 +733,7 @@ def phase_train(cfg, smi) -> dict:
     batches = [batch_of(s) for s in range(TRAIN_STEPS)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fa.launches = 0
-    rms.launches = 0
+    _reset_counts()
     secs, per_step = [], []
     for s in range(TRAIN_STEPS):
         before = fa.launches
@@ -594,48 +748,51 @@ def phase_train(cfg, smi) -> dict:
             f"launches {per_step[-1]}")
         if not (math.isfinite(loss) and math.isfinite(gnorm)):
             raise AssertionError(f"training step {s + 1}: loss {loss}, grad norm {gnorm}")
-    launches = {"flash_attention_fwd": fa.launches, "rmsnorm": rms.launches}
+    launches = _counts()
     peak = torch.cuda.max_memory_allocated()
-    if per_step != [2 * cfg.n_layers] * TRAIN_STEPS or launches["rmsnorm"] != 0:
+    if (per_step != [2 * cfg.n_layers] * TRAIN_STEPS or launches["rmsnorm"] != 0
+            or launches["flash_attention_fwd_simt"] != launches["flash_attention_fwd"]):
         raise AssertionError(f"training steps launched {per_step} flash kernels a step, want "
-                             f"{2 * cfg.n_layers}; rmsnorm {launches['rmsnorm']}, want 0")
+                             f"{2 * cfg.n_layers}, all simt: {launches}")
     steady = sorted(secs[1:])[len(secs[1:]) // 2]
     log(f"[train] {cfg.name} fp32, {n_params / 1e9:.3f}G params, batch {TRAIN_BATCH} x "
         f"{TRAIN_LEN}, remat, AdamW: {TRAIN_STEPS} steps in {[round(x, 3) for x in secs]} s; "
         f"steady {steady:.3f} s/step ({TRAIN_BATCH * TRAIN_LEN / steady:.0f} tok/s); peak "
         f"{peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB); launches {launches} [{smi}]")
-    _profile_step(step_fn, params, ostate, batches[0])
+    _profile("one train step", lambda: step_fn(params, ostate, batches[0]))
     del params, ostate, batches, batch, m
     torch.cuda.empty_cache()
     return launches
 
 
-def _profile_step(step_fn, params, ostate, batch, top: int = 10) -> None:
-    """One more train step under torch.profiler: device time by kernel, and idle share.
+def _profile(label: str, fn, top: int = 10) -> None:
+    """One more call of ``fn`` under torch.profiler: device time by kernel, and idle share.
 
-    Not part of the timed steps or their launch counts.
+    Not part of any timed call or launch count.
     """
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step_fn(params, ostate, batch)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     busy_us = sum(e.self_device_time_total for e in kernels)
     if not kernels:
-        log("[profile] the profiler saw no device time; the step times above are the measure")
+        log(f"[profile] {label}: the profiler saw no device time; the timed calls are the "
+            "measure")
         return
     groups = {"matmul (gemm)": 0.0, "flash_attention_fwd kernel": 0.0, "other": 0.0}
     for e in kernels:
         name = e.key.lower()
         key = ("flash_attention_fwd kernel" if "flash_fwd" in name
-               else "matmul (gemm)" if "gemm" in name or "cutlass" in name else "other")
+               else "matmul (gemm)" if any(w in name for w in ("gemm", "cutlass", "nvjet"))
+               else "other")
         groups[key] += e.self_device_time_total
-    log(f"[profile] one train step under torch.profiler: wall {wall_us / 1e6:.3f}s, device busy "
+    log(f"[profile] {label} under torch.profiler: wall {wall_us / 1e6:.3f}s, device busy "
         f"{busy_us / 1e6:.3f}s, idle share {max(0.0, 1 - busy_us / wall_us):.3f}; "
         + "; ".join(f"{k} {v / 1e6:.3f}s ({v / busy_us:.1%})" for k, v in groups.items()))
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
@@ -644,12 +801,9 @@ def _profile_step(step_fn, params, ostate, batch, top: int = 10) -> None:
 
 def phase_train_driver() -> dict:
     """The train driver at smoke width: checkpoints, board failure, remap, restore."""
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import rmsnorm as rms
     from repro_torch.launch import train as train_cli
 
-    fa.launches = 0
-    rms.launches = 0
+    _reset_counts()
     out = io.StringIO()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as ckpt_dir, contextlib.redirect_stdout(out):
@@ -668,7 +822,7 @@ def phase_train_driver() -> dict:
         raise AssertionError(f"train driver ended at step {res['step']} with loss {res['loss']}")
     log(f"[driver] llama3.2-3b-smoke: 30 steps with a failure at 15 and a restart from 10 in "
         f"{secs:.1f}s, final loss {res['loss']:.4f}")
-    return {"flash_attention_fwd": fa.launches, "rmsnorm": rms.launches}
+    return _counts()
 
 
 def main() -> int:
@@ -681,7 +835,8 @@ def main() -> int:
     t_start = time.perf_counter()
     smi = phase_device()
     phase_build()
-    kernel = phase_kernel_checks()
+    sass = phase_sass()
+    flash = phase_kernel_checks()
     rms_kernel = phase_rmsnorm_checks()
 
     cfg = get_config("llama3.2-3b")
@@ -695,22 +850,43 @@ def main() -> int:
     driver = phase_train_driver()
 
     paths = {"prefill": prefill, "train_steps": train, "train_driver": driver}
+
+    def by_path(key):
+        return {path: counts[key] for path, counts in paths.items()}
+
+    # each kernel's numbers at the shape of its main path: sm90 at the bf16
+    # prefill, simt at the fp32 training step; the other shapes beside them
+    sm90, simt = flash["sm90"], flash["simt"]
     line = {"kernels": [{
-        "name": "flash_attention_fwd",
+        "name": "flash_attention_fwd_sm90",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:37",
+        "variant": "sm90",
+        "launches": prefill["flash_attention_fwd_sm90"],
+        "launches_by_path": by_path("flash_attention_fwd_sm90"),
+        "checked": True,
+        **sm90["prefill_d128_bf16"],
+        **sm90,
+        "sass": sass,
+    }, {
+        "name": "flash_attention_fwd_simt",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:37",
-        "launches": train["flash_attention_fwd"],
-        "launches_by_path": {k: v.get("flash_attention_fwd", 0) for k, v in paths.items()},
+        "variant": "simt",
+        "launches": train["flash_attention_fwd_simt"],
+        "launches_by_path": by_path("flash_attention_fwd_simt"),
         "checked": True,
-        **kernel,
+        **simt["train_fp32"],
+        **simt,
     }, {
         "name": "rmsnorm",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
         "replaces": "src/repro/kernels/rmsnorm.py:18",
         "launches": train["rmsnorm"],
-        "launches_by_path": {k: v.get("rmsnorm", 0) for k, v in paths.items()},
+        "launches_by_path": by_path("rmsnorm"),
         "checked": True,
         **rms_kernel,
     }]}

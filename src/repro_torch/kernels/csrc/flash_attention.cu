@@ -1,4 +1,8 @@
-// Flash-attention forward for Hopper (sm_90a), plain C interface for ctypes.
+// Flash-attention forward for Hopper (sm_90a), plain C interface for ctypes:
+// the SIMT kernel, arithmetic in fp32 on the CUDA cores.  It serves fp32
+// inputs, and bf16 at head_dim 8; bf16 at head_dim >= 16 goes to the
+// tensor-core kernel of flash_attention_sm90.cu (kernels/flash_attention.py,
+// `variant`).  It still takes bf16 at every head_dim, for comparison.
 //
 // Replaces the TPU kernel `_flash_fwd_kernel` of
 // src/repro/kernels/flash_attention.py (launched by `flash_attention_fwd`).
@@ -14,10 +18,9 @@
 // D = 128, causal):
 //   operations  4 * B * H * D * S (S + 1) / 2 ~= 1.0e11 -> ~0.10 ms at 989 TFLOP/s bf16
 //   bytes       q, k, v read once and o written once ~= 0.13 GB -> ~0.04 ms at 3.35 TB/s
-// so the kernel is compute-bound.  This first version does its arithmetic in
-// fp32 on the CUDA cores (67 TFLOP/s, a bound of ~1.5 ms), not on the tensor
-// cores, so it sits well above the bf16 bound; mma/wgmma on bf16 tiles, TMA
-// and warp specialisation come later.
+// so the kernel is compute-bound.  It does its arithmetic in fp32 on the CUDA
+// cores (67 TFLOP/s, a bound of ~1.5 ms), not on the tensor cores, so in bf16
+// it sits well above the bf16 bound; in fp32 that is the bound it answers to.
 //
 // Design, and what differs from the TPU kernel:
 // * One block per (q tile, b * H + h).  The TPU's sequential kv grid axis,

@@ -1,7 +1,8 @@
 """Differentiable wrappers around the kernels (counterpart of ``repro.kernels.ops``).
 
-``flash_attention`` is a ``torch.autograd.Function``: the forward runs the
-CUDA kernel on CUDA tensors and its plain version on CPU tensors; the backward
+``flash_attention`` is a ``torch.autograd.Function``: the forward runs a
+CUDA kernel on CUDA tensors (``flash_attention.variant`` picks which) and the
+plain version on CPU tensors; the backward
 recomputes through ``ref.flash_attention_ref``, as the JAX package's
 ``custom_vjp`` does.
 """

@@ -129,3 +129,71 @@ def test_rmsnorm_wrapper_never_falls_back_off_the_cpu(x_dev, g_dev):
     with pytest.raises(ValueError, match="CUDA"):
         trms.rmsnorm(x, g)
     assert trms.launches == before
+
+
+# -- the dispatch between the two flash kernels, and the wrapper's checks
+
+@pytest.mark.parametrize("d", tfa.HEAD_DIMS)
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_flash_variant_rule(dt, d):
+    # bf16 at head_dim >= 16 runs the wgmma/TMA kernel; fp32, and bf16 at 8, the SIMT one
+    want = "sm90" if dt == "bfloat16" and d >= 16 else "simt"
+    assert tfa.variant(_TDT[dt], d) == want
+    assert want in tfa.SOURCES
+
+
+@pytest.mark.parametrize("d", [4, 24, 48, 96, 256])
+def test_flash_head_dim_outside_head_dims_raises(d):
+    assert d not in tfa.HEAD_DIMS
+    with pytest.raises(ValueError, match="head_dim"):
+        tfa.variant(torch.bfloat16, d)
+    q = torch.empty((1, 8, 2, d), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="head_dim"):
+        tfa.flash_attention_fwd(q, q, q)
+
+
+def test_flash_variant_rejects_other_dtypes():
+    with pytest.raises(TypeError):
+        tfa.variant(torch.float16, 64)
+
+
+@pytest.mark.parametrize("d", [8, 16, 64, 128])
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_flash_cpu_tensors_take_plain(dt, d):
+    # CPU tensors take the plain version, whichever kernel a CUDA input would
+    # run, and move neither launch counter
+    q, k, v = (torch.from_numpy(a).to(_TDT[dt]) for a in _qkv(1, 40, 40, 4, 2, d))
+    before, by_variant = tfa.launches, dict(tfa.launches_by_variant)
+    got = tfa.flash_attention_fwd(q, k, v, True, 0)
+    assert tfa.launches == before and tfa.launches_by_variant == by_variant
+    assert torch.equal(got, tfa.plain(q, k, v, True, 0))
+
+
+def _meta_qkv(d, dtype=torch.bfloat16, offset=0):
+    # meta tensors (no data, no device) whose data_ptr is offset elements past
+    # a 16-byte boundary
+    n = 8 * 2 * d
+    base = torch.empty(offset + n, dtype=dtype, device="meta")
+    q = base[offset:].view(1, 8, 2, d)
+    return q, q, q
+
+
+@pytest.mark.parametrize("case", [
+    # (dtype, head_dim, offset in elements, kernel, error)
+    ("bfloat16", 64, 1, None, "16-byte boundary"),     # sm90: misaligned for TMA
+    ("bfloat16", 128, 4, None, "16-byte boundary"),    # 8 bytes off
+    ("bfloat16", 16, 8, "sm90", "lie on one CUDA"),    # 16 bytes off: aligned, then the device
+    ("bfloat16", 64, 1, "simt", "lie on one CUDA"),    # simt has no alignment rule
+    ("float32", 64, 1, None, "lie on one CUDA"),       # fp32 goes to simt
+    ("float32", 64, 0, "sm90", "no kernel 'sm90'"),    # sm90 is bf16 only
+    ("bfloat16", 8, 0, "sm90", "no kernel 'sm90'"),    # head_dim 8 is simt's alone
+    ("bfloat16", 48, 0, None, "head_dim 48"),          # not a head dim either kernel takes
+    ("bfloat16", 64, 0, "mma", "no kernel 'mma'"),
+], ids=str)
+def test_flash_wrapper_checks_raise_before_launch(case):
+    dt, d, offset, kernel, match = case
+    q, k, v = _meta_qkv(d, _TDT[dt], offset)
+    before, by_variant = tfa.launches, dict(tfa.launches_by_variant)
+    with pytest.raises(ValueError, match=match):
+        tfa.launch(q, k, v, kernel=kernel)
+    assert tfa.launches == before and tfa.launches_by_variant == by_variant
