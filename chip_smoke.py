@@ -9,29 +9,35 @@ seed:
 
 1. device and toolchain: card name and power limit, torch and nvcc versions;
 2. build, timed (one nvcc per source, all started together), with ptxas's
-   register and spill line for every kernel; then the SASS of the sm90
-   flash kernel, counted by ``cuobjdump`` for HGMMA (wgmma) and UTMALDG (TMA
-   loads) instructions;
+   register and spill line for every kernel; then the SASS of the two
+   wgmma flash kernels (sm90, tf32), counted by ``cuobjdump`` for HGMMA
+   (wgmma) and UTMALDG (TMA loads) instructions;
 3. flash attention against its plain version at every shape of the JAX
    package's kernel tests and more (GQA groups 3 and 6, a ragged 1000, a
    window at head_dim 128), fp32 and bf16, through every kernel that takes
-   the case (``flash_attention.variant`` picks sm90 for bf16 at head_dim >=
-   16, simt otherwise; simt takes bf16 too, for the record), each line naming
-   the kernel that ran; at the llama3.2-3b prefill shape the bf16 kernels are
-   timed in turns (sm90, simt, SDPA) beside the plain version and the bound,
-   with achieved TFLOP/s, and again at head_dim 64 (the minicpm-2b widths);
-   fp32 at the prefill shape and at the training shape (batch 2) on simt;
+   the case (``flash_attention.variant`` picks tf32 for fp32, sm90 for bf16
+   at head_dim >= 16 and simt for bf16 at 8; simt takes every case too, for
+   the record), each line naming the kernel that ran; the tf32 kernel's
+   split of K and V against its plain version, bit for bit; at the
+   llama3.2-3b prefill shape the bf16 kernels are timed in turns (sm90,
+   simt, SDPA) beside the plain version and the bound, with achieved
+   TFLOP/s, and again at head_dim 64 (the minicpm-2b widths); in fp32 the
+   same at the training shape (batch 2; tf32, simt, SDPA, three rounds) and
+   at the prefill shape (one round), each with the 3xTF32 bound and the
+   CUDA-core bound;
 4. rmsnorm against its plain version at the shapes of the JAX package's
    kernel tests, at the llama3.2-3b activation shape of the training batch
    (4096, 3072) and at ragged and misaligned shapes, fp32 and bf16, with its
    time, the plain version's, ``F.rms_norm``'s (a yardstick only) and its
-   bound.  No path of the model runs it (nor its JAX twin): 0 launches;
+   bound, over one buffer and again with the inputs rotated over >= 200 MB
+   and every output fresh, so that L2 holds none of them.  No path of the
+   model runs it (nor its JAX twin): 0 launches;
 5. a full-width bf16 prefill (batch 4, prompt 2048) through
    ``make_prefill_step(use_kernel=True)``, one warm-up call and three timed
    (their median): each launches the flash kernel once a layer, all through
    sm90; in turns with it, for the record, the same prefill with the flash
    op routed to the simt kernel; then one prefill under torch.profiler;
-6. the same prefill in fp32 at batch 1 with and without the kernel;
+6. the same prefill in fp32 at batch 1 with and without the kernel (tf32);
 7. the serving loop of ``repro_torch.launch.serve`` (batch 4, prompt 128,
    32 decoded) in bf16, timed; then the decode loop's last prompt-step
    logits against the prefill step's on the same prompt, held in fp32 and
@@ -40,8 +46,9 @@ seed:
    through the kernel against one through the plain path, beside the fp32
    floor of two plain paths (see FLOOR_CHUNK), then 3 timed
    ``make_train_step`` steps with AdamW through the kernel, which launches
-   twice a layer a step (forward and remat recompute), all through simt;
-9. the train driver of ``repro_torch.launch.train`` at smoke width: 30 steps,
+   twice a layer a step (forward and remat recompute), all through tf32;
+9. the train driver of ``repro_torch.launch.train`` at smoke width with
+   ``--use-kernel`` (fp32, head_dim 16, through tf32): 30 steps,
    checkpoints, a board failure at step 15, remap and restore from step 10;
 10. one JSON line on every kernel, the card's name and power limit, and last
    the JSON result line.
@@ -57,6 +64,7 @@ import contextlib
 import dataclasses
 import functools
 import io
+import itertools
 import json
 import math
 import re
@@ -74,6 +82,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense), for the bound.
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS_TF32 = 495e12  # the tf32 kernel does three TF32 products for each fp32 one
 PEAK_BYTES_PER_S = 3.35e12
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}  # those of tests/test_kernels.py
 # (b, sq, sk, h, kv, d, causal, window): the shapes of tests/test_kernels.py CASES,
@@ -119,6 +128,7 @@ RMS_CASES = [
     ((1, 64, 256), torch.bfloat16),
 ]
 RMS_MORE = [(4096, 3072), (333, 200), (7, 77), (3, 1000)]
+RMS_ROTATE_BYTES = 200e6  # the rotated timing's inputs and outputs, at least, in all
 # Training: batch 2 x 2048 of llama3.2-3b in fp32; the kernel-vs-plain gate.
 # The loss is held to LOSS_RTOL and the global gradient norm to GRAD_RTOL,
 # relative.  Each leaf's gradient is held to a relative L2 of GRAD_RTOL, or
@@ -180,6 +190,14 @@ def graph_ms(fn, reps: int = 20) -> float:
     del graph
     torch.cuda.empty_cache()
     return ms
+
+
+def rotating_ms(op, inputs, reps: int = 20) -> float:
+    """``graph_ms`` of ``op`` on ``inputs`` taken in turn, every output kept (a fresh
+    buffer each call): with the inputs and outputs between two uses of one buffer
+    over the 50 MB L2, no call finds its data there."""
+    turn, outputs = itertools.cycle(inputs), []
+    return graph_ms(lambda: outputs.append(op(next(turn))), reps)
 
 
 def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -246,14 +264,19 @@ def phase_build() -> None:
 
 
 def phase_sass() -> dict:
-    """HGMMA and UTMALDG instructions in the SASS of the built sm90 flash kernel."""
-    from repro_torch.kernels import _build
+    """HGMMA and UTMALDG instructions in the SASS of the built wgmma flash kernels."""
     from repro_torch.kernels import flash_attention as fa
+
+    return {name: _sass_counts(fa.SOURCES[name]) for name in ("sm90", "tf32")}
+
+
+def _sass_counts(source: str) -> dict:
+    from repro_torch.kernels import _build
 
     tool = Path(_build.nvcc()).parent / "cuobjdump"
     if not tool.exists():
         raise RuntimeError(f"cuobjdump not found beside nvcc ({tool})")
-    lib = _build.library_path(fa.SOURCES["sm90"])
+    lib = _build.library_path(source)
     sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
                           check=True, timeout=300).stdout
     counts, per_fn, fn = {"HGMMA": 0, "UTMALDG": 0}, {}, None
@@ -272,7 +295,7 @@ def phase_sass() -> dict:
         + "; ".join(f"{names[f]}: {c['HGMMA']} HGMMA, {c['UTMALDG']} UTMALDG"
                     for f, c in per_fn.items()))
     if not all(counts.values()):
-        raise AssertionError(f"the sm90 flash kernel's SASS lacks wgmma or TMA loads: {counts}")
+        raise AssertionError(f"{lib.name}'s SASS lacks wgmma or TMA loads: {counts}")
     return counts
 
 
@@ -283,9 +306,10 @@ def _qkv(b, sq, sk, h, kv, d, dtype, gen):
     return rnd(b, sq, h, d), rnd(b, sk, kv, d), rnd(b, sk, kv, d)
 
 
-def _attention_bound(q, k, v, causal, window) -> tuple[float, str, float]:
+def _attention_bound(q, k, v, causal, window, tf32=False) -> tuple[float, str, float]:
     """Least time for the work these inputs need (unmasked (q, k) pairs and bytes), its
-    limit, and the operations themselves."""
+    limit, and the operations themselves.  ``tf32``: fp32 work as three TF32 products
+    at the TF32 peak (the tf32 kernel's route), else one at the peak of q's type."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     qpos = torch.arange(sq, device="cuda")[:, None]
@@ -297,13 +321,14 @@ def _attention_bound(q, k, v, causal, window) -> tuple[float, str, float]:
         keep &= kpos > qpos - window
     flops = 4.0 * b * h * d * int(keep.sum())  # q·k and p·v, 2 flops a multiply-add
     nbytes = (q.numel() * 2 + k.numel() + v.numel()) * q.element_size()  # q, k, v in; o out
-    t_ops = flops / PEAK_FLOPS[q.dtype] * 1e3
+    t_ops = (3 * flops / PEAK_FLOPS_TF32 if tf32 else flops / PEAK_FLOPS[q.dtype]) * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", flops
 
 
 def _kernels_for(dtype, d) -> list[str]:
-    """Every flash kernel that takes (dtype, d): the one ``variant`` picks, then simt."""
+    """Every flash kernel that takes (dtype, d): the one ``variant`` picks, then simt
+    (which takes every case)."""
     from repro_torch.kernels import flash_attention as fa
 
     chosen = fa.variant(dtype, d)
@@ -323,6 +348,23 @@ def _flash_check(q, k, v, causal, window, kernel, label) -> float:
         raise AssertionError(f"flash attention {label} {q.dtype} via {kernel}: max_abs_err "
                              f"{float(err.max()):.3e} over tolerance {tol}")
     return float(err.max())
+
+
+def _split_check(k, v) -> None:
+    """The tf32 kernel's split of K and V (its first launch) against its plain
+    version, bit for bit: both round with cvt.rna's rule."""
+    from repro_torch.kernels import flash_attention as fa
+
+    b, sk, kv, d = k.shape
+    want = fa.split_kv(k, v)
+    got = [torch.full_like(w, float("nan")) for w in want]
+    err = fa._entry("tf32_split")(k.data_ptr(), v.data_ptr(), *(g.data_ptr() for g in got),
+                                  b, sk, kv, d, want[2].shape[-1],
+                                  torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    if err or not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"tf32 split_kv at k {tuple(k.shape)}: error {err} or parts "
+                             "differ from the plain split")
 
 
 def _time_flash(q, k, v, kernels, rounds=3) -> dict:
@@ -349,6 +391,8 @@ def _time_flash(q, k, v, kernels, rounds=3) -> dict:
     r = {name: sorted(ts)[len(ts) // 2] for name, ts in turns.items()}
     r.update(plain_ms=cuda_ms(lambda: fa.plain(q, k, v, True, 0), reps=5), bound_ms=bound_ms,
              bound_by=bound_by, flops=flops, turns=turns)
+    if "tf32" in kernels:
+        r["bound_ms_tf32"], r["bound_by_tf32"], _ = _attention_bound(q, k, v, True, 0, tf32=True)
     return r
 
 
@@ -361,6 +405,8 @@ def phase_kernel_checks() -> dict:
         for case in CASES:
             *shape, causal, window = case
             q, k, v = _qkv(*shape, dtype, gen)
+            if dtype == torch.float32:
+                _split_check(k, v)
             errs = {name: _flash_check(q, k, v, causal, window, name, str(case))
                     for name in _kernels_for(dtype, shape[-1])}
             for name, err in errs.items():
@@ -371,7 +417,7 @@ def phase_kernel_checks() -> dict:
         log(f"[kernel] flash via {name} {dtype}: every case within {TOL[dtype]} (max_abs_err "
             f"{err:.3e})")
 
-    out = {"sm90": {}, "simt": {}}
+    out = {"tf32": {}, "sm90": {}, "simt": {}}
     for tag, (b, s, h, kv, d) in PREFILL_SHAPES.items():
         q, k, v = _qkv(b, s, s, h, kv, d, torch.bfloat16, gen)
         errs = {name: _flash_check(q, k, v, True, 0, name, f"prefill shape {tag}")
@@ -392,21 +438,35 @@ def phase_kernel_checks() -> dict:
         del q, k, v
         torch.cuda.empty_cache()
 
-    # fp32 on simt: the prefill shape, and the training shape (batch 2), as the
-    # training step calls it
-    for tag, batch in (("prefill_d128_fp32", PREFILL_BATCH), ("train_fp32", TRAIN_BATCH)):
+    # fp32: the training shape (batch 2), as the training step calls it, then the
+    # prefill shape; tf32 (the main path) and simt in turns with SDPA
+    for tag, batch, rounds in (("train_fp32", TRAIN_BATCH, 3),
+                               ("prefill_d128_fp32", PREFILL_BATCH, 1)):
         q, k, v = _qkv(batch, PREFILL_LEN, PREFILL_LEN, 24, 8, 128, torch.float32, gen)
-        err = _flash_check(q, k, v, True, 0, "simt", tag)
-        r = _time_flash(q, k, v, ("simt",), rounds=1)
-        out["simt"][tag] = {"max_abs_err": err, "ms": r["simt"], "plain_ms": r["plain_ms"],
-                            "library_ms": r["sdpa"], "bound_ms": r["bound_ms"],
-                            "bound_by": r["bound_by"], "tflops": r["flops"] / r["simt"] / 1e9}
-        log(f"[kernel] flash {tag} B={batch} S={PREFILL_LEN} H=24 KV=8 D=128 causal fp32: simt "
-            f"{r['simt']:.4f} ms ({r['flops'] / r['simt'] / 1e9:.1f} TFLOP/s), SDPA "
-            f"{r['sdpa']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']}), max_abs_err {err:.3e}")
+        _split_check(k, v)
+        errs = {name: _flash_check(q, k, v, True, 0, name, tag) for name in ("tf32", "simt")}
+        r = _time_flash(q, k, v, ("tf32", "simt"), rounds=rounds)
+        for name in ("tf32", "simt"):
+            tf32 = name == "tf32"
+            out[name][tag] = {
+                "max_abs_err": errs[name], "ms": r[name], "plain_ms": r["plain_ms"],
+                "library_ms": r["sdpa"],
+                "bound_ms": r["bound_ms_tf32"] if tf32 else r["bound_ms"],
+                "bound_by": r["bound_by_tf32"] if tf32 else r["bound_by"],
+                "bound_ms_3xtf32": r["bound_ms_tf32"], "bound_ms_cuda_cores": r["bound_ms"],
+                "tflops": r["flops"] / r[name] / 1e9}
+        log(f"[kernel] flash {tag} B={batch} S={PREFILL_LEN} H=24 KV=8 D=128 causal fp32: tf32 "
+            f"{r['tf32']:.4f} ms ({r['flops'] / r['tf32'] / 1e9:.1f} TFLOP/s fp32-accurate), "
+            f"simt {r['simt']:.4f} ms ({r['flops'] / r['simt'] / 1e9:.1f} TFLOP/s), SDPA "
+            f"{r['sdpa']:.4f} ms, plain {r['plain_ms']:.4f} ms; bound 3xTF32 "
+            f"{r['bound_ms_tf32']:.4f} ms ({r['bound_by_tf32']}), CUDA cores "
+            f"{r['bound_ms']:.4f} ms; tf32 at {r['bound_ms_tf32'] / r['tf32']:.1%} of its "
+            f"bound, {r['simt'] / r['tf32']:.2f}x faster than simt, {r['sdpa'] / r['tf32']:.2f}x "
+            f"SDPA; max_abs_err tf32 {errs['tf32']:.3e}, simt {errs['simt']:.3e}; turns "
+            f"{json.dumps(r['turns'])}")
         del q, k, v
         torch.cuda.empty_cache()
+    out["tf32"]["cases_max_abs_err"] = worst["tf32", torch.float32]
     out["sm90"]["cases_max_abs_err"] = worst["sm90", torch.bfloat16]
     out["simt"]["cases_max_abs_err"] = {str(dt).removeprefix("torch."): worst["simt", dt]
                                         for dt in (torch.float32, torch.bfloat16)}
@@ -482,10 +542,23 @@ def phase_rmsnorm_checks() -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "ms_eager": cuda_ms(lambda: rms.rmsnorm(x, g), reps=50),
         }
+        # again over enough inputs and outputs that none stays in L2
+        pairs = math.ceil(RMS_ROTATE_BYTES / (2 * x.numel() * x.element_size())) + 1
+        xs = [x] + [_rms_input(RMS_MORE[0], dtype, gen)[0] for _ in range(pairs - 1)]
+        r["rotating_pairs"] = pairs
+        r["ms_rotating"] = rotating_ms(lambda xi: rms.rmsnorm(xi, g), xs)
+        r["library_ms_rotating"] = rotating_ms(
+            lambda xi: F.rms_norm(xi, (d,), weight=w, eps=1e-6), xs)
+        del xs
         log(f"[kernel] rmsnorm {tuple(x.shape)} {dtype}: max_abs_err {err:.3e} kernel_ms "
             f"{r['ms']:.4f} (eager launches {r['ms_eager']:.4f}) plain_ms {r['plain_ms']:.4f} "
             f"library_ms(F.rms_norm) {r['library_ms']:.4f} bound_ms {r['bound_ms']:.4f} "
-            f"({r['bound_by']}: {nbytes / 1e6:.1f} MB)")
+            f"({r['bound_by']}: {nbytes / 1e6:.1f} MB); rotated over {pairs} inputs and fresh "
+            f"outputs: kernel_ms {r['ms_rotating']:.4f} library_ms {r['library_ms_rotating']:.4f}; "
+            f"kernel/F.rms_norm {r['ms'] / r['library_ms']:.3f} (one buffer), "
+            f"{r['ms_rotating'] / r['library_ms_rotating']:.3f} (rotated); "
+            f"{r['bound_ms'] / r['ms']:.1%} of the bound (one buffer), "
+            f"{r['bound_ms'] / r['ms_rotating']:.1%} (rotated)")
         results[dtype] = r
         del x, g, w, lib
     torch.cuda.empty_cache()
@@ -542,7 +615,8 @@ def phase_prefill(cfg, params, smi) -> dict:
                 logits, t = _prefill(cfg, params, tokens, use_kernel=True)
             launches[name] = _counts()
             want = {"flash_attention_fwd": cfg.n_layers, "rmsnorm": 0,
-                    **{f"flash_attention_fwd_{v}": cfg.n_layers * (v == name) for v in routes}}
+                    **{f"flash_attention_fwd_{v}": cfg.n_layers * (v == name)
+                       for v in fa.SOURCES}}
             if launches[name] != want:
                 raise AssertionError(f"prefill through {name} launched {launches[name]}, want "
                                      f"{want}")
@@ -572,7 +646,9 @@ def phase_e2e_fp32(cfg):
     params = get_model(cfg).init_params(cfg, torch.Generator("cuda").manual_seed(0),
                                         dtype=torch.float32)
     tokens = torch.from_numpy(make_batch(cfg, PREFILL_LEN, 1)["tokens"]).cuda()
+    _reset_counts()
     with_k, t_k = _prefill(cfg, params, tokens, use_kernel=True)
+    launches = _counts()
     plain, t_p = _prefill(cfg, params, tokens, use_kernel=False)
     err = rel_l2(with_k, plain)
     same_top = bool((with_k.argmax(-1) == plain.argmax(-1)).all())
@@ -580,9 +656,11 @@ def phase_e2e_fp32(cfg):
         f"{err:.3e} (tol {FP32_TOL}), max_abs_err "
         f"{float((with_k - plain).abs().max()):.3e}, max|logit| "
         f"{float(plain.abs().max()):.3e}, same argmax {same_top}; "
-        f"{t_k:.3f}s with kernel, {t_p:.3f}s plain")
+        f"{t_k:.3f}s with kernel, {t_p:.3f}s plain; launches with kernel {launches}")
     if not (err <= FP32_TOL and torch.isfinite(with_k).all()):
         raise AssertionError(f"fp32 prefill with kernel disagrees with plain: rel_l2 {err:.3e}")
+    if launches["flash_attention_fwd_tf32"] != cfg.n_layers:
+        raise AssertionError(f"fp32 prefill launched {launches}, want {cfg.n_layers} tf32")
     return params
 
 
@@ -648,6 +726,29 @@ def _named_leaves(tree, prefix=""):
             yield prefix + key, tree[key]
 
 
+def _attention_fp64(q, k, v, causal=True, window=0, kernel=None):
+    """The flash op's function computed in fp64 and returned in q's type, a batch
+    row at a time: the gate's reference for what an exact attention would give."""
+    b, sq, h, d = q.shape
+    sk, g = k.shape[1], h // k.shape[2]
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    keep = torch.ones(sq, sk, dtype=torch.bool, device=q.device)
+    if causal:
+        keep &= kpos <= qpos
+    if window:
+        keep &= kpos > qpos - window
+    out = torch.empty_like(q)
+    for i in range(b):
+        kk = k[i].double().repeat_interleave(g, 1)
+        vv = v[i].double().repeat_interleave(g, 1)
+        s = torch.einsum("qhd,khd->hqk", q[i].double(), kk) / math.sqrt(d)
+        p = torch.softmax(s.masked_fill(~keep, -1e30), -1)
+        out[i] = torch.einsum("hqk,khd->qhd", p, vv).to(q.dtype)
+        del s, p
+    return out
+
+
 def _loss_and_grads(cfg, params, batch, use_kernel: bool):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.train import steps as st
@@ -661,7 +762,7 @@ def _loss_and_grads(cfg, params, batch, use_kernel: bool):
     (_, (loss, _)), grads = grad_fn(params, batch)
     torch.cuda.synchronize()
     return {"loss": float(loss), "grads": grads, "launches": fa.launches,
-            "simt": fa.launches_by_variant["simt"], "s": time.perf_counter() - t0,
+            "tf32": fa.launches_by_variant["tf32"], "s": time.perf_counter() - t0,
             "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
 
 
@@ -682,23 +783,30 @@ def phase_train(cfg, smi) -> dict:
                 for k, v in make_batch(cfg, TRAIN_LEN, TRAIN_BATCH, step=step).items()}
 
     # -- gate: one loss and gradient through the kernel against the plain path,
-    #    beside the fp32 floor (plain chunked against plain dense)
+    #    beside the fp32 floor (plain chunked against plain dense) and, for the
+    #    record, the flash op computed in fp64
+    from unittest import mock
+
     batch = batch_of(0)
     runs, host = {}, {}
     for name, c, use_kernel in (("kernel", cfg, True),
                                 ("chunked", dataclasses.replace(cfg, attn_chunk=FLOOR_CHUNK),
                                  False),
+                                ("fp64", cfg, True),
                                 ("plain", cfg, False)):
-        runs[name] = _loss_and_grads(c, params, batch, use_kernel=use_kernel)
+        with (mock.patch.object(fa, "launch", _attention_fp64) if name == "fp64"
+              else contextlib.nullcontext()):
+            runs[name] = _loss_and_grads(c, params, batch, use_kernel=use_kernel)
         runs[name]["norm"] = float(opt.global_norm(runs[name]["grads"]))
         if name != "plain":  # keep on the host, free the card
             host[name] = {n: g.cpu() for n, g in _named_leaves(runs[name].pop("grads"))}
             torch.cuda.empty_cache()
     k, c, p = runs["kernel"], runs["chunked"], runs["plain"]
-    leaf_err, leaf_floor = {}, {}
+    leaf_err, leaf_floor, leaf_fp64 = {}, {}, {}
     for n, g in _named_leaves(p.pop("grads")):
         leaf_err[n] = rel_l2(host["kernel"][n].cuda(), g)
         leaf_floor[n] = rel_l2(host["chunked"][n].cuda(), g)
+        leaf_fp64[n] = rel_l2(host["fp64"][n].cuda(), g)
     del host
     torch.cuda.empty_cache()
     loss_err = abs(k["loss"] - p["loss"]) / abs(p["loss"])
@@ -714,12 +822,13 @@ def phase_train(cfg, smi) -> dict:
         f"{c['peak_gib']:.1f}, {p['peak_gib']:.1f} GiB")
     for n in leaf_err:
         log(f"[train] gate leaf {n:24s} rel_l2 kernel {leaf_err[n]:.2e} vs floor (chunked) "
-            f"{leaf_floor[n]:.2e}, tol max({GRAD_RTOL}, floor)")
-    if k["launches"] != k["simt"] or k["launches"] != 2 * cfg.n_layers or c["launches"] or \
-            p["launches"]:
+            f"{leaf_floor[n]:.2e}, tol max({GRAD_RTOL}, floor); fp64 attention "
+            f"{leaf_fp64[n]:.2e}")
+    if k["launches"] != k["tf32"] or k["launches"] != 2 * cfg.n_layers or c["launches"] or \
+            p["launches"] or runs["fp64"]["launches"]:
         raise AssertionError(f"loss and gradient launched the flash kernel {k['launches']} "
-                             f"times ({k['simt']} simt) with it and {c['launches']}, "
-                             f"{p['launches']} without; want {2 * cfg.n_layers} simt and 0")
+                             f"times ({k['tf32']} tf32) with it and {c['launches']}, "
+                             f"{p['launches']} without; want {2 * cfg.n_layers} tf32 and 0")
     if bad or not (loss_err <= LOSS_RTOL and norm_err <= GRAD_RTOL
                    and math.isfinite(k["loss"]) and math.isfinite(k["norm"])):
         raise AssertionError(f"training gate: the kernel's loss, gradient norm or gradients "
@@ -751,9 +860,9 @@ def phase_train(cfg, smi) -> dict:
     launches = _counts()
     peak = torch.cuda.max_memory_allocated()
     if (per_step != [2 * cfg.n_layers] * TRAIN_STEPS or launches["rmsnorm"] != 0
-            or launches["flash_attention_fwd_simt"] != launches["flash_attention_fwd"]):
+            or launches["flash_attention_fwd_tf32"] != launches["flash_attention_fwd"]):
         raise AssertionError(f"training steps launched {per_step} flash kernels a step, want "
-                             f"{2 * cfg.n_layers}, all simt: {launches}")
+                             f"{2 * cfg.n_layers}, all tf32: {launches}")
     steady = sorted(secs[1:])[len(secs[1:]) // 2]
     log(f"[train] {cfg.name} fp32, {n_params / 1e9:.3f}G params, batch {TRAIN_BATCH} x "
         f"{TRAIN_LEN}, remat, AdamW: {TRAIN_STEPS} steps in {[round(x, 3) for x in secs]} s; "
@@ -788,7 +897,7 @@ def _profile(label: str, fn, top: int = 10) -> None:
     groups = {"matmul (gemm)": 0.0, "flash_attention_fwd kernel": 0.0, "other": 0.0}
     for e in kernels:
         name = e.key.lower()
-        key = ("flash_attention_fwd kernel" if "flash_fwd" in name
+        key = ("flash_attention_fwd kernel" if "flash_fwd" in name or "split_kv" in name
                else "matmul (gemm)" if any(w in name for w in ("gemm", "cutlass", "nvjet"))
                else "other")
         groups[key] += e.self_device_time_total
@@ -800,7 +909,8 @@ def _profile(label: str, fn, top: int = 10) -> None:
 
 
 def phase_train_driver() -> dict:
-    """The train driver at smoke width: checkpoints, board failure, remap, restore."""
+    """The train driver at smoke width through the kernel: checkpoints, board failure,
+    remap, restore."""
     from repro_torch.launch import train as train_cli
 
     _reset_counts()
@@ -809,7 +919,7 @@ def phase_train_driver() -> dict:
     with tempfile.TemporaryDirectory() as ckpt_dir, contextlib.redirect_stdout(out):
         res = train_cli.main(["--arch", "llama3.2-3b-smoke", "--steps", "30",
                               "--checkpoint-every", "10", "--simulate-failure", "15",
-                              "--checkpoint-dir", ckpt_dir])
+                              "--checkpoint-dir", ckpt_dir, "--use-kernel"])
     secs = time.perf_counter() - t0
     text = out.getvalue()
     for line in text.splitlines():
@@ -820,9 +930,12 @@ def phase_train_driver() -> dict:
             raise AssertionError(f"train driver: no line with {want!r}")
     if res["step"] != 30 or not math.isfinite(res["loss"]):
         raise AssertionError(f"train driver ended at step {res['step']} with loss {res['loss']}")
+    launches = _counts()
     log(f"[driver] llama3.2-3b-smoke: 30 steps with a failure at 15 and a restart from 10 in "
-        f"{secs:.1f}s, final loss {res['loss']:.4f}")
-    return _counts()
+        f"{secs:.1f}s, final loss {res['loss']:.4f}; launches {launches}")
+    if launches["flash_attention_fwd_tf32"] == 0 or launches["flash_attention_fwd_simt"]:
+        raise AssertionError(f"train driver with --use-kernel launched {launches}, want tf32 only")
+    return launches
 
 
 def main() -> int:
@@ -855,9 +968,22 @@ def main() -> int:
         return {path: counts[key] for path, counts in paths.items()}
 
     # each kernel's numbers at the shape of its main path: sm90 at the bf16
-    # prefill, simt at the fp32 training step; the other shapes beside them
-    sm90, simt = flash["sm90"], flash["simt"]
+    # prefill, tf32 at the fp32 training step (simt, on no main path now, there
+    # too); the other shapes beside them
+    tf32, sm90, simt = flash["tf32"], flash["sm90"], flash["simt"]
     line = {"kernels": [{
+        "name": "flash_attention_fwd_tf32",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_sm90_tf32.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:37",
+        "variant": "tf32",
+        "launches": train["flash_attention_fwd_tf32"],
+        "launches_by_path": by_path("flash_attention_fwd_tf32"),
+        "checked": True,
+        **tf32["train_fp32"],
+        **tf32,
+        "sass": sass["tf32"],
+    }, {
         "name": "flash_attention_fwd_sm90",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
@@ -868,7 +994,7 @@ def main() -> int:
         "checked": True,
         **sm90["prefill_d128_bf16"],
         **sm90,
-        "sass": sass,
+        "sass": sass["sm90"],
     }, {
         "name": "flash_attention_fwd_simt",
         "route": "cuda",

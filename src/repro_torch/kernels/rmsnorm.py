@@ -20,6 +20,11 @@ from repro_torch.kernels import _build, ref
 
 SOURCE = "rmsnorm"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# The one-pass kernel's compiled instances: 16-byte vectors a thread (VPT),
+# one block of at most MAX_THREADS a row; `instance` picks one from d.
+ROW_INSTANCES = tuple(range(1, 9))
+MAX_THREADS = 1024
+_TARGET_THREADS = 256
 
 # Kernel launches since the caller last set this to 0 (plain calls not counted).
 launches = 0
@@ -30,10 +35,29 @@ def plain(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Tens
     return ref.rmsnorm_ref(x, gamma, eps)
 
 
+def instance(d: int, dtype: torch.dtype, aligned: bool = True) -> tuple[int, int]:
+    """(VPT, threads) of the kernel that normalises rows of width d.
+
+    VPT in ``ROW_INSTANCES``: the one-pass kernel, one block of ``threads`` a
+    row, VPT 16-byte vectors a thread held in registers.  VPT 0: the general
+    path (a warp a row, 8 rows a block of 256), for d that is not a multiple of
+    the 16-byte vector, pointers off a 16-byte boundary (``aligned`` False), or
+    rows longer than ``ROW_INSTANCES[-1] * MAX_THREADS`` vectors.
+    """
+    vec = 16 // (4 if dtype == torch.float32 else 2)
+    nvec = d // vec
+    if not aligned or d % vec or nvec > ROW_INSTANCES[-1] * MAX_THREADS:
+        return 0, 256
+    vpt = min(max(1, -(-nvec // _TARGET_THREADS)), ROW_INSTANCES[-1])
+    per_thread = -(-nvec // vpt)
+    return vpt, -(-per_thread // 32) * 32
+
+
 @functools.cache
 def _entry():
     fn = _build.load(SOURCE).repro_rmsnorm_fwd
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_float]
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -58,8 +82,8 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Te
     """x (..., d), gamma (d,) -> x·rsqrt(mean(x², -1) + eps)·(1 + gamma), in x's dtype.
 
     The JAX version's TPU tiling knob ``block_rows`` and its ``interpret``
-    switch have no counterpart: the kernel's layout is fixed (a warp a row),
-    and CPU tensors take the plain version.
+    switch have no counterpart: the layout follows from d (``instance``), and
+    CPU tensors take the plain version.
     """
     global launches
     if x.device.type == gamma.device.type == "cpu":
@@ -70,10 +94,12 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Te
     y = torch.empty_like(x)
     if rows == 0:
         return y
+    aligned = not any(t.data_ptr() % 16 for t in (x, gamma, y))
+    vpt, threads = instance(d, x.dtype, aligned)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _entry()(x.data_ptr(), gamma.data_ptr(), y.data_ptr(), _DTYPE_CODES[x.dtype],
-                       rows, d, float(eps), stream)
+                       rows, d, float(eps), vpt, threads, stream)
     if err:
         raise RuntimeError(f"rmsnorm: kernel launch failed with cudaError {err}")
     launches += 1

@@ -39,7 +39,7 @@ def build(args, device: torch.device):
         total_steps=args.steps, schedule=cfg.schedule,
     )
     options = steps_lib.TrainOptions(sync=args.sync, remat=not args.no_remat,
-                                     compress_k=args.compress_k)
+                                     compress_k=args.compress_k, use_kernel=args.use_kernel)
     step_fn = steps_lib.make_train_step(cfg, ocfg, options)
     return cfg, params, opt_lib.init(params), step_fn
 
@@ -56,6 +56,9 @@ def main(argv=None):
     ap.add_argument("--sync", default="auto")
     ap.add_argument("--compress-k", type=int, default=0)
     ap.add_argument("--no-remat", action="store_true")
+    ap.add_argument("--use-kernel", action="store_true",
+                    help="attention through the flash kernel (TrainOptions.use_kernel); "
+                         "off by default, as in the JAX driver")
     ap.add_argument("--checkpoint-dir", default="")
     ap.add_argument("--checkpoint-every", type=int, default=10)
     ap.add_argument("--simulate-failure", type=int, default=0,

@@ -262,3 +262,19 @@ def test_train_cli_resumes_from_a_checkpoint(capsys):
 def test_train_cli_refuses_unported_sync():
     with pytest.raises(NotImplementedError, match="Queue A item 3"):
         train_cli.main(["--steps", "1", "--sync", "ring", "--device", "cpu"])
+
+
+def test_train_cli_use_kernel_takes_the_kernel_op_on_cpu():
+    # --use-kernel routes attention through the flash op; on CPU tensors the
+    # op computes its plain version (no launch), so the losses agree with the
+    # default dense path to fp32 rounding
+    from repro_torch.kernels import flash_attention as tfa
+
+    args = ["--steps", "3", "--batch", "2", "--seq", "16", "--device", "cpu"]
+    before = tfa.launches
+    with_op = train_cli.main(args + ["--use-kernel"])
+    without = train_cli.main(args)
+    assert tfa.launches == before
+    assert with_op["step"] == without["step"] == 3
+    np.testing.assert_allclose(with_op["loss"], without["loss"], rtol=1e-5)
+    np.testing.assert_allclose(with_op["grad_norm"], without["grad_norm"], rtol=1e-3)

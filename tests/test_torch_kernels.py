@@ -136,8 +136,9 @@ def test_rmsnorm_wrapper_never_falls_back_off_the_cpu(x_dev, g_dev):
 @pytest.mark.parametrize("d", tfa.HEAD_DIMS)
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
 def test_flash_variant_rule(dt, d):
-    # bf16 at head_dim >= 16 runs the wgmma/TMA kernel; fp32, and bf16 at 8, the SIMT one
-    want = "sm90" if dt == "bfloat16" and d >= 16 else "simt"
+    # fp32 runs the 3xTF32 wgmma/TMA kernel at every head dim; bf16 at head_dim
+    # >= 16 the bf16 wgmma/TMA kernel, and at 8 the SIMT one
+    want = "tf32" if dt == "float32" else "sm90" if d >= 16 else "simt"
     assert tfa.variant(_TDT[dt], d) == want
     assert want in tfa.SOURCES
 
@@ -184,10 +185,16 @@ def _meta_qkv(d, dtype=torch.bfloat16, offset=0):
     ("bfloat16", 128, 4, None, "16-byte boundary"),    # 8 bytes off
     ("bfloat16", 16, 8, "sm90", "lie on one CUDA"),    # 16 bytes off: aligned, then the device
     ("bfloat16", 64, 1, "simt", "lie on one CUDA"),    # simt has no alignment rule
-    ("float32", 64, 1, None, "lie on one CUDA"),       # fp32 goes to simt
+    ("float32", 64, 1, None, "16-byte boundary"),      # fp32 goes to tf32: TMA alignment
+    ("float32", 128, 2, "tf32", "16-byte boundary"),   # 8 bytes off
+    ("float32", 64, 4, None, "lie on one CUDA"),       # 16 bytes off: aligned, then the device
+    ("float32", 8, 0, "tf32", "lie on one CUDA"),      # tf32 takes head_dim 8
+    ("float32", 64, 1, "simt", "lie on one CUDA"),     # simt still takes fp32, any alignment
     ("float32", 64, 0, "sm90", "no kernel 'sm90'"),    # sm90 is bf16 only
-    ("bfloat16", 8, 0, "sm90", "no kernel 'sm90'"),    # head_dim 8 is simt's alone
-    ("bfloat16", 48, 0, None, "head_dim 48"),          # not a head dim either kernel takes
+    ("bfloat16", 64, 0, "tf32", "no kernel 'tf32'"),   # tf32 is fp32 only
+    ("bfloat16", 8, 0, "sm90", "no kernel 'sm90'"),    # bf16 head_dim 8 is simt's alone
+    ("bfloat16", 48, 0, None, "head_dim 48"),          # not a head dim any kernel takes
+    ("float32", 48, 0, "tf32", "head_dim 48"),
     ("bfloat16", 64, 0, "mma", "no kernel 'mma'"),
 ], ids=str)
 def test_flash_wrapper_checks_raise_before_launch(case):
