@@ -50,8 +50,18 @@ seed:
 9. the train driver of ``repro_torch.launch.train`` at smoke width with
    ``--use-kernel`` (fp32, head_dim 16, through tf32): 30 steps,
    checkpoints, a board failure at step 15, remap and restore from step 10;
-10. one JSON line on every kernel, the card's name and power limit, and last
-   the JSON result line.
+10. the paper's gradient sync over 16 ranks on this card (a 4x4
+   ``LocalMesh``, every rank a thread on cuda:0): each allreduce algorithm,
+   the rings over one axis, reduce-scatter + all-gather over 16 ranks and
+   ``allreduce_tree`` at one llama3.2-3b layer's gradient a rank (100.7 M
+   fp32) against an fp64 sum on the card; every transfer a torus
+   neighbour's, the rings by ppermute alone, the Hamiltonian links balanced;
+   the bytes a rank and a link carry beside the alpha-beta model; the times
+   of the in-process transport (HBM copies, not a network); then the sync
+   train step at smoke width through the tf32 kernel against ``sync="auto"``,
+   top-k compression's mass conservation, and the train CLI with ``--sync``;
+11. one JSON line on every kernel, one on the sync phase, the card's name
+   and power limit, and last the JSON result line.
 
 Any failure raises and exits nonzero; without a CUDA device, or without the
 rest of the repository beside it, the script exits nonzero and prints no
@@ -60,6 +70,7 @@ result.  It imports nothing of JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import functools
@@ -69,6 +80,7 @@ import json
 import math
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -108,6 +120,10 @@ CASES = [
     (1, 192, 192, 12, 2, 64, True, 0),
     (1, 1000, 1000, 8, 2, 128, True, 0),
     (2, 512, 512, 8, 8, 128, True, 200),
+    # the smoke model's attention in the sync train steps: B 4 a rank on the
+    # "data" mesh (ring, bidir), B 1 on the 4x4 one (torus, hamiltonian)
+    (4, 64, 64, 4, 2, 16, True, 0),
+    (1, 64, 64, 4, 2, 16, True, 0),
 ]
 # the prefill shape of llama3.2-3b at head_dim 128, and of minicpm-2b at 64:
 # (b, s, h, kv, d), causal
@@ -938,6 +954,429 @@ def phase_train_driver() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the sync phase: the paper's allreduce algorithms over 16 ranks on one card
+# ---------------------------------------------------------------------------
+
+SYNC_AXES = ("data", "model")
+SYNC_TOL = dict(rtol=1e-5, atol=1e-5)  # tests/multidevice_checks.py
+SYNC_STEP_TOL = dict(rtol=2e-4, atol=2e-5)  # its check_collective_train_step
+SYNC_REPS = 3
+SYNC_OCFG = dict(lr=1e-2, warmup_steps=1, total_steps=10)  # check_collective_train_step's
+SYNC_SEQ, SYNC_ROWS = 64, 16  # the sync train step's batch: the CLI's length, 16 rows
+# The card's fp32 floor of the sync step against whole-batch auto: the mean of the
+# shards' gradients against the whole batch's, relative L2 a leaf. Three runs on an
+# H100 80GB HBM3 at 700 W gave 5.7e-5 over 4 shards; the bound leaves room for the
+# order of sums to move, and for 16 shards of one row each.
+SYNC_FLOOR = 2e-4
+LINKS = ("data+", "data-", "model+", "model-")
+
+
+def _layer_meta(cfg) -> dict:
+    """One decoder layer's parameter tree (``models/transformer.py`` ``init_params``
+    without the layer axis) as meta tensors: the shapes of one layer's gradient."""
+    d, f = cfg.d_model, cfg.d_ff
+    q, kv = cfg.n_heads * cfg.kq_head_dim, cfg.n_kv_heads * cfg.kq_head_dim
+    meta = functools.partial(torch.empty, device="meta")
+    return {"attn_norm": {"scale": meta(d)}, "mlp_norm": {"scale": meta(d)},
+            "wq": meta(d, q), "wk": meta(d, kv), "wv": meta(d, kv), "wo": meta(q, d),
+            "w_gate": meta(d, f), "w_up": meta(d, f), "w_down": meta(f, d)}
+
+
+def _as_tree(flat: torch.Tensor, meta: dict):
+    """``flat`` as views with the shapes of ``meta``'s leaves, in flatten order."""
+    from repro_torch import tree as tree_lib
+
+    leaves, spec = tree_lib.flatten(meta)
+    parts = flat.split([m.numel() for m in leaves])
+    return tree_lib.unflatten(spec, [p.view(m.shape) for p, m in zip(parts, leaves)])
+
+
+def _norm(leaves) -> float:
+    return math.sqrt(sum(float((g.double() ** 2).sum()) for g in leaves))
+
+
+def _leaf_names(tree, prefix: str = "") -> list[str]:
+    """The paths of a tree of dicts' leaves, in flatten order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in _leaf_names(tree[k], f"{prefix}/{k}" if prefix else k)]
+    return [prefix]
+
+
+def _link(src: int, dst: int, r: int = 4, c: int = 4) -> str:
+    """The 4x4 torus link a transfer takes; raises unless src and dst are neighbours."""
+    (i0, j0), (i1, j1) = divmod(src, c), divmod(dst, c)
+    if j0 == j1 and (i1 - i0) % r in (1, r - 1):
+        return "data+" if (i1 - i0) % r == 1 else "data-"
+    if i0 == i1 and (j1 - j0) % c in (1, c - 1):
+        return "model+" if (j1 - j0) % c == 1 else "model-"
+    raise AssertionError(f"transfer {src} -> {dst} is not between 4x4 torus neighbours")
+
+
+def _run_timed(mesh, fn, args) -> tuple[list, dict, list[float]]:
+    """One warm-up run of ``fn`` on every rank, its transport counts, then SYNC_REPS
+    timed runs (host clock around a device sync); the last run's outputs."""
+    mesh.stats.reset()
+    outs = mesh.run(fn, *args)
+    torch.cuda.synchronize()
+    st = mesh.stats
+    counts = {"bytes": dict(st.bytes), "messages": dict(st.messages),
+              "psum_calls": st.psum_calls, "all_gather_calls": st.all_gather_calls}
+    times = []
+    for _ in range(SYNC_REPS):
+        outs = None  # one set of outputs alive at a time
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = mesh.run(fn, *args)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return outs, counts, times
+
+
+def _check_sum(label, outs, ref_of) -> float:
+    """Every rank's output within SYNC_TOL of its fp64 reference; the largest error."""
+    worst = 0.0
+    for r, out in enumerate(outs):
+        ref = ref_of(r)
+        diff = (out.reshape(-1).double() - ref).abs_()
+        excess = float((diff - SYNC_TOL["rtol"] * ref.abs()).max())
+        if excess > SYNC_TOL["atol"]:
+            raise AssertionError(f"[sync] {label}: rank {r} misses rtol {SYNC_TOL['rtol']} "
+                                 f"atol {SYNC_TOL['atol']} by {excess:.3e}")
+        worst = max(worst, float(diff.max()))
+        del diff
+    return worst
+
+
+def _link_loads(counts, size_bytes) -> dict:
+    """Bytes by sender and by directed link, in units of the bucket S."""
+    sent = collections.Counter()
+    for (src, _), b in counts["bytes"].items():
+        sent[src] += b
+    per_link = {link: 0 for link in LINKS}
+    for (src, dst), b in counts["bytes"].items():
+        if src == 0:
+            per_link[_link(src, dst)] += b
+    return {"rank_sends_S": max(sent.values(), default=0) / size_bytes,
+            "largest_link_S": max(counts["bytes"].values(), default=0) / size_bytes,
+            "rank0_links_S": {k: v / size_bytes for k, v in per_link.items()}}
+
+
+def phase_sync_collectives(smi) -> dict:
+    """Each algorithm over 16 LocalMesh ranks on cuda:0, at one llama3.2-3b layer's
+    gradient a rank, against an fp64 sum on the card; transfers against the paper's
+    accounting; times of the in-process transport (HBM copies, not a network)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import collectives as coll
+    from repro_torch.core import commodel
+    from repro_torch.launch.mesh import make_test_mesh
+
+    from repro_torch import tree as tree_lib
+
+    meta = _layer_meta(get_config("llama3.2-3b"))
+    n = sum(leaf.numel() for leaf in tree_lib.leaves(meta))
+    size = 4 * n
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    xs = [torch.randn(n, generator=torch.Generator("cuda").manual_seed(r), device="cuda")
+          for r in range(16)]
+    total = torch.zeros(n, dtype=torch.float64, device="cuda")
+    for x in xs:
+        total += x
+    rows = {}
+
+    def row_sum(r):  # the 4 ranks of rank r's row, for calls over "model" alone
+        i = r // 4
+        if i not in rows:
+            rows.clear()
+            rows[i] = torch.zeros(n, dtype=torch.float64, device="cuda")
+            for j in range(4):
+                rows[i] += xs[4 * i + j]
+        return rows[i]
+
+    mesh = make_test_mesh((4, 4), SYNC_AXES, "cuda")
+    line = make_test_mesh((16,), ("r",), "cuda")
+    calls = [(a, mesh, lambda c, x, a=a: coll.allreduce(c, x, a, SYNC_AXES, (4, 4)),
+              lambda r: total) for a in coll.ALGORITHMS]
+    calls += [(f"{a}_model", mesh, lambda c, x, a=a: coll.allreduce(c, x, a, ("model",)),
+               row_sum) for a in ("ring", "bidir")]
+    calls.append(("rs_ag_16", line, lambda c, x: coll.ring_all_gather(
+        c, coll.ring_reduce_scatter(c, x, "r"), "r"), lambda r: total))
+    mean = total / 16
+
+    def tree_call(c, x):
+        out = coll.allreduce_tree(c, _as_tree(x, meta), "torus", SYNC_AXES, (4, 4), mean=True)
+        return torch.cat([leaf.reshape(-1) for leaf in tree_lib.leaves(out)])
+
+    calls.append(("tree_torus_mean", mesh, tree_call, lambda r: mean))
+
+    results = {}
+    for name, m, fn, ref_of in calls:
+        outs, counts, times = _run_timed(m, fn, [xs])
+        err = _check_sum(name, outs, ref_of)
+        outs = None
+        res = {"max_abs_err": err, "ms": statistics.median(times), "ms_runs": times,
+               "psum_calls": counts["psum_calls"],
+               "all_gather_calls": counts["all_gather_calls"],
+               "messages": sum(counts["messages"].values())}
+        if m is mesh:
+            res.update(_link_loads(counts, size))  # raises on a non-neighbour transfer
+        else:
+            sent = collections.Counter()
+            for (src, _), b in counts["bytes"].items():
+                sent[src] += b
+            res["rank_sends_S"] = max(sent.values()) / size
+        if name == "psum":
+            if counts["bytes"] or counts["psum_calls"] != 16:
+                raise AssertionError(f"[sync] psum moved {counts['bytes']} by ppermute")
+        elif counts["psum_calls"] or counts["all_gather_calls"] or not counts["bytes"]:
+            raise AssertionError(f"[sync] {name} must move data by ppermute alone: {counts}")
+        if name == "hamiltonian":
+            loads = set(counts["bytes"].values())
+            if len(counts["bytes"]) != 64 or len(loads) != 1:
+                raise AssertionError(f"[sync] hamiltonian links not balanced: {counts['bytes']}")
+        if name in commodel.ALGORITHMS:
+            t_model = commodel.ALGORITHMS[name](16, size)
+            alpha_term = t_model - commodel.ALGORITHMS[name](16, size, alpha=0.0)
+            res["model_bw_ms"] = (t_model - alpha_term) * 1e3
+            res["model_bw_S_beta"] = (t_model - alpha_term) * commodel.INJECTION_BPS / size
+            res["link_bound_ms"] = res["largest_link_S"] * size / commodel.LINK_BPS * 1e3
+        results[name] = res
+        links = " ".join(f"{k} {v:.4f}" for k, v in res.get("rank0_links_S", {}).items())
+        log(f"[sync] {name:16s} max |err| {err:.3e}; {res['ms']:9.2f} ms median of "
+            f"{SYNC_REPS} ({', '.join(f'{t:.2f}' for t in times)}); a rank sends "
+            f"{res['rank_sends_S']:.4f} S" + (f", largest link {res['largest_link_S']:.4f} S; "
+                                             f"rank 0: {links}" if m is mesh else "")
+            + f"; {res['messages']} messages, {res['psum_calls']} psum, "
+              f"{res['all_gather_calls']} all_gather calls")
+        if "model_bw_ms" in res:
+            log(f"[sync] {name:16s} alpha-beta model at p=16: bandwidth term "
+                f"{res['model_bw_S_beta']:.4f} S*beta = {res['model_bw_ms']:.3f} ms at 4 x "
+                f"{commodel.LINK_BPS / 1e9:.0f} GB/s; the largest link's load at "
+                f"{commodel.LINK_BPS / 1e9:.0f} GB/s: {res['link_bound_ms']:.3f} ms")
+    rows.clear()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    del xs, total, mean
+    torch.cuda.empty_cache()
+    log(f"[sync] bucket {n:,} fp32 a rank (S = {size / 1e6:.1f} MB, one llama3.2-3b layer), "
+        f"16 ranks on one card; peak {peak:.2f} GiB above the phase's start. Times are the "
+        f"in-process transport: device-to-device copies in one card's HBM and the ranks' "
+        f"barriers, not a network ({smi})")
+    return {"mesh": [4, 4], "bucket_elems": n, "bucket_bytes": size, "peak_gib": peak,
+            "algorithms": results}
+
+
+def phase_sync_train(smi) -> dict:
+    """The sync train step at smoke width over 16 LocalMesh ranks on one card, through
+    the tf32 flash kernel, against ``sync="auto"`` on the whole batch; top-k
+    compression's mass conservation; the CLI with ``--sync`` on this card."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import get_config
+    from repro_torch.core import compression as comp
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import get_model
+    from repro_torch.parallel.sharding import Policy
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import steps as st
+
+    cfg = get_config("llama3.2-3b-smoke")
+    params = get_model(cfg).init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                                        dtype=torch.float32)
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in make_batch(cfg, SYNC_SEQ, SYNC_ROWS).items()}
+    ocfg = opt.AdamWConfig(**SYNC_OCFG)
+    clone = functools.partial(tree_lib.tree_map, torch.clone)
+
+    def clipped(leaves):  # fp64, scaled to a global norm of at most clip_norm, as apply
+        return [g * min(1.0, ocfg.clip_norm / _norm(leaves)) for g in leaves]
+
+    def first_update(g):  # u(g) of AdamW's first step: m^ = g, sqrt(v^) = |g|
+        return g / (g.abs() + ocfg.eps)
+
+    def shards(b, n):
+        rows = len(b["tokens"]) // n
+        return [{k: v[i * rows:(i + 1) * rows] for k, v in b.items()} for i in range(n)]
+
+    # the reference: sync="auto" on the whole batch, one rank; after one step
+    # the first moment is (1 - b1) times the clipped gradient
+    ref = clone(params)
+    ref, ref_state, ref_m = st.make_train_step(cfg, ocfg, st.TrainOptions(use_kernel=True))(
+        ref, opt.init(ref), batch)
+    g_auto = [m.double() / (1 - ocfg.b1) for m in tree_lib.leaves(ref_state.m)]
+    lr = float(ref_m["lr"])
+    # what the ranks' collectives must produce: the mean of the data shards'
+    # gradients, each computed here in turn, summed in fp64
+    grad_fn = st.value_and_grad(st.make_loss_fn(cfg, st.TrainOptions(use_kernel=True)))
+    shard_mean, shard_norm, shard_grads, floor = {}, {}, {}, {}
+    for axes in (("data",), SYNC_AXES):
+        n = math.prod(4 for _ in axes)
+        shard_grads[axes] = [tree_lib.leaves(grad_fn(params, b)[1]) for b in shards(batch, n)]
+        mean = [sum(g.double() for g in gs) / n for gs in zip(*shard_grads[axes])]
+        shard_norm[axes], shard_mean[axes] = _norm(mean), clipped(mean)
+        floor[axes] = max(rel_l2(a, b) for a, b in zip(shard_mean[axes], g_auto))
+    # where the floor comes from: the same comparison through the plain attention,
+    # the whole batch's fp32 gradient against an fp64 model's, and whether one
+    # matmul of the model gives the same rows for a shard as for the whole batch
+    plain_fn = st.value_and_grad(st.make_loss_fn(cfg, st.TrainOptions()))
+    g_plain = tree_lib.leaves(plain_fn(params, batch)[1])
+    floor_plain = max(rel_l2(sum(g.double() for g in gs) / 4, w) for w, gs in zip(
+        g_plain, zip(*[tree_lib.leaves(plain_fn(params, b)[1]) for b in shards(batch, 4)])))
+    g64 = tree_lib.leaves(plain_fn(tree_lib.tree_map(lambda t: t.double(), params), batch)[1])
+    own = {n: rel_l2(a, b) for n, a, b in zip(_leaf_names(params), g_plain, g64)}
+    x = torch.randn(SYNC_ROWS * SYNC_SEQ, cfg.d_model, device="cuda")
+    w = torch.randn(cfg.d_model, cfg.d_ff, device="cuda")
+    rows_equal = {n: torch.equal(torch.cat([x[i * len(x) // n:(i + 1) * len(x) // n] @ w
+                                            for i in range(n)]), x @ w) for n in (4, 16)}
+    log(f"[sync-train] the card's fp32 floor of this comparison: the mean of the shards' "
+        f"gradients against the whole batch's, relative L2 up to {floor[('data',)]:.2e} a "
+        f"leaf over 4 shards, {floor[SYNC_AXES]:.2e} over 16 (bound {SYNC_FLOOR}); "
+        f"{floor_plain:.2e} over 4 through the plain attention; the whole batch's fp32 "
+        f"gradient against an fp64 model's up to {max(own.values()):.2e} "
+        f"({max(own, key=own.get)}); the rows of x @ w ({tuple(x.shape)} @ "
+        f"{tuple(w.shape)}, fp32) for a shard bitwise those of the whole batch: 4 shards "
+        f"{rows_equal[4]}, 16 shards {rows_equal[16]}")
+    for axes, f in floor.items():
+        if f > SYNC_FLOOR:
+            raise AssertionError(f"[sync-train] the mean of the shards' gradients over {axes} "
+                                 f"is {f:.3e} (relative L2) off the whole batch's, past "
+                                 f"{SYNC_FLOOR}")
+    # the model in 16 rank threads at once: each rank's own gradient against its
+    # shard's, computed above in this thread
+    mesh = make_test_mesh((4, 4), SYNC_AXES, "cuda")
+    rows = SYNC_ROWS // 4
+    per_rank = mesh.run(lambda c, b: tree_lib.leaves(grad_fn(params, b)[1]), [
+        {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
+        for i in (mesh.axis_index(r, "data") for r in range(16))])
+    thread_err, bitwise = 0.0, True
+    for r, leaves in enumerate(per_rank):
+        for a, b in zip(leaves, shard_grads[("data",)][mesh.axis_index(r, "data")]):
+            thread_err = max(thread_err, rel_l2(a, b))
+            bitwise = bitwise and torch.equal(a, b)
+    if thread_err > 1e-6:
+        raise AssertionError(f"[sync-train] a rank thread's gradient is {thread_err:.3e} "
+                             f"(relative L2) off its shard's computed alone")
+    log(f"[sync-train] 16 rank threads' own gradients against their shards' computed one "
+        f"at a time: relative L2 up to {thread_err:.2e}, bitwise equal: {bitwise}")
+    del per_rank, shard_grads
+
+    steps = {}
+    _reset_counts()
+    for sync, axes in (("ring", ("data",)), ("bidir", ("data",)),
+                       ("torus", SYNC_AXES), ("hamiltonian", SYNC_AXES)):
+        mesh = make_test_mesh((4, 4), SYNC_AXES, "cuda")
+        p = clone(params)
+        step = st.make_train_step(cfg, ocfg, st.TrainOptions(use_kernel=True, sync=sync),
+                                  Policy(data_axes=axes), mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, state, m = step(p, opt.init(p), batch)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        g_sync = [mm.double() / (1 - ocfg.b1) for mm in tree_lib.leaves(state.m)]
+        grad_err = max(rel_l2(a, b) for a, b in zip(g_sync, shard_mean[axes]))
+        if grad_err > SYNC_TOL["rtol"]:
+            raise AssertionError(f"[sync-train] {sync}: synced gradients {grad_err:.3e} "
+                                 f"(relative L2) off the shards' fp64 mean")
+        auto_err = max(rel_l2(a, b) for a, b in zip(g_sync, g_auto))
+        if auto_err > SYNC_FLOOR + SYNC_TOL["rtol"]:
+            raise AssertionError(f"[sync-train] {sync}: synced gradients {auto_err:.3e} "
+                                 f"(relative L2) off whole-batch auto's")
+        # the gradient's scale: the norm before clipping, to which m and AdamW's
+        # first update are blind
+        norm_err = abs(float(m["grad_norm"]) / shard_norm[axes] - 1)
+        if norm_err > SYNC_TOL["rtol"]:
+            raise AssertionError(f"[sync-train] {sync}: grad_norm {float(m['grad_norm'])} "
+                                 f"against the shards' fp64 mean's {shard_norm[axes]}")
+        worst, excess, amplified, g_there = 0.0, -1.0, 0, []
+        for a, b, gs, ga in zip(tree_lib.leaves(p), tree_lib.leaves(ref), g_sync, g_auto):
+            d = (a - b).abs().double()
+            tol = SYNC_STEP_TOL["rtol"] * b.abs().double() + SYNC_STEP_TOL["atol"]
+            worst = max(worst, float(d.max()))
+            amplified += int((d > tol).sum())
+            g_there += ga[d > tol].abs().tolist()
+            du = (first_update(gs) - first_update(ga)).abs()
+            excess = max(excess, float((d - tol - lr * du).max()))
+        if excess > 0:
+            raise AssertionError(f"[sync-train] {sync}: params miss rtol "
+                                 f"{SYNC_STEP_TOL['rtol']} atol {SYNC_STEP_TOL['atol']} + "
+                                 f"lr*|du| of auto by {excess:.3e}")
+        for src, dst in mesh.stats.bytes:
+            _link(src, dst)
+        if abs(float(m["loss"]) - float(ref_m["loss"])) > 1e-5 * abs(float(ref_m["loss"])):
+            raise AssertionError(f"[sync-train] {sync}: loss {float(m['loss'])} against "
+                                 f"auto's {float(ref_m['loss'])}")
+        g_range = [min(g_there), max(g_there)] if g_there else None
+        steps[sync] = {"grad_rel_l2": grad_err, "grad_rel_l2_auto": auto_err,
+                       "grad_norm": float(m["grad_norm"]), "grad_norm_rel_err": norm_err,
+                       "max_abs_param_diff": worst,
+                       "elements_past_rtol_atol": amplified, "their_abs_g_auto": g_range,
+                       "s": secs, "loss": float(m["loss"])}
+        log(f"[sync-train] {sync:11s} over {axes}: gradients {grad_err:.2e} (relative L2) "
+            f"off the shards' fp64 mean, {auto_err:.2e} off auto's; grad_norm "
+            f"{float(m['grad_norm']):.6f} ({norm_err:.1e} off the mean's, auto "
+            f"{float(ref_m['grad_norm']):.6f}); params against auto: max |diff| {worst:.3e}, "
+            f"{amplified} elements past rtol {SYNC_STEP_TOL['rtol']} atol "
+            f"{SYNC_STEP_TOL['atol']} (|g| there {g_range}, clipped; eps {ocfg.eps}), each "
+            f"within lr*|u(g_sync) - u(g_auto)| more; loss {float(m['loss']):.6f} (auto "
+            f"{float(ref_m['loss']):.6f}), {secs:.2f} s, "
+            f"{sum(mesh.stats.bytes.values()) / 1e6:.3f} MB by ppermute")
+    launches = _counts()
+    want = 4 * 16 * 2 * cfg.n_layers  # 4 steps, 16 ranks, forward and remat recompute
+    log(f"[sync-train] launches over the four sync steps: {launches} (tf32 wanted {want})")
+    if launches["flash_attention_fwd_tf32"] != want or launches["flash_attention_fwd_simt"]:
+        raise AssertionError(f"[sync-train] launched {launches}, want {want} tf32 only")
+
+    # check_compression of tests/multidevice_checks.py on 16 ranks of the card
+    g = torch.randn(16, 64, generator=torch.Generator("cuda").manual_seed(0), device="cuda")
+    line = make_test_mesh((16,), ("d",), "cuda")
+
+    def sparse(c, gs):
+        out, state = comp.sparse_allreduce(c, gs, comp.init_state(gs), 8, "d")
+        return out, state.residual
+
+    res = line.run(sparse, list(g))
+    reduced = res[0][0]
+    resid_sum = torch.stack([r for _, r in res]).sum(0)
+    err = float((reduced + resid_sum / 16 - g.mean(0)).abs().max())
+    if not torch.allclose(reduced + resid_sum / 16, g.mean(0), rtol=1e-4, atol=1e-5):
+        raise AssertionError(f"[sync-train] sparse_allreduce loses mass: max |err| {err:.3e}")
+    log(f"[sync-train] compress_k=8 over 16 ranks conserves the gradient mass (max |err| "
+        f"{err:.3e}; {line.stats.all_gather_calls} all_gather calls)")
+
+    # the CLI: a one-rank "data" mesh on this card, as the JAX driver on one device
+    cli = {}
+    for sync in ("auto", "ring"):
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli[sync] = train_cli.main(["--arch", "llama3.2-3b-smoke", "--steps", "3",
+                                        "--sync", sync, "--use-kernel"])
+    if abs(cli["ring"]["loss"] - cli["auto"]["loss"]) > 1e-6 * abs(cli["auto"]["loss"]):
+        raise AssertionError(f"[sync-train] CLI --sync ring loss {cli['ring']['loss']} "
+                             f"against auto's {cli['auto']['loss']}")
+    for sync in ("torus", "hamiltonian"):
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                train_cli.main(["--arch", "llama3.2-3b-smoke", "--steps", "1", "--sync", sync])
+        except ValueError as e:
+            if "needs a 2D mesh" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"[sync-train] CLI --sync {sync} on a 1D mesh did not raise")
+    log(f"[sync-train] CLI, 3 steps on one rank: --sync ring loss {cli['ring']['loss']:.7f}, "
+        f"--sync auto {cli['auto']['loss']:.7f}; --sync torus and hamiltonian raise "
+        f"'needs a 2D mesh' on the 1D mesh ({smi})")
+    return {"steps": steps,
+            "shard_floor_rel_l2": {"4": floor[("data",)], "16": floor[SYNC_AXES]},
+            "shard_floor_rel_l2_plain": floor_plain, "fp32_vs_fp64_rel_l2": own,
+            "matmul_rows_bitwise": rows_equal, "thread_rel_l2": thread_err,
+            "thread_bitwise": bitwise, "launches": launches,
+            "compression_max_abs_err": err,
+            "cli_loss": {k: v["loss"] for k, v in cli.items()}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -961,8 +1400,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     train = phase_train(cfg, smi)
     driver = phase_train_driver()
+    sync = phase_sync_collectives(smi)
+    sync_train = phase_sync_train(smi)
 
-    paths = {"prefill": prefill, "train_steps": train, "train_driver": driver}
+    paths = {"prefill": prefill, "train_steps": train, "train_driver": driver,
+             "train_sync": sync_train["launches"]}
 
     def by_path(key):
         return {path: counts[key] for path, counts in paths.items()}
@@ -1017,6 +1459,7 @@ def main() -> int:
         **rms_kernel,
     }]}
     log(json.dumps(line))
+    log(json.dumps({"sync": {"device": smi, **sync, "train": sync_train}}))
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(smi)
     print(json.dumps({"ok": True, "device": {

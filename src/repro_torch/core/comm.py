@@ -1,0 +1,410 @@
+"""Meshes of ranks: the port's stand-in for ``shard_map`` and its collectives.
+
+The JAX package writes the paper's allreduce algorithms once, per device,
+inside ``shard_map``, and reaches the other devices through
+``lax.axis_index``, ``lax.ppermute``, ``lax.psum`` and ``lax.all_gather``
+over named mesh axes.  Here a ``Mesh`` has the same named axes and shape,
+and ``Mesh.run(fn, *per_rank_args)`` calls ``fn(comm, *args)`` once per rank,
+as ``shard_map`` calls its body once per device.  ``comm`` is that rank's
+``Comm``: its coordinates and the four primitives, with JAX's semantics:
+
+* ``ppermute(x, axes, perm)``: ``perm`` pairs positions along ``axes`` (one
+  axis, or several linearised in the order given); every other coordinate
+  is held fixed, so the pairs expand to global (src, dst) ranks as JAX
+  expands a ppermute over named axes.  A rank that no pair sends to gets
+  zeros.
+* ``psum(x, axes)`` and ``all_gather(x, axes)`` (a new leading axis, in the
+  order of the positions along ``axes``) over the ranks that share every
+  other coordinate.
+
+Ranks are numbered row-major over the mesh shape (the last axis fastest),
+as ``jax.make_mesh`` lays devices out.  Two transports carry the data:
+
+* ``LocalMesh``: the ranks are threads of one process, each with its own
+  ``torch.device`` (all on one GPU, one per GPU, or the CPU).  A transfer is
+  a copy of the sender's tensor onto the receiver's device, between two
+  barriers.
+* ``DistMesh``: one rank per process of a ``torch.distributed`` process
+  group (gloo on CPU tensors, NCCL on GPUs); ppermute is
+  ``batch_isend_irecv`` between global ranks, psum ``all_reduce`` and
+  all_gather ``all_gather_into_tensor``.
+
+Both count what they move in ``Mesh.stats``: ppermute bytes and messages by
+(src, dst) rank pair, and psum and all_gather calls.
+"""
+
+from __future__ import annotations
+
+import math
+import threading
+from collections import Counter
+from collections.abc import Sequence
+
+import torch
+
+Axes = str | tuple[str, ...]
+
+
+def _as_tuple(axes: Axes) -> tuple[str, ...]:
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+class CommStats:
+    """What a mesh's transport moved since the last ``reset``.
+
+    ``bytes`` and ``messages`` count ppermute sends by (src, dst) global rank
+    pair; ``psum_calls`` and ``all_gather_calls`` count one per rank and call.
+    A ``DistMesh`` counts the sends and calls of its own rank only.
+    """
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.reset()
+
+    def reset(self) -> None:
+        with self._lock:
+            self.bytes: Counter = Counter()
+            self.messages: Counter = Counter()
+            self.psum_calls = 0
+            self.all_gather_calls = 0
+
+    def record_send(self, src: int, dst: int, nbytes: int) -> None:
+        with self._lock:
+            self.bytes[(src, dst)] += nbytes
+            self.messages[(src, dst)] += 1
+
+    def record_call(self, kind: str) -> None:
+        with self._lock:
+            if kind == "psum":
+                self.psum_calls += 1
+            else:
+                self.all_gather_calls += 1
+
+
+class Mesh:
+    """Named axes over ``size`` ranks; a transport subclass moves the data."""
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str]):
+        shape, axis_names = tuple(int(s) for s in shape), tuple(axis_names)
+        if len(shape) != len(axis_names) or len(set(axis_names)) != len(axis_names):
+            raise ValueError(f"mesh shape {shape} and axes {axis_names} do not match")
+        if min(shape, default=0) < 1:
+            raise ValueError(f"mesh shape {shape} has an empty axis")
+        self.axis_names = axis_names
+        self.shape = dict(zip(axis_names, shape))  # as jax.sharding.Mesh.shape
+        self.size = math.prod(shape)
+        self.stats = CommStats()
+        self._peers: dict = {}
+        self._peers_lock = threading.Lock()
+
+    # -- layout ------------------------------------------------------------
+
+    def coords(self, rank: int) -> dict[str, int]:
+        """The rank's position along every axis (row-major, last axis fastest)."""
+        out = {}
+        for name in reversed(self.axis_names):
+            rank, out[name] = divmod(rank, self.shape[name])
+        return {name: out[name] for name in self.axis_names}
+
+    def rank_of(self, coords: dict[str, int]) -> int:
+        rank = 0
+        for name in self.axis_names:
+            rank = rank * self.shape[name] + coords[name]
+        return rank
+
+    def axis_size(self, axes: Axes) -> int:
+        return math.prod(self.shape[a] for a in _as_tuple(axes))
+
+    def axis_index(self, rank: int, axes: Axes) -> int:
+        """The rank's position along ``axes``, linearised in the order given."""
+        c = self.coords(rank)
+        idx = 0
+        for a in _as_tuple(axes):
+            idx = idx * self.shape[a] + c[a]
+        return idx
+
+    def group(self, rank: int, axes: Axes) -> list[int]:
+        """The ranks that share every coordinate of ``rank`` off ``axes``, in the
+        order of their position along ``axes``."""
+        axes = _as_tuple(axes)
+        self._check_axes(axes)
+        base = self.coords(rank)
+        members = []
+        for pos in range(self.axis_size(axes)):
+            c = dict(base)
+            for a in reversed(axes):
+                pos, c[a] = divmod(pos, self.shape[a])
+            members.append(self.rank_of(c))
+        return members
+
+    def groups(self, axes: Axes) -> list[list[int]]:
+        """The partition of all ranks into the groups of ``group``."""
+        seen, out = set(), []
+        for r in range(self.size):
+            if r not in seen:
+                g = self.group(r, axes)
+                seen.update(g)
+                out.append(g)
+        return out
+
+    def peers(self, rank: int, axes: Axes, perm: Sequence[tuple[int, int]]):
+        """(src, dst) global ranks of ``rank`` in a ppermute over ``axes``; None
+        where no pair sends to it or it sends to no one."""
+        axes = _as_tuple(axes)
+        key = (axes, tuple((int(a), int(b)) for a, b in perm))
+        table = self._peers.get(key)
+        if table is None:
+            table = self._peer_table(*key)
+            with self._peers_lock:
+                self._peers[key] = table
+        return table[rank]
+
+    def _peer_table(self, axes, perm):
+        self._check_axes(axes)
+        n = self.axis_size(axes)
+        srcs, dsts = [a for a, _ in perm], [b for _, b in perm]
+        if len(set(srcs)) != len(srcs) or len(set(dsts)) != len(dsts) or not all(
+                0 <= i < n for i in srcs + dsts):
+            raise ValueError(f"ppermute over {axes} (size {n}): {perm} is not a permutation")
+        send, recv = dict(perm), {b: a for a, b in perm}
+        table = []
+        for r in range(self.size):
+            g, i = self.group(r, axes), self.axis_index(r, axes)
+            table.append((g[recv[i]] if i in recv else None, g[send[i]] if i in send else None))
+        return table
+
+    def _check_axes(self, axes: tuple[str, ...]) -> None:
+        unknown = [a for a in axes if a not in self.shape]
+        if unknown or len(set(axes)) != len(axes):
+            raise ValueError(f"axes {axes} are not distinct axes of the mesh {self.axis_names}")
+
+    # -- transport (subclasses) --------------------------------------------
+
+    def device(self, rank: int) -> torch.device:
+        raise NotImplementedError
+
+    def run(self, fn, *per_rank_args) -> list:
+        """``fn(comm, *args)`` once for each rank of this process, ``args`` the
+        rank's entries of ``per_rank_args`` (each a sequence indexed by global
+        rank).  Returns the results in rank order: every rank's for a
+        ``LocalMesh``, this process's one rank's for a ``DistMesh``."""
+        raise NotImplementedError
+
+    def _ppermute(self, rank, x, src, dst):
+        raise NotImplementedError
+
+    def _psum(self, rank, x, axes):
+        raise NotImplementedError
+
+    def _all_gather(self, rank, x, axes):
+        raise NotImplementedError
+
+    def _check_args(self, per_rank_args) -> None:
+        for a in per_rank_args:
+            if len(a) != self.size:
+                raise ValueError(f"run: an argument has {len(a)} entries for {self.size} ranks")
+
+
+class Comm:
+    """One rank's view of a mesh inside ``Mesh.run``: what ``shard_map``'s body
+    reaches through ``lax``."""
+
+    def __init__(self, mesh: Mesh, rank: int):
+        self.mesh, self.rank = mesh, rank
+        self.device = mesh.device(rank)
+
+    def axis_index(self, axes: Axes) -> int:
+        return self.mesh.axis_index(self.rank, axes)
+
+    def axis_size(self, axes: Axes) -> int:
+        return self.mesh.axis_size(axes)
+
+    def ppermute(self, x: torch.Tensor, axes: Axes, perm) -> torch.Tensor:
+        src, dst = self.mesh.peers(self.rank, axes, perm)
+        return self.mesh._ppermute(self.rank, x.contiguous(), src, dst)
+
+    def psum(self, x: torch.Tensor, axes: Axes) -> torch.Tensor:
+        self.mesh.stats.record_call("psum")
+        return self.mesh._psum(self.rank, x.contiguous(), _as_tuple(axes))
+
+    def all_gather(self, x: torch.Tensor, axes: Axes) -> torch.Tensor:
+        self.mesh.stats.record_call("all_gather")
+        return self.mesh._all_gather(self.rank, x.contiguous(), _as_tuple(axes))
+
+
+class LocalMesh(Mesh):
+    """Every rank a thread of this process, with its own device.
+
+    ``devices`` is one device for all ranks (all 16 ranks of a 4×4 mesh on one
+    GPU, or on the CPU) or a sequence of one device a rank.  Each collective
+    posts the rank's tensor in its slot and waits at a barrier; each rank then
+    copies what it needs onto its own device (``.to(device, copy=True)``).
+    The slots alternate between two sets from one collective to the next, so
+    a slot is posted again only after the next collective's barrier, which no
+    rank passes before every rank has read: one barrier a collective, not two.
+    If one rank raises, the barrier is broken so that every other rank raises
+    too, and ``run`` raises the first rank's own exception.  ``timeout``
+    (seconds) bounds each wait, so ranks that disagree on the collectives they
+    call fail rather than hang.
+    """
+
+    def __init__(self, shape, axis_names, devices, timeout: float = 300.0):
+        super().__init__(shape, axis_names)
+        if isinstance(devices, (str, torch.device)):
+            devices = [torch.device(devices)] * self.size
+        self.devices = [torch.device(d) for d in devices]
+        if len(self.devices) != self.size:
+            raise ValueError(f"LocalMesh: {len(self.devices)} devices for {self.size} ranks")
+        self.timeout = timeout
+        self._slots: list = [[None] * self.size, [None] * self.size]
+        self._calls = [0] * self.size  # collectives each rank has called in this run
+        self._barrier: threading.Barrier | None = None
+
+    def device(self, rank: int) -> torch.device:
+        return self.devices[rank]
+
+    def run(self, fn, *per_rank_args) -> list:
+        self._check_args(per_rank_args)
+        self._barrier = barrier = threading.Barrier(self.size, timeout=self.timeout)
+        results: list = [None] * self.size
+        errors: list = [None] * self.size
+
+        def body(rank):
+            try:
+                results[rank] = fn(Comm(self, rank), *(a[rank] for a in per_rank_args))
+            except BaseException as e:  # re-raised by run, in the caller's thread
+                errors[rank] = e
+                barrier.abort()
+
+        threads = [threading.Thread(target=body, args=(r,), name=f"rank{r}", daemon=True)
+                   for r in range(self.size)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        self._slots = [[None] * self.size, [None] * self.size]
+        self._calls = [0] * self.size
+        self._barrier = None
+        raised = [e for e in errors if e is not None]
+        own = [e for e in raised if not isinstance(e, threading.BrokenBarrierError)]
+        if raised:
+            raise (own or raised)[0]
+        return results
+
+    def _exchange(self, rank, x, read):
+        """Post ``x``, wait for every rank's post, and return ``read(slots)``."""
+        if self._barrier is None:
+            raise RuntimeError("LocalMesh collectives run inside LocalMesh.run only")
+        slots = self._slots[self._calls[rank] % 2]
+        self._calls[rank] += 1
+        slots[rank] = x
+        self._barrier.wait()
+        return read(slots)
+
+    def _ppermute(self, rank, x, src, dst):
+        if dst is not None:
+            self.stats.record_send(rank, dst, x.numel() * x.element_size())
+        dev = self.devices[rank]
+
+        def read(slots):
+            if src is None:
+                return torch.zeros_like(x)
+            return slots[src].to(dev, copy=True)
+
+        return self._exchange(rank, x, read)
+
+    def _psum(self, rank, x, axes):
+        dev, group = self.devices[rank], self.group(rank, axes)
+
+        def read(slots):  # the same order on every rank, so every rank holds the same sum
+            out = slots[group[0]].to(dev, copy=True)
+            for g in group[1:]:
+                out += slots[g].to(dev)
+            return out
+
+        return self._exchange(rank, x, read)
+
+    def _all_gather(self, rank, x, axes):
+        dev, group = self.devices[rank], self.group(rank, axes)
+        return self._exchange(rank, x, lambda slots: torch.stack([slots[g].to(dev)
+                                                                  for g in group]))
+
+
+class DistMesh(Mesh):
+    """This process's rank of the default ``torch.distributed`` process group.
+
+    The group must be initialised, with as many ranks as the mesh has, and
+    ``device`` is where this rank's tensors live (the CPU for gloo; this
+    process's GPU for NCCL, which also wants ``torch.cuda.set_device``).  The
+    constructor runs one all-reduce over every rank: NCCL wants the first
+    collective of a group to involve all its ranks before a batched P2P.
+    Sub-axis psums and all_gathers create their subgroups on first use, with
+    every rank taking part, as the SPMD code does.
+    """
+
+    def __init__(self, shape, axis_names, device="cpu"):
+        import torch.distributed as dist
+
+        super().__init__(shape, axis_names)
+        if not dist.is_initialized():
+            raise RuntimeError("DistMesh needs torch.distributed.init_process_group first")
+        if dist.get_world_size() != self.size:
+            raise ValueError(f"DistMesh: mesh of {self.size} ranks on a process group of "
+                             f"{dist.get_world_size()}")
+        self._dist = dist
+        self.rank = dist.get_rank()
+        self._device = torch.device(device)
+        self._subgroups: dict = {}
+        dist.all_reduce(torch.zeros(1, device=self._device))
+
+    def device(self, rank: int) -> torch.device:
+        return self._device
+
+    def run(self, fn, *per_rank_args) -> list:
+        self._check_args(per_rank_args)
+        return [fn(Comm(self, self.rank), *(a[self.rank] for a in per_rank_args))]
+
+    def _process_group(self, axes):
+        """The process group of this rank's group over ``axes`` (None: the world).
+
+        The first call for ``axes`` creates the subgroup of every group of the
+        partition, on every rank, in one order.
+        """
+        if self.axis_size(axes) == self.size:
+            return None
+        if axes not in self._subgroups:
+            parts = self.groups(axes)
+            _, pgs = self._dist.new_subgroups_by_enumeration(parts)
+            self._subgroups[axes] = {frozenset(g): pg for g, pg in zip(parts, pgs)}
+        return self._subgroups[axes][frozenset(self.group(self.rank, axes))]
+
+    def _ppermute(self, rank, x, src, dst):
+        dist = self._dist
+        if dst is not None:
+            self.stats.record_send(rank, dst, x.numel() * x.element_size())
+        if dst == rank:  # a pair (r, r): src is rank too
+            return x.clone()
+        out = torch.empty_like(x) if src is not None else torch.zeros_like(x)
+        ops = []
+        if dst is not None:
+            ops.append(dist.P2POp(dist.isend, x, dst))
+        if src is not None:
+            ops.append(dist.P2POp(dist.irecv, out, src))
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        return out
+
+    def _psum(self, rank, x, axes):
+        out = x.clone()
+        self._dist.all_reduce(out, group=self._process_group(axes))
+        return out
+
+    def _all_gather(self, rank, x, axes):
+        group = self.group(rank, axes)
+        out = torch.empty(len(group) * x.numel(), dtype=x.dtype, device=x.device)
+        self._dist.all_gather_into_tensor(out, x.reshape(-1), group=self._process_group(axes))
+        out = out.reshape((len(group),) + tuple(x.shape))
+        # a process group orders its ranks by global rank; the mesh by position
+        order = sorted(group)
+        return out[[order.index(g) for g in group]] if order != group else out

@@ -11,11 +11,11 @@ built when this module is imported: the first CUDA call of a kernel builds it.
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -81,8 +81,18 @@ def build(names: list[str] | None = None) -> dict[str, str]:
     return logs
 
 
-@functools.cache
+_loaded: dict[str, ctypes.CDLL] = {}
+_load_lock = threading.Lock()
+
+
 def load(name: str) -> ctypes.CDLL:
-    """The built library of ``csrc/<name>.cu``, building it first if needed."""
-    build([name])
-    return ctypes.CDLL(str(library_path(name)))
+    """The built library of ``csrc/<name>.cu``, building it first if needed.
+
+    Thread-safe: the ranks of a ``LocalMesh`` are threads that may reach a
+    kernel at once, and only the first builds and loads it.
+    """
+    with _load_lock:
+        if name not in _loaded:
+            build([name])
+            _loaded[name] = ctypes.CDLL(str(library_path(name)))
+        return _loaded[name]

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -29,9 +30,19 @@ _SM90_BLOCK_Q = 128  # q rows a CTA; the q tiles are the grid's y axis
 _KEY_GROUP = 8  # the tf32 kernel's V^T pads Sk to, and permutes keys within, groups of 8
 
 # Kernel launches since the caller last reset them (plain calls not counted):
-# in all, and by variant.
+# in all, and by variant.  ``count_launch`` adds under a lock, since the ranks
+# of a LocalMesh launch from threads of their own.
 launches = 0
 launches_by_variant = dict.fromkeys(SOURCES, 0)
+_count_lock = threading.Lock()
+
+
+def count_launch(name: str) -> None:
+    """Add one launch of the kernel ``name`` ("tf32", "sm90" or "simt")."""
+    global launches
+    with _count_lock:
+        launches += 1
+        launches_by_variant[name] += 1
 
 
 def plain(q, k, v, causal: bool = True, window: int = 0) -> torch.Tensor:
@@ -149,7 +160,6 @@ def launch(q, k, v, causal: bool = True, window: int = 0, kernel: str | None = N
     caller run the SIMT kernel on any input too, to compare.  The tf32 kernel
     runs as two launches, ``split_kv`` then the attention, counted as one.
     """
-    global launches
     name = _check(q, k, v, window, kernel)
     b, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
@@ -175,8 +185,7 @@ def launch(q, k, v, causal: bool = True, window: int = 0, kernel: str | None = N
     if err:
         raise RuntimeError(f"flash_attention_fwd: the {name} kernel failed to launch with "
                            f"error {err}")
-    launches += 1
-    launches_by_variant[name] += 1
+    count_launch(name)
     return out
 
 

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -27,7 +28,16 @@ MAX_THREADS = 1024
 _TARGET_THREADS = 256
 
 # Kernel launches since the caller last set this to 0 (plain calls not counted).
+# ``count_launch`` adds under a lock, since the ranks of a LocalMesh launch
+# from threads of their own.
 launches = 0
+_count_lock = threading.Lock()
+
+
+def count_launch() -> None:
+    global launches
+    with _count_lock:
+        launches += 1
 
 
 def plain(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -85,7 +95,6 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Te
     switch have no counterpart: the layout follows from d (``instance``), and
     CPU tensors take the plain version.
     """
-    global launches
     if x.device.type == gamma.device.type == "cpu":
         return plain(x, gamma, eps)
     _check(x, gamma)
@@ -102,5 +111,5 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Te
                        rows, d, float(eps), vpt, threads, stream)
     if err:
         raise RuntimeError(f"rmsnorm: kernel launch failed with cudaError {err}")
-    launches += 1
+    count_launch()
     return y

@@ -1,11 +1,22 @@
 """Train and serving steps (counterpart of ``repro.train.steps``).
 
-The train step runs with ``sync="auto"``, the JAX package's baseline: one
-process computes the loss and its gradient with autograd and applies AdamW.
-The paper's gradient-sync modes (``sync`` in ring / bidir / torus /
-hamiltonian) and top-k compression (``compress_k > 0``) come with the
-gradient-sync slice (ROADMAP Queue A item 3) and raise until then.  The
-serving steps run without autograd.
+Gradient synchronization modes (the paper's technique as a first-class
+feature):
+
+* ``sync="auto"``: one process computes the loss and its gradient on the
+  whole batch with autograd and applies AdamW (the JAX package's baseline,
+  where XLA inserts its own gradient all-reduce).  ``compress_k`` is not
+  read, as in JAX.
+* ``sync in {"ring","bidir","torus","hamiltonian"}``: the paper's HxMesh
+  collective algorithms (``core/collectives.py``) over a mesh of ranks
+  (``core/comm.py``).  Each rank takes its shard of the batch along the
+  policy's data axes, computes its gradient, and the gradients are reduced
+  with neighbour-only ppermute rings over those axes, as the JAX version's
+  full-manual ``shard_map`` does.
+* ``compress_k > 0`` with a sync mode: top-k sparsified gradient sync (paper
+  Appendix A) over the first data axis, in the reference's stateless form.
+
+The serving steps run without autograd.
 """
 
 from __future__ import annotations
@@ -17,13 +28,15 @@ import torch.utils.checkpoint
 
 from repro_torch import tree as tree_lib
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import collectives as coll
+from repro_torch.core import compression as comp
 from repro_torch.models import get_model
 from repro_torch.train import optimizer as opt
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainOptions:
-    sync: str = "auto"  # auto | ring | bidir | torus | hamiltonian (only auto is ported)
+    sync: str = "auto"  # auto | ring | bidir | torus | hamiltonian
     remat: bool = True
     use_kernel: bool = False
     compress_k: int = 0
@@ -135,24 +148,76 @@ def make_train_step(cfg: ArchConfig, ocfg: opt.AdamWConfig, options: TrainOption
                     policy=None, mesh=None, act_specs=None):
     """Returns train_step(params, opt_state, batch) -> (params, opt_state, metrics).
 
-    ``policy``, ``mesh`` and ``act_specs`` are accepted for the JAX signature;
-    with ``sync="auto"`` the JAX version does not read ``policy`` or ``mesh``
-    either.  The step updates ``params`` and the moments in place
-    (``optimizer.apply``) and returns them.
+    With ``sync="auto"`` the step reads neither ``policy`` nor ``mesh``, as in
+    JAX.  A sync mode needs both: a ``parallel.sharding.Policy`` whose
+    ``data_axes`` name axes of ``mesh`` (a ``core.comm.Mesh``).  Ranks along
+    an axis that is not a data axis take the same shard and do the same work.
+    The step updates ``params`` and the moments in place (``optimizer.apply``),
+    once, with the synced gradients, and returns them.  ``act_specs``
+    (activation shardings) is accepted for the JAX signature.
     """
-    if options.sync != "auto" or options.compress_k:
-        raise NotImplementedError(
-            f"sync={options.sync!r}, compress_k={options.compress_k}: the paper's gradient-sync "
-            "modes come with the gradient-sync slice (ROADMAP Queue A item 3); only "
-            "sync='auto' without compression is ported")
     grad_fn = value_and_grad(make_loss_fn(cfg, options, act_specs=act_specs))
 
-    def train_step(params, opt_state, batch):
+    if options.sync == "auto":
+
+        def train_step(params, opt_state, batch):
+            (_, (loss, aux)), grads = grad_fn(params, batch)
+            params, opt_state, m = opt.apply(ocfg, opt_state, params, grads)
+            return params, opt_state, {"loss": loss, "aux": aux, **m}
+
+        return train_step
+
+    # --- paper-collective mode: one rank a mesh position ------------------
+    if mesh is None or policy is None:
+        raise ValueError(f"sync={options.sync!r} needs a mesh and a policy")
+    axes = tuple(policy.data_axes)
+    dp_shape = tuple(mesh.shape[a] for a in axes)
+    dp_total = mesh.axis_size(axes)
+
+    def synced_grads(comm, params, batch):
+        """Runs on one rank with its data shard."""
+        params = tree_lib.tree_map(lambda t: t.to(comm.device), params)
+        batch = {k: v.to(comm.device) for k, v in batch.items()}
         (_, (loss, aux)), grads = grad_fn(params, batch)
+        if options.compress_k:
+
+            def sync_leaf(g):
+                st = comp.init_state(g)  # stateless variant: residual dropped
+                out, _ = comp.sparse_allreduce(comm, g.float(), st, options.compress_k,
+                                               axes[0])
+                # as the reference: sparse_allreduce already averaged over axes[0]
+                return (out / dp_total).to(g.dtype)
+
+            grads = tree_lib.tree_map(sync_leaf, grads)
+        else:
+            grads = coll.allreduce_tree(comm, grads, options.sync, axes,
+                                        dp_shape if len(axes) > 1 else None, mean=True)
+        loss = comm.psum(loss, axes) / dp_total
+        aux = comm.psum(aux, axes) / dp_total
+        return grads, loss, aux
+
+    def train_step(params, opt_state, batch):
+        shards = [_data_shard(batch, mesh.axis_index(r, axes), dp_total)
+                  for r in range(mesh.size)]
+        grads, loss, aux = mesh.run(synced_grads, [params] * mesh.size, shards)[0]
+        flat, spec = tree_lib.flatten(params)
+        grads = tree_lib.unflatten(spec, [g.to(p.device) for g, p in
+                                          zip(tree_lib.leaves(grads), flat)])
         params, opt_state, m = opt.apply(ocfg, opt_state, params, grads)
         return params, opt_state, {"loss": loss, "aux": aux, **m}
 
     return train_step
+
+
+def _data_shard(batch, index: int, n: int):
+    """Shard ``index`` of ``n`` of every batch leaf along its leading axis."""
+    out = {}
+    for k, v in batch.items():
+        if v.shape[0] % n:
+            raise ValueError(f"batch[{k!r}] has {v.shape[0]} rows for {n} data shards")
+        rows = v.shape[0] // n
+        out[k] = v[index * rows:(index + 1) * rows]
+    return out
 
 
 # ---------------------------------------------------------------------------

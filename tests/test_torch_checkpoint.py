@@ -7,6 +7,7 @@ allocations, board failures and remaps.  The train driver runs on the CPU.
 """
 
 import dataclasses
+import importlib.util
 import json
 import os
 import random
@@ -259,9 +260,51 @@ def test_train_cli_resumes_from_a_checkpoint(capsys):
     assert out["step"] == 6
 
 
-def test_train_cli_refuses_unported_sync():
-    with pytest.raises(NotImplementedError, match="Queue A item 3"):
-        train_cli.main(["--steps", "1", "--sync", "ring", "--device", "cpu"])
+@pytest.mark.parametrize("sync", ["ring", "bidir"])
+def test_train_cli_sync_on_one_rank_matches_auto(sync):
+    # a one-rank "data" mesh, as the JAX driver on one device: the ring moves
+    # nothing and the mean over one rank is the gradient itself
+    args = ["--steps", "3", "--batch", "2", "--seq", "16", "--device", "cpu"]
+    synced = train_cli.main(args + ["--sync", sync])
+    auto = train_cli.main(args)
+    assert synced["step"] == auto["step"] == 3
+    np.testing.assert_allclose(synced["loss"], auto["loss"], rtol=1e-6)
+    np.testing.assert_allclose(synced["grad_norm"], auto["grad_norm"], rtol=1e-6)
+
+
+def test_train_cli_compress_k_runs_with_a_sync_mode():
+    out = train_cli.main(["--steps", "3", "--batch", "2", "--seq", "16", "--device", "cpu",
+                          "--sync", "ring", "--compress-k", "8"])
+    assert out["step"] == 3 and np.isfinite(out["loss"])
+
+
+@pytest.mark.parametrize("sync", ["torus", "hamiltonian"])
+def test_train_cli_two_axis_sync_needs_a_2d_mesh(sync):
+    with pytest.raises(ValueError, match="needs a 2D mesh"):
+        train_cli.main(["--steps", "1", "--batch", "2", "--seq", "8", "--device", "cpu",
+                        "--sync", sync])
+
+
+def _example(name):
+    path = os.path.join(os.path.dirname(__file__), "..", "examples", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("name,extra", [
+    ("train_lm_torch", []),
+    ("fault_tolerant_training_torch", ["--simulate-failure", "2", "--checkpoint-every", "1"]),
+])
+def test_examples_twins_run_on_cpu(name, extra, capsys):
+    out = _example(name).main(["--steps", "3", "--batch", "2", "--seq", "16", "--device", "cpu",
+                               *extra])
+    assert out["step"] == 3 and np.isfinite(out["loss"])
+    text = capsys.readouterr().out
+    assert "[train] done: 3 steps" in text
+    if extra:
+        assert "[failure] restarted from checkpoint step 2" in text
 
 
 def test_train_cli_use_kernel_takes_the_kernel_op_on_cpu():

@@ -204,3 +204,56 @@ def test_flash_wrapper_checks_raise_before_launch(case):
     with pytest.raises(ValueError, match=match):
         tfa.launch(q, k, v, kernel=kernel)
     assert tfa.launches == before and tfa.launches_by_variant == by_variant
+
+
+# ---------------------------------------------------------------------------
+# thread safety: the ranks of a LocalMesh reach the kernels from 16 threads
+# ---------------------------------------------------------------------------
+
+
+def test_load_builds_once_and_launch_counts_stay_exact_across_threads(monkeypatch):
+    import sys
+    import threading
+    import time
+    import types
+
+    from repro_torch.kernels import _build
+
+    builds = []
+
+    def slow_build(names):
+        builds.append(tuple(names))
+        time.sleep(0.05)  # a second thread arrives while the first builds
+
+    monkeypatch.setattr(_build, "build", slow_build)
+    monkeypatch.setattr(_build, "ctypes", types.SimpleNamespace(CDLL=lambda path: object()))
+    monkeypatch.setattr(_build, "_loaded", {})
+    monkeypatch.setattr(tfa, "launches", 0)
+    monkeypatch.setattr(tfa, "launches_by_variant", dict.fromkeys(tfa.SOURCES, 0))
+    monkeypatch.setattr(trms, "launches", 0)
+    names, per_thread, n_threads = _build.sources(), 2000, 16
+    libs = [[] for _ in range(n_threads)]
+    start = threading.Barrier(n_threads)
+
+    def rank(i):
+        start.wait()
+        libs[i] = [_build.load(n) for n in names]
+        for _ in range(per_thread):
+            tfa.count_launch("tf32")
+            trms.count_launch()
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)  # switch threads as often as the interpreter allows
+    try:
+        threads = [threading.Thread(target=rank, args=(i,)) for i in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert sorted(builds) == sorted((n,) for n in names)  # each library built once
+    assert all(lib == libs[0] for lib in libs)  # and every thread got the same one
+    assert tfa.launches == tfa.launches_by_variant["tf32"] == n_threads * per_thread
+    assert trms.launches == n_threads * per_thread

@@ -39,7 +39,9 @@ from repro_torch import tree as tree_lib  # noqa: E402
 from repro_torch.configs.base import ArchConfig  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, SyntheticLM, make_batch  # noqa: E402
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
+from repro_torch.launch.mesh import make_test_mesh  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
+from repro_torch.parallel.sharding import Policy as TPolicy  # noqa: E402
 from repro_torch.testing import bridge  # noqa: E402
 from repro_torch.train import optimizer as opt  # noqa: E402
 from repro_torch.train import steps as steps_lib  # noqa: E402
@@ -126,8 +128,14 @@ def test_train_step_matches_jax(remat, use_kernel, ce_chunk, seq):
         for t, j in zip(tree_lib.leaves(getattr(tstate, name)),
                         jax.tree.leaves(getattr(jstate, name))):
             _close(t, j)
-    # after one step m = (1 - b1)·g for the clipped gradient g each package used
-    lr, ocfg = float(jm["lr"]), jopt.AdamWConfig(**OCFG)
+    _assert_first_update_close(tnew, jnew, tstate, jstate, float(jm["lr"]),
+                               jopt.AdamWConfig(**OCFG))
+
+
+def _assert_first_update_close(tnew, jnew, tstate, jstate, lr, ocfg):
+    """The first AdamW update of each element within lr·|u(g_t) − u(g_j)| (module
+    docstring), after one step m = (1 − b1)·g for the clipped gradient g each
+    package used."""
     eps = ocfg.eps
     for t, j, mt, mj in zip(tree_lib.leaves(tnew), jax.tree.leaves(jnew),
                             tree_lib.leaves(tstate.m), jax.tree.leaves(jstate.m)):
@@ -155,11 +163,67 @@ def test_cross_entropy_matches_jax():
     _close(got, want, rtol=1e-6)
 
 
-@pytest.mark.parametrize("sync,compress_k", [("ring", 0), ("hamiltonian", 0), ("auto", 8)])
-def test_unported_sync_modes_raise(sync, compress_k):
-    with pytest.raises(NotImplementedError, match="Queue A item 3"):
-        steps_lib.make_train_step(CFG, opt.AdamWConfig(),
-                                  steps_lib.TrainOptions(sync=sync, compress_k=compress_k))
+# ---------------------------------------------------------------------------
+# the paper's gradient-sync modes over 16 LocalMesh ranks against JAX's auto step
+# (check_collective_train_step of tests/multidevice_checks.py)
+# ---------------------------------------------------------------------------
+
+SYNC_CFG = ArchConfig("tiny", "dense", 2, 32, 4, 2, 64, 128)
+SYNC_OCFG = dict(lr=1e-2, warmup_steps=1, total_steps=10)
+
+
+@pytest.mark.parametrize("sync,data_axes", [
+    ("ring", ("data",)), ("bidir", ("data",)),
+    ("torus", ("data", "model")), ("hamiltonian", ("data", "model")),
+])
+def test_sync_train_step_matches_auto_and_jax(sync, data_axes):
+    """A sync step over 16 ranks updates the params as ``sync="auto"`` does on the
+    whole batch: the port's own auto step at rtol 2e-4, atol 2e-5 (the JAX
+    check's tolerance, where only the order of the gradient sums differs), and
+    the JAX auto step under the first-update bound of the module docstring
+    (the two packages' gradients differ in their last digits, which AdamW's
+    first step amplifies where |g| is near eps)."""
+    jcfg = JArchConfig(**dataclasses.asdict(SYNC_CFG))
+    jparams = _jax_params(jcfg)
+    jbatch = {k: jnp.asarray(v) for k, v in jpipe.make_batch(jcfg, 8, 16).items()}
+    ocfg = opt.AdamWConfig(**SYNC_OCFG)
+    jstep = jax.jit(jsteps.make_train_step(jcfg, jopt.AdamWConfig(**SYNC_OCFG),
+                                           jsteps.TrainOptions(remat=False), Policy()))
+    jnew, jstate, jm = jstep(jparams, jopt.init(jparams), jbatch)
+    batch = _tbatch(8, 16, cfg=SYNC_CFG)
+
+    auto_params = bridge.params_from_numpy(jax.device_get(jparams))
+    auto_step = steps_lib.make_train_step(SYNC_CFG, ocfg, steps_lib.TrainOptions(remat=False))
+    auto_new, _, auto_m = auto_step(auto_params, opt.init(auto_params), batch)
+
+    mesh = make_test_mesh((4, 4), ("data", "model"), "cpu")
+    tparams = bridge.params_from_numpy(jax.device_get(jparams))
+    step = steps_lib.make_train_step(
+        SYNC_CFG, ocfg, steps_lib.TrainOptions(remat=False, sync=sync),
+        TPolicy(data_axes=data_axes), mesh)
+    tnew, tstate, tm = step(tparams, opt.init(tparams), batch)
+    assert tnew is tparams  # updated in place, once
+    np.testing.assert_allclose(float(tm["loss"]), float(auto_m["loss"]), rtol=1e-6)
+    np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]), rtol=1e-5)
+    # the gradient's scale (the norm before clipping; m and the first update are
+    # blind to it) and the clipped gradient itself, m = (1 - b1)·g
+    _close(tm["grad_norm"], jm["grad_norm"])
+    _close(tm["grad_norm"], auto_m["grad_norm"].numpy())
+    for mt, mj in zip(tree_lib.leaves(tstate.m), jax.tree.leaves(jstate.m)):
+        _close(mt, mj)
+    for t, a in zip(tree_lib.leaves(tnew), tree_lib.leaves(auto_new)):
+        np.testing.assert_allclose(t.numpy(), a.numpy(), rtol=2e-4, atol=2e-5)
+    _assert_first_update_close(tnew, jnew, tstate, jstate, float(jm["lr"]), ocfg)
+    # the gradients moved by neighbour ppermutes only; psum carried loss and aux
+    assert mesh.stats.bytes and not mesh.stats.all_gather_calls
+    assert mesh.stats.psum_calls == 2 * 16
+
+
+@pytest.mark.parametrize("sync,compress_k", [("ring", 0), ("hamiltonian", 0), ("bidir", 8)])
+def test_sync_modes_need_a_mesh(sync, compress_k):
+    with pytest.raises(ValueError, match="needs a mesh"):
+        steps_lib.make_train_step(CFG, opt.AdamWConfig(), steps_lib.TrainOptions(
+            sync=sync, compress_k=compress_k), TPolicy())
 
 
 def test_global_norm_and_apply_match_jax_with_bf16_leaf():
