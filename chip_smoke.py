@@ -5,7 +5,8 @@
 Builds every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
 with nvcc (sm_90a), holds each against its plain PyTorch version on the card,
 then serves and trains llama3.2-3b at full width with random weights from a
-seed:
+seed, runs the paper's gradient sync over 16 ranks, and serves and trains the
+MoE moonshot-v1-16b-a3b:
 
 1. device and toolchain: card name and power limit, torch and nvcc versions;
 2. build, timed (one nvcc per source, all started together), with ptxas's
@@ -23,8 +24,10 @@ seed:
    simt, SDPA) beside the plain version and the bound, with achieved
    TFLOP/s, and again at head_dim 64 (the minicpm-2b widths); in fp32 the
    same at the training shape (batch 2; tf32, simt, SDPA, three rounds) and
-   at the prefill shape (one round), each with the 3xTF32 bound and the
-   CUDA-core bound;
+   at the prefill shape (one round) of llama3.2-3b and of moonshot-v1-16b-a3b,
+   each with the 3xTF32 bound and the CUDA-core bound; and at moonshot's
+   training shape with q scaled to attention scores ~40 and ~450, each fp32
+   kernel against the op in fp64, within the plain version's own error + TOL;
 4. rmsnorm against its plain version at the shapes of the JAX package's
    kernel tests, at the llama3.2-3b activation shape of the training batch
    (4096, 3072) and at ragged and misaligned shapes, fp32 and bf16, with its
@@ -60,7 +63,26 @@ seed:
    of the in-process transport (HBM copies, not a network); then the sync
    train step at smoke width through the tf32 kernel against ``sync="auto"``,
    top-k compression's mass conservation, and the train CLI with ``--sync``;
-11. one JSON line on every kernel, one on the sync phase, the card's name
+11. moonshot-v1-16b-a3b (the MoE family: 48 layers, 64 experts top-6) at
+   full width and depth in bf16, 28.06G parameters: the prefill (batch 4 x
+   2048, capacity factor 1.25) through ``make_prefill_step(use_kernel=True)``,
+   one warm-up call and three timed, 48 sm90 launches a call; its device time
+   by part (routing, slots, scatter, the expert einsums, gather, attention)
+   from CUDA events and under the profiler; the serving loop (batch 4, prompt
+   128, 32 decoded);
+12. the same widths in fp32 at 4 of the 48 layers: the prefill through the
+   tf32 kernel against the plain path beside the floor of two plain paths,
+   and the decode loop against the prefill at a no-drop capacity factor of
+   11, each with the share of (token, choice) pairs whose expert and
+   capacity slot agree; then training (batch 2 x 2048, remat): the loss and
+   gradient gate against the plain path beside the floor and against a run
+   with the flash op in fp64 beside the plain path's distance from it, and 3
+   timed AdamW steps with the aux loss, 8 tf32 launches a step;
+13. expert parallelism: one moonshot MoE layer in fp32 over a 4-rank
+   ``LocalMesh`` on cuda:0 (16 experts a rank, ``Comm.all_to_all``) against
+   ``moe_apply``, its all-to-all bytes against the slab sizes; forward only;
+14. one JSON line on every kernel (launches by path, the MoE paths
+   included), one on the sync phase, one on the MoE phases, the card's name
    and power limit, and last the JSON result line.
 
 Any failure raises and exits nonzero; without a CUDA device, or without the
@@ -125,10 +147,19 @@ CASES = [
     (4, 64, 64, 4, 2, 16, True, 0),
     (1, 64, 64, 4, 2, 16, True, 0),
 ]
-# the prefill shape of llama3.2-3b at head_dim 128, and of minicpm-2b at 64:
-# (b, s, h, kv, d), causal
-PREFILL_SHAPES = {"d128": (4, 2048, 24, 8, 128), "d64": (4, 2048, 36, 36, 64)}
+# the prefill shape of llama3.2-3b at head_dim 128, of minicpm-2b at 64, and of
+# moonshot-v1-16b-a3b (MHA, 16 heads of 128): (b, s, h, kv, d), causal
+PREFILL_SHAPES = {"d128": (4, 2048, 24, 8, 128), "d64": (4, 2048, 36, 36, 64),
+                  "moonshot": (4, 2048, 16, 16, 128)}
 PREFILL_BATCH, PREFILL_LEN = 4, 2048
+# the fp32 shapes, (tag, (b, s, h, kv, d), timing rounds), causal: the training
+# and prefill shapes of llama3.2-3b, then of moonshot-v1-16b-a3b
+FP32_SHAPES = [("train_fp32", (2, 2048, 24, 8, 128), 3),
+               ("prefill_d128_fp32", (4, 2048, 24, 8, 128), 1),
+               ("train_moe_fp32", (2, 2048, 16, 16, 128), 3),
+               ("prefill_moe_fp32", (4, 2048, 16, 16, 128), 1)]
+# q's scale in the large-score checks: mean row max scores ~40 and ~450
+LARGE_SCORE_Q_SCALES = (12.0, 143.0)
 SERVE_BATCH, SERVE_PROMPT, SERVE_DECODE = 4, 128, 32
 # Relative L2 error of fp32 logits between two paths of the full model (the
 # prefill with and without the kernel; the decode loop and the prefill): both
@@ -412,6 +443,56 @@ def _time_flash(q, k, v, kernels, rounds=3) -> dict:
     return r
 
 
+def _large_score_checks(gen) -> dict:
+    """Each fp32 kernel at the moonshot training shape with q scaled so that the
+    scores reach those of the MoE fp32 phases' init (~40) and of a 4-layer stack
+    drawn with fan-in 4 (~450).  There fp32 rounding of the scores alone moves
+    the output by more than TOL, in the plain version too, so each kernel is held
+    against the flash op in fp64: its max_abs_err within TOL of the plain fp32
+    version's own.  The plain chunked attention (the model gates' floor) is
+    reported beside them."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import layers
+
+    b, s, h, kv, d = next(shape for tag, shape, _ in FP32_SHAPES if tag == "train_moe_fp32")
+    q0, k, v = _qkv(b, s, s, h, kv, d, torch.float32, gen)
+    out = {"tf32": {}, "simt": {}}
+    for scale in LARGE_SCORE_Q_SCALES:
+        q = q0 * scale
+        causal = torch.ones(s, s, dtype=torch.bool, device="cuda").tril()
+        scores = torch.einsum("qhd,khd->hqk", q[0, :, :4], k[0, :, :4]) / math.sqrt(d)
+        row_max = float(scores.masked_fill(~causal, -math.inf).amax(-1).mean())
+        del scores, causal
+        exact = _attention_fp64(q, k, v)
+        paths = {"plain": fa.plain(q, k, v, True, 0),
+                 "chunked": layers.attention_chunked(q, k, v, True, 0, chunk=FLOOR_CHUNK)}
+        paths.update({name: fa.launch(q, k, v, True, 0, kernel=name) for name in out})
+        torch.cuda.synchronize()
+        err = {n: float((y - exact).abs().max()) for n, y in paths.items()}
+        l2 = {n: rel_l2(y, exact) for n, y in paths.items()}
+        vs_plain = {n: float((paths[n] - paths["plain"]).abs().max())
+                    for n in ("chunked", *out)}
+        log(f"[kernel] flash large scores, q x {scale} (mean row max score {row_max:.1f}), "
+            f"B={b} S={s} H={h} KV={kv} D={d} causal fp32, against fp64: "
+            + ", ".join(f"{n} max_abs_err {err[n]:.3e} rel_l2 {l2[n]:.3e}" for n in paths)
+            + "; against plain: " + ", ".join(f"{n} {e:.3e}" for n, e in vs_plain.items())
+            + f"; tol plain's {err['plain']:.3e} + {TOL[torch.float32]}")
+        for name in out:
+            out[name][f"q_x{scale:g}"] = {
+                "row_max_score": row_max, "max_abs_err_vs_fp64": err[name],
+                "plain_max_abs_err_vs_fp64": err["plain"],
+                "chunked_max_abs_err_vs_fp64": err["chunked"], "rel_l2_vs_fp64": l2[name],
+                "plain_rel_l2_vs_fp64": l2["plain"], "max_abs_err_vs_plain": vs_plain[name]}
+            if not err[name] <= err["plain"] + TOL[torch.float32]:
+                raise AssertionError(
+                    f"flash via {name} at scores ~{row_max:.0f}: max_abs_err {err[name]:.3e} "
+                    f"against fp64, over the plain version's {err['plain']:.3e} + "
+                    f"{TOL[torch.float32]}")
+        del q, exact, paths
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_kernel_checks() -> dict:
     """Every flash kernel against the plain version, then the timings; returns, per
     kernel, its numbers at the shape of its main path."""
@@ -454,11 +535,10 @@ def phase_kernel_checks() -> dict:
         del q, k, v
         torch.cuda.empty_cache()
 
-    # fp32: the training shape (batch 2), as the training step calls it, then the
+    # fp32: each training shape (batch 2), as the training step calls it, then each
     # prefill shape; tf32 (the main path) and simt in turns with SDPA
-    for tag, batch, rounds in (("train_fp32", TRAIN_BATCH, 3),
-                               ("prefill_d128_fp32", PREFILL_BATCH, 1)):
-        q, k, v = _qkv(batch, PREFILL_LEN, PREFILL_LEN, 24, 8, 128, torch.float32, gen)
+    for tag, (b, s, h, kv, d), rounds in FP32_SHAPES:
+        q, k, v = _qkv(b, s, s, h, kv, d, torch.float32, gen)
         _split_check(k, v)
         errs = {name: _flash_check(q, k, v, True, 0, name, tag) for name in ("tf32", "simt")}
         r = _time_flash(q, k, v, ("tf32", "simt"), rounds=rounds)
@@ -471,7 +551,7 @@ def phase_kernel_checks() -> dict:
                 "bound_by": r["bound_by_tf32"] if tf32 else r["bound_by"],
                 "bound_ms_3xtf32": r["bound_ms_tf32"], "bound_ms_cuda_cores": r["bound_ms"],
                 "tflops": r["flops"] / r[name] / 1e9}
-        log(f"[kernel] flash {tag} B={batch} S={PREFILL_LEN} H=24 KV=8 D=128 causal fp32: tf32 "
+        log(f"[kernel] flash {tag} B={b} S={s} H={h} KV={kv} D={d} causal fp32: tf32 "
             f"{r['tf32']:.4f} ms ({r['flops'] / r['tf32'] / 1e9:.1f} TFLOP/s fp32-accurate), "
             f"simt {r['simt']:.4f} ms ({r['flops'] / r['simt'] / 1e9:.1f} TFLOP/s), SDPA "
             f"{r['sdpa']:.4f} ms, plain {r['plain_ms']:.4f} ms; bound 3xTF32 "
@@ -482,6 +562,8 @@ def phase_kernel_checks() -> dict:
             f"{json.dumps(r['turns'])}")
         del q, k, v
         torch.cuda.empty_cache()
+    for name, res in _large_score_checks(gen).items():
+        out[name]["large_scores"] = res
     out["tf32"]["cases_max_abs_err"] = worst["tf32", torch.float32]
     out["sm90"]["cases_max_abs_err"] = worst["sm90", torch.bfloat16]
     out["simt"]["cases_max_abs_err"] = {str(dt).removeprefix("torch."): worst["simt", dt]
@@ -1377,6 +1459,602 @@ def phase_sync_train(smi) -> dict:
             "cli_loss": {k: v["loss"] for k, v in cli.items()}}
 
 
+# ---------------------------------------------------------------------------
+# the MoE phases: moonshot-v1-16b-a3b served at full width and depth in bf16,
+# fp32 checks and training at 4 of its 48 layers, expert parallelism on 4 ranks
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "moonshot-v1-16b-a3b"
+MOE_LAYERS = 4  # the fp32 phases' depth: 47.3 GB of training state (48 layers: ~449 GB)
+# The fp32 phases' 4 layers carry the full 48-layer model's init: dense_init's
+# fan-in is the stack's L (ROADMAP Queue C), so drawn at L = 4 the layer weights
+# would be N(0, 1/4), not N(0, 1/48), and the attention scores ~450 instead of
+# ~40.  There the gradients are ill-conditioned: on the H100 every path's
+# gradients (plain, chunked, the kernel, the flash op in fp64) are 0.3-1.7
+# (relative L2) from every other's.
+# ceil(E / k) = 11 gives a capacity of at least the group: no token dropped, as
+# decode (groups of one token, capacity 1) never drops one
+MOE_NODROP_CF = 11.0
+# the depth whose init the fp32 phases' layers carry (None: the full model's);
+# MOE_LAYERS draws them with fan-in 4, as a 4-layer model would be
+MOE_INIT_DEPTH = None
+MOE_EP_RANKS = 4
+# moe_apply_ep against moe_apply on the card: check_moe_ep's rtol 1e-4, its atol
+# (1e-5 on outputs of ~0.1) scaled to the largest output, here ~1e3
+MOE_EP_RTOL = 1e-4
+MOE_SPANS = ("route", "slots", "scatter", "experts", "gather", "attention")
+
+
+@contextlib.contextmanager
+def _routing_log():
+    """Every MoE dispatch's (flat_e, keep): each (token, choice) pair's expert and
+    whether it fits the capacity, token-major, in call order."""
+    from unittest import mock
+
+    from repro_torch.models import moe
+
+    calls, real = [], moe._slots
+
+    def slots(experts, n_experts, cap):
+        flat_e, pos_c, keep = real(experts, n_experts, cap)
+        calls.append((flat_e, keep))
+        return flat_e, pos_c, keep
+
+    with mock.patch.object(moe, "_slots", slots):
+        yield calls
+
+
+@contextlib.contextmanager
+def _replayed_routing(log_):
+    """Every MoE dispatch takes the experts of ``log_`` (a ``_routing_log`` of the
+    same dispatches, in the same order) in place of its own top-k.  The gates and
+    the aux loss are the router's at those experts, so gradients flow as in a run
+    that chose them: two paths of the model then differ only continuously."""
+    from unittest import mock
+
+    from repro_torch.models import moe
+
+    it = iter(log_)
+
+    def top_k(probs, k):
+        return next(it)[0].reshape(*probs.shape[:-1], k)
+
+    with mock.patch.object(moe, "_top_k", top_k):
+        yield
+    if next(it, None) is not None:
+        raise AssertionError("a replayed routing log outlived its dispatches")
+
+
+def _routing_agreement(a, b) -> tuple[float, int, int]:
+    """Share of (token, choice) pairs whose expert and keep agree between two
+    logs of the same dispatches; the pairs that differ; the pairs dropped in ``b``."""
+    if len(a) != len(b):
+        raise AssertionError(f"routing logs of {len(a)} and {len(b)} dispatches")
+    same = total = dropped = 0
+    for (ea, ka), (eb, kb) in zip(a, b):
+        if ea.shape != eb.shape:
+            raise AssertionError(f"routing shapes {tuple(ea.shape)} and {tuple(eb.shape)}")
+        same += int(((ea == eb) & (ka == kb)).sum())
+        total += ea.numel()
+        dropped += int((~kb).sum())
+    return same / total, total - same, dropped
+
+
+@contextlib.contextmanager
+def _spans():
+    """Device time of the MoE layer's parts and of attention, from CUDA events
+    around each call (read after the caller's sync): ms by part."""
+    from unittest import mock
+
+    from repro_torch.models import layers, moe
+
+    events = {name: [] for name in MOE_SPANS}
+
+    def timed(name, fn):
+        def wrapped(*args, **kwargs):
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            events[name].append((start, end))
+            return out
+        return wrapped
+
+    targets = {"route": (moe, "_route"), "slots": (moe, "_slots"),
+               "scatter": (moe, "_scatter"), "experts": (moe, "_experts_ffn"),
+               "gather": (moe, "_gather"), "attention": (layers, "attention")}
+    ms = {}
+    with contextlib.ExitStack() as stack:
+        for name, (mod, attr) in targets.items():
+            stack.enter_context(mock.patch.object(mod, attr, timed(name, getattr(mod, attr))))
+        yield ms
+    torch.cuda.synchronize()
+    ms.update({name: sum(a.elapsed_time(b) for a, b in ev) for name, ev in events.items()})
+
+
+def _span_line(ms: dict, total_ms: float) -> str:
+    rest = total_ms - sum(ms.values())
+    return "; ".join(f"{k} {v:.1f} ms ({v / total_ms:.1%})" for k, v in ms.items()) + (
+        f"; the rest (projections, norms, embedding, unembed, loss, optimizer) {rest:.1f} ms "
+        f"({rest / total_ms:.1%})")
+
+
+def phase_moe_serve(smi) -> dict:
+    """moonshot-v1-16b-a3b at full width and depth in bf16: the prefill through the
+    sm90 kernel (one warm-up call, three timed), its device time by part and under
+    the profiler, then the serving loop of ``launch/serve.py``."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import get_model
+    from repro_torch.train.steps import make_decode_step
+
+    cfg = get_config(MOE_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = get_model(cfg).init_params(cfg, torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for _, p in _named_leaves(params))
+    weights = sum(p.numel() * p.element_size() for _, p in _named_leaves(params))
+    log(f"[moe] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads "
+        f"({cfg.n_kv_heads} kv) of {cfg.kq_head_dim}, {cfg.n_experts} experts top-{cfg.top_k} "
+        f"of d_ff {cfg.d_ff}, capacity factor {cfg.capacity_factor}, vocab {cfg.vocab}: "
+        f"{n_params / 1e9:.3f}G params ({weights / 1e9:.2f} GB, the router in fp32) drawn in "
+        f"{init_s:.1f}s; memory before {base / 2**30:.2f} GiB, init peak "
+        f"{(torch.cuda.max_memory_allocated() - base - weights) / 2**30:.2f} GiB above the "
+        f"weights")
+
+    tokens = torch.from_numpy(make_batch(cfg, PREFILL_LEN, PREFILL_BATCH)["tokens"]).cuda()
+    want = {"flash_attention_fwd": cfg.n_layers, "rmsnorm": 0,
+            **{f"flash_attention_fwd_{v}": cfg.n_layers * (v == "sm90") for v in fa.SOURCES}}
+    torch.cuda.reset_peak_memory_stats()
+    secs = []
+    for _ in range(4):
+        _reset_counts()
+        logits, t = _prefill(cfg, params, tokens, use_kernel=True)
+        launches = _counts()
+        if launches != want:
+            raise AssertionError(f"moe prefill launched {launches}, want {want}")
+        if logits.shape != (PREFILL_BATCH, 1, cfg.vocab) or not torch.isfinite(logits).all():
+            raise AssertionError(f"moe prefill logits {tuple(logits.shape)} not finite or "
+                                 "misshapen")
+        secs.append(t)
+    median = sorted(secs[1:])[1]
+    ntok = PREFILL_BATCH * PREFILL_LEN
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[moe-prefill] {cfg.name} bf16 batch {PREFILL_BATCH} x {PREFILL_LEN} through the sm90 "
+        f"kernel: {median:.3f}s median of 3 after a warm-up ({ntok / median:.0f} tok/s; calls "
+        f"{[round(x, 3) for x in secs]} s), launches a call {launches}, peak "
+        f"{peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB) [{smi}]")
+    with _spans() as ms:
+        _, t_span = _prefill(cfg, params, tokens, use_kernel=True)
+    log(f"[moe-prefill] device time by part over one prefill ({t_span * 1e3:.1f} ms on the "
+        f"host clock, CUDA events around each call): {_span_line(ms, t_span * 1e3)}")
+    _profile("one moonshot bf16 prefill", lambda: _prefill(cfg, params, tokens, use_kernel=True))
+
+    prompts = torch.from_numpy(make_batch(cfg, SERVE_PROMPT, SERVE_BATCH)["tokens"]).cuda()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    res = serve(cfg, params, prompts, SERVE_DECODE)
+    toks = res["tokens"]
+    if toks.shape != (SERVE_BATCH, SERVE_DECODE) or not (
+            (toks >= 0) & (toks < cfg.vocab)).all():
+        raise AssertionError(f"moe serve returned bad tokens {tuple(toks.shape)}")
+    steps = SERVE_PROMPT + SERVE_DECODE
+    log(f"[moe-serve] {cfg.name} bf16 batch {SERVE_BATCH}: prompt {SERVE_PROMPT} teacher-forced "
+        f"in {res['prefill_s']:.3f}s ({res['prefill_s'] / SERVE_PROMPT * 1e3:.2f} ms a step); "
+        f"decoded {SERVE_DECODE} toks/seq in {res['decode_s']:.3f}s "
+        f"({SERVE_BATCH * SERVE_DECODE / res['decode_s']:.1f} tok/s, "
+        f"{res['decode_s'] / SERVE_DECODE * 1e3:.2f} ms a step; each step reads every "
+        f"expert: {weights / 1e9:.1f} GB, {weights / PEAK_BYTES_PER_S * 1e3:.1f} ms at "
+        f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s); {steps} steps, launches {_counts()}, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; sample {toks[0, :8].tolist()} "
+        f"[{smi}]")
+    cache = get_model(cfg).init_cache(cfg, SERVE_BATCH, 2, device="cuda")
+    decode = make_decode_step(cfg)
+    tok, cache = decode(params, cache, prompts[:, :1])  # warm-up
+    _profile("one moonshot bf16 decode step", lambda: decode(params, cache, tok))
+    out = {"launches": launches, "prefill_s": median, "prefill_calls_s": secs,
+           "prefill_peak_gib": peak / 2**30, "prefill_spans_ms": ms,
+           "prefill_span_wall_ms": t_span * 1e3,
+           "decode_tok_s": SERVE_BATCH * SERVE_DECODE / res["decode_s"],
+           "decode_ms_step": res["decode_s"] / SERVE_DECODE * 1e3,
+           "n_params": n_params, "weights_gb": weights / 1e9}
+    del params, logits, tokens, prompts, res, cache, tok
+    torch.cuda.empty_cache()
+    return out
+
+
+def _by_layer(log_, n_layers: int, steps: int):
+    """A decode loop's routing log (one dispatch a layer a step, (B, k) each) as a
+    prefill's: one (B, steps·k) entry a layer, token-major."""
+    return [(torch.cat([log_[t * n_layers + i][0] for t in range(steps)], 1),
+             torch.cat([log_[t * n_layers + i][1] for t in range(steps)], 1))
+            for i in range(n_layers)]
+
+
+def _decode_order(log_, steps: int):
+    """A prefill's routing log (one (B, steps·k) entry a layer) in the order of a
+    decode loop over the same tokens: one (B, k) entry a layer a step."""
+    b = log_[0][0].shape[0]
+    split = [(e.reshape(b, steps, -1), keep.reshape(b, steps, -1)) for e, keep in log_]
+    return [(e[:, t], keep[:, t]) for t in range(steps) for e, keep in split]
+
+
+def _moe_fp32_model():
+    """The fp32 phases' model: the full config, its MOE_LAYERS-layer cut, fp32
+    weights with the scale of MOE_INIT_DEPTH's init, and that depth."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+
+    full = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MOE_LAYERS)
+    torch.cuda.empty_cache()
+    params = get_model(cfg).init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                                        dtype=torch.float32)
+    # the init depth's scale on every leaf drawn with fan-in L (the layers' weights)
+    init_depth = MOE_INIT_DEPTH or full.n_layers
+    for name, leaf in _named_leaves(params["layers"]):
+        if not name.endswith("norm.scale"):
+            leaf.mul_(math.sqrt(MOE_LAYERS / init_depth))
+    return full, cfg, params, init_depth
+
+
+def phase_moe_fp32(smi):
+    """fp32 at 4 layers: the prefill through the tf32 kernel against the plain path,
+    beside the floor of two plain paths, and the decode loop against the prefill at
+    the no-drop capacity factor.  Each is run twice: with free routing (reported:
+    the values and the share of (token, choice) pairs routed alike), and with the
+    reference path's routing replayed (gated: the paths then differ only
+    continuously).  Returns the config, the fp32 weights and the numbers."""
+    from repro_torch.data.pipeline import make_batch
+
+    full, cfg, params, init_depth = _moe_fp32_model()
+    weights = sum(p.numel() * p.element_size() for _, p in _named_leaves(params))
+    tokens = torch.from_numpy(make_batch(cfg, PREFILL_LEN, PREFILL_BATCH)["tokens"]).cuda()
+    chunked_cfg = dataclasses.replace(cfg, attn_chunk=FLOOR_CHUNK)
+
+    def prefill(c, use_kernel, toks=tokens):  # the last position's logits, not a view of all
+        logits, secs = _prefill(c, params, toks, use_kernel=use_kernel)
+        return logits.clone(), secs
+
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    with _routing_log() as log_k:
+        free_k, t_k = prefill(cfg, True)
+    launches = _counts()
+    with _routing_log() as log_p:
+        plain, t_p = prefill(cfg, False)
+    with _routing_log() as log_c:
+        free_c, _ = prefill(chunked_cfg, False)
+    free_err, free_floor = rel_l2(free_k, plain), rel_l2(free_c, plain)
+    agree_k, flips_k, dropped = _routing_agreement(log_k, log_p)
+    agree_c, flips_c, _ = _routing_agreement(log_c, log_p)
+    with _replayed_routing(log_p):
+        with_k, _ = prefill(cfg, True)
+    with _replayed_routing(log_p):
+        chunked, _ = prefill(chunked_cfg, False)
+    err, floor = rel_l2(with_k, plain), rel_l2(chunked, plain)
+    pairs = sum(e.numel() for e, _ in log_p)
+    log(f"[moe-e2e] {cfg.name} at {MOE_LAYERS} of {full.n_layers} layers with the "
+        f"{init_depth}-layer init's scale, fp32 ({weights / 1e9:.2f} GB), batch "
+        f"{PREFILL_BATCH} x {PREFILL_LEN}, capacity factor {cfg.capacity_factor} ({dropped} of "
+        f"{pairs} (token, choice) pairs dropped): with the plain path's routing replayed, "
+        f"kernel vs plain logits rel_l2 {err:.3e} (tol max({FP32_TOL}, floor)), floor (plain "
+        f"chunked {FLOOR_CHUNK} vs plain dense) {floor:.3e}; free routing: rel_l2 "
+        f"{free_err:.3e}, floor {free_floor:.3e}, kernel vs plain route {agree_k:.6f} of the "
+        f"pairs alike ({flips_k} differ), chunked vs plain {agree_c:.6f} ({flips_c} differ); "
+        f"{t_k:.3f}s with kernel, {t_p:.3f}s plain; launches with kernel {launches}; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{smi}]")
+    if launches["flash_attention_fwd_tf32"] != cfg.n_layers or launches[
+            "flash_attention_fwd"] != cfg.n_layers:
+        raise AssertionError(f"fp32 moe prefill launched {launches}, want {cfg.n_layers} tf32")
+    if not (err <= max(FP32_TOL, floor) and torch.isfinite(free_k).all()):
+        raise AssertionError(f"fp32 moe prefill with kernel disagrees with plain: rel_l2 "
+                             f"{err:.3e}, floor {floor:.3e}")
+    del free_k, free_c, with_k, chunked, plain, log_k, log_p, log_c
+    torch.cuda.empty_cache()
+
+    # decode against prefill, where neither drops a token
+    ncfg = dataclasses.replace(cfg, capacity_factor=MOE_NODROP_CF)
+    prompts = torch.from_numpy(make_batch(cfg, SERVE_PROMPT, SERVE_BATCH)["tokens"]).cuda()
+    with _routing_log() as log_pre:
+        pre, _ = prefill(ncfg, True, toks=prompts)
+    with _routing_log() as log_d:
+        free_dec = _decode_prompt(ncfg, params, prompts)
+    agree_d, flips_d, dropped_d = _routing_agreement(
+        _by_layer(log_d, cfg.n_layers, SERVE_PROMPT), log_pre)
+    dropped_d += sum(int((~k).sum()) for _, k in log_d)
+    with _replayed_routing(_decode_order(log_pre, SERVE_PROMPT)):
+        dec = _decode_prompt(ncfg, params, prompts)
+    with _replayed_routing(log_pre):  # the floor: the plain prefill against the kernel's
+        pre_plain, _ = prefill(ncfg, False, toks=prompts)
+    err_d, free_err_d = rel_l2(dec, pre), rel_l2(free_dec, pre)
+    floor_d = rel_l2(pre_plain, pre)
+    log(f"[moe-e2e] decode loop vs prefill, last prompt step, fp32, batch {SERVE_BATCH} x "
+        f"{SERVE_PROMPT}, capacity factor {MOE_NODROP_CF} ({dropped_d} pairs dropped in "
+        f"either): with the prefill's routing replayed rel_l2 {err_d:.3e} (tol "
+        f"max({FP32_TOL}, floor)), floor (the plain prefill vs the kernel's) {floor_d:.3e}; "
+        f"free routing rel_l2 {free_err_d:.3e}, argmax agreement "
+        f"{float((free_dec.argmax(-1) == pre.argmax(-1)).float().mean()):.2f}, routed alike "
+        f"{agree_d:.6f} of {SERVE_BATCH * SERVE_PROMPT * cfg.top_k * cfg.n_layers} pairs "
+        f"({flips_d} differ)")
+    if dropped_d or not (err_d <= max(FP32_TOL, floor_d) and torch.isfinite(free_dec).all()):
+        raise AssertionError(f"moe decode loop disagrees with prefill: rel_l2 {err_d:.3e}, "
+                             f"floor {floor_d:.3e}, {dropped_d} pairs dropped")
+    out = {"prefill_rel_l2": err, "prefill_floor_rel_l2": floor,
+           "free_prefill_rel_l2": free_err, "free_prefill_floor_rel_l2": free_floor,
+           "routing_agree": agree_k, "routing_pairs_differ": flips_k,
+           "routing_agree_floor": agree_c, "routing_pairs_differ_floor": flips_c,
+           "pairs_dropped": dropped, "decode_rel_l2": err_d, "decode_floor_rel_l2": floor_d,
+           "free_decode_rel_l2": free_err_d,
+           "decode_routing_agree": agree_d, "decode_pairs_differ": flips_d}
+    del dec, free_dec, pre, pre_plain, log_d, log_pre
+    torch.cuda.empty_cache()
+    return cfg, params, out
+
+
+def phase_moe_train(cfg, params, smi) -> dict:
+    """fp32 training at full width and 4 layers: the kernel-vs-plain gate on loss and
+    gradients beside the floor of two plain paths, and against the flash op in
+    fp64 beside the plain path's distance from it, with the routing's agreement;
+    then 3 timed AdamW steps through the kernel."""
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import steps as st
+
+    n_params = sum(p.numel() for _, p in _named_leaves(params))
+
+    def batch_of(step):
+        return {k: torch.from_numpy(v).cuda()
+                for k, v in make_batch(cfg, TRAIN_LEN, TRAIN_BATCH, step=step).items()}
+
+    batch = batch_of(0)
+    chunked_cfg = dataclasses.replace(cfg, attn_chunk=FLOOR_CHUNK)
+    paths = (("kernel", cfg, True), ("chunked", chunked_cfg, False), ("plain", cfg, False))
+    # free routing: each path routes its own activations; (token, choice) pairs
+    # near a top-k tie or at the capacity move between paths, and each moves one
+    # token's output by O(1).  The loss is gated; the gradients are only printed.
+    free, logs = {}, {}
+    for name, c, use_kernel in paths:
+        with _routing_log() as logs[name]:
+            run = _loss_and_grads(c, params, batch, use_kernel=use_kernel)
+        run["norm"] = float(opt.global_norm(run.pop("grads")))
+        free[name] = run
+        torch.cuda.empty_cache()
+    agree_k, flips_k, dropped = _routing_agreement(logs["kernel"], logs["plain"])
+    agree_c, flips_c, _ = _routing_agreement(logs["chunked"], logs["plain"])
+    fk, fc, fp = free["kernel"], free["chunked"], free["plain"]
+    free_loss, free_loss_floor = (abs(r["loss"] - fp["loss"]) / abs(fp["loss"]) for r in (fk, fc))
+    free_norm, free_norm_floor = (abs(r["norm"] - fp["norm"]) / fp["norm"] for r in (fk, fc))
+    log(f"[moe-train] free routing, {cfg.name} at {cfg.n_layers} layers, fp32, batch "
+        f"{TRAIN_BATCH} x {TRAIN_LEN}, remat: loss kernel {fk['loss']:.7f} plain "
+        f"{fp['loss']:.7f} chunked {fc['loss']:.7f} (kernel rel {free_loss:.2e}, floor "
+        f"{free_loss_floor:.2e}, tol max({LOSS_RTOL}, floor)); grad norm kernel "
+        f"{fk['norm']:.6e} plain {fp['norm']:.6e} chunked {fc['norm']:.6e} (kernel rel "
+        f"{free_norm:.2e}, chunked rel {free_norm_floor:.2e}; not gated); routing (forward and "
+        f"remat recompute): kernel vs plain agree on {agree_k:.6f} ({flips_k} pairs differ), "
+        f"chunked vs plain {agree_c:.6f} ({flips_c} differ), {dropped} pairs dropped in all")
+    if not (free_loss <= max(LOSS_RTOL, free_loss_floor) and math.isfinite(fk["loss"])):
+        raise AssertionError(f"moe training: the kernel's loss is {free_loss:.3e} off the "
+                             f"plain path's (floor {free_loss_floor:.3e})")
+
+    # the gate: every path takes the plain path's routing, so the paths differ
+    # only continuously, and the floor of two plain paths bounds the kernel again.
+    # Beside it, the kernel's op computed in fp64 (the backward is the plain one in
+    # every path): the kernel's loss and gradients no further from that path's
+    # than the plain path's are
+    from unittest import mock
+
+    runs, host = {}, {}
+    for name, c, use_kernel in paths[:2] + (("fp64", cfg, True),) + paths[2:]:
+        with (_replayed_routing(logs["plain"]), _routing_log() as replayed,
+              mock.patch.object(fa, "launch", _attention_fp64) if name == "fp64"
+              else contextlib.nullcontext()):
+            runs[name] = _loss_and_grads(c, params, batch, use_kernel=use_kernel)
+        if _routing_agreement(replayed, logs["plain"])[1]:
+            raise AssertionError(f"moe training: the {name} path's replayed routing differs")
+        runs[name]["norm"] = float(opt.global_norm(runs[name]["grads"]))
+        if name != "plain":
+            host[name] = {n: g.cpu() for n, g in _named_leaves(runs[name].pop("grads"))}
+            torch.cuda.empty_cache()
+    del logs
+    k, c, p, x = runs["kernel"], runs["chunked"], runs["plain"], runs["fp64"]
+    leaf_err, leaf_floor, plain_fp64, kernel_fp64, chunked_fp64 = {}, {}, {}, {}, {}
+    for n, g in _named_leaves(p.pop("grads")):
+        g64 = host["fp64"][n].cuda()
+        gk = host["kernel"][n].cuda()
+        leaf_err[n], kernel_fp64[n] = rel_l2(gk, g), rel_l2(gk, g64)
+        del gk
+        gc = host["chunked"][n].cuda()
+        leaf_floor[n], chunked_fp64[n] = rel_l2(gc, g), rel_l2(gc, g64)
+        del gc
+        plain_fp64[n] = rel_l2(g, g64)
+        del g64
+    del host
+    torch.cuda.empty_cache()
+    loss_err = abs(k["loss"] - p["loss"]) / abs(p["loss"])
+    loss_floor = abs(c["loss"] - p["loss"]) / abs(p["loss"])
+    norm_err = abs(k["norm"] - p["norm"]) / p["norm"]
+    norm_floor = abs(c["norm"] - p["norm"]) / p["norm"]
+    norm_fp64 = {n: abs(r["norm"] - x["norm"]) / x["norm"] for n, r in (("kernel", k),
+                                                                      ("plain", p))}
+    loss_fp64 = {n: abs(r["loss"] - x["loss"]) / abs(x["loss"]) for n, r in (("kernel", k),
+                                                                           ("plain", p))}
+    bad = [n for n in leaf_err if leaf_err[n] > max(GRAD_RTOL, leaf_floor[n])
+           or kernel_fp64[n] > max(GRAD_RTOL, plain_fp64[n])]
+    log(f"[moe-train] gate, the plain path's routing replayed in every path: loss kernel "
+        f"{k['loss']:.7f} plain {p['loss']:.7f} chunked {c['loss']:.7f} (kernel rel "
+        f"{loss_err:.2e}, floor {loss_floor:.2e}, tol max({LOSS_RTOL}, floor)); grad norm "
+        f"kernel {k['norm']:.6e} plain {p['norm']:.6e} (rel {norm_err:.2e}, floor "
+        f"{norm_floor:.2e}, tol max({GRAD_RTOL}, floor)); against the fp64 op (the kernel "
+        f"within max(tol, plain's)): loss kernel {loss_fp64['kernel']:.2e} plain "
+        f"{loss_fp64['plain']:.2e}, grad norm kernel {norm_fp64['kernel']:.2e} plain "
+        f"{norm_fp64['plain']:.2e}; flash launches {k['launches']}, "
+        f"{c['launches']}, {p['launches']}; {k['s']:.2f}s, {c['s']:.2f}s, {p['s']:.2f}s; peak "
+        f"{k['peak_gib']:.1f}, {c['peak_gib']:.1f}, {p['peak_gib']:.1f} GiB")
+    for n in leaf_err:
+        log(f"[moe-train] gate leaf {n:24s} rel_l2 kernel {leaf_err[n]:.2e} vs floor (chunked) "
+            f"{leaf_floor[n]:.2e}, tol max({GRAD_RTOL}, floor); against the fp64 op: kernel "
+            f"{kernel_fp64[n]:.2e}, plain {plain_fp64[n]:.2e} (tol max({GRAD_RTOL}, plain's)), "
+            f"chunked {chunked_fp64[n]:.2e}")
+    if k["launches"] != k["tf32"] or k["launches"] != 2 * cfg.n_layers or c["launches"] or \
+            p["launches"] or x["launches"]:
+        raise AssertionError(f"moe loss and gradient launched the flash kernel {k['launches']} "
+                             f"times ({k['tf32']} tf32) with it and {c['launches']}, "
+                             f"{p['launches']} without; want {2 * cfg.n_layers} tf32 and 0")
+    if bad or not (loss_err <= max(LOSS_RTOL, loss_floor) and norm_err <= max(
+            GRAD_RTOL, norm_floor) and loss_fp64["kernel"] <= max(LOSS_RTOL, loss_fp64["plain"])
+                   and norm_fp64["kernel"] <= max(GRAD_RTOL, norm_fp64["plain"])
+                   and math.isfinite(k["loss"]) and math.isfinite(k["norm"])):
+        raise AssertionError(f"moe training gate: the kernel's loss, gradient norm or "
+                             f"gradients {bad} disagree with the plain path's")
+    gate = {"free_loss_rel": free_loss, "free_loss_floor": free_loss_floor,
+            "free_norm_rel": free_norm, "free_norm_floor": free_norm_floor,
+            "routing_agree": agree_k, "routing_pairs_differ": flips_k,
+            "routing_agree_floor": agree_c, "routing_pairs_differ_floor": flips_c,
+            "loss_rel": loss_err, "loss_floor": loss_floor, "norm_rel": norm_err,
+            "norm_floor": norm_floor, "leaf_rel_l2": leaf_err, "leaf_floor": leaf_floor,
+            "loss_rel_fp64": loss_fp64, "norm_rel_fp64": norm_fp64,
+            "leaf_kernel_vs_fp64": kernel_fp64, "leaf_plain_vs_fp64": plain_fp64,
+            "leaf_chunked_vs_fp64": chunked_fp64}
+
+    ocfg = opt.AdamWConfig(lr=3e-3, warmup_steps=1, total_steps=TRAIN_STEPS,
+                           schedule=cfg.schedule)
+    step_fn = st.make_train_step(cfg, ocfg, st.TrainOptions(use_kernel=True, remat=True))
+    ostate = opt.init(params)
+    batches = [batch_of(s) for s in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    secs, per_step = [], []
+    for s in range(TRAIN_STEPS):
+        before = fa.launches
+        t0 = time.perf_counter()
+        params, ostate, m = step_fn(params, ostate, batches[s])
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        per_step.append(fa.launches - before)
+        loss, aux, gnorm = float(m["loss"]), float(m["aux"]), float(m["grad_norm"])
+        log(f"[moe-train] step {s + 1}: loss {loss:.6f} aux {aux:.6f} (x {st.TrainOptions().moe_aux_weight} "
+            f"in the objective) grad_norm {gnorm:.6e} {secs[-1]:.3f}s "
+            f"({TRAIN_BATCH * TRAIN_LEN / secs[-1]:.0f} tok/s), flash launches {per_step[-1]}")
+        if not (math.isfinite(loss) and math.isfinite(aux) and aux > 0 and math.isfinite(gnorm)):
+            raise AssertionError(f"moe training step {s + 1}: loss {loss}, aux {aux}, "
+                                 f"grad norm {gnorm}")
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    if (per_step != [2 * cfg.n_layers] * TRAIN_STEPS or launches["rmsnorm"] != 0
+            or launches["flash_attention_fwd_tf32"] != launches["flash_attention_fwd"]):
+        raise AssertionError(f"moe training steps launched {per_step} flash kernels a step, "
+                             f"want {2 * cfg.n_layers}, all tf32: {launches}")
+    steady = sorted(secs[1:])[len(secs[1:]) // 2]
+    log(f"[moe-train] {cfg.name} at {cfg.n_layers} layers, fp32, {n_params / 1e9:.3f}G params, "
+        f"batch {TRAIN_BATCH} x {TRAIN_LEN}, remat, AdamW: {TRAIN_STEPS} steps in "
+        f"{[round(x, 3) for x in secs]} s; steady {steady:.3f} s/step "
+        f"({TRAIN_BATCH * TRAIN_LEN / steady:.0f} tok/s); peak {peak / 2**30:.2f} GiB "
+        f"({peak / 1e9:.2f} GB); launches {launches} [{smi}]")
+    with _spans() as ms:
+        t0 = time.perf_counter()
+        step_fn(params, ostate, batches[0])
+        torch.cuda.synchronize()
+        t_span = time.perf_counter() - t0
+    log(f"[moe-train] device time by part over one step ({t_span * 1e3:.1f} ms on the host "
+        f"clock; forward and remat recompute, not their backward): "
+        f"{_span_line(ms, t_span * 1e3)}")
+    _profile("one moonshot train step", lambda: step_fn(params, ostate, batches[0]))
+    del params, ostate, batches, batch, m
+    torch.cuda.empty_cache()
+    return {"launches": launches, "gate": gate, "steps_s": secs, "steady_s": steady,
+            "peak_gib": peak / 2**30, "spans_ms": ms, "span_wall_ms": t_span * 1e3}
+
+
+def phase_moe_ep(smi) -> dict:
+    """One moonshot MoE layer at full width in fp32, expert-parallel over a
+    ``LocalMesh`` of 4 rank threads on cuda:0 (16 experts a rank; tokens
+    replicated, as check_moe_ep), against ``moe_apply`` on the card; the
+    all-to-all bytes against the slab sizes.  Forward only: the ranks' backwards
+    would share the card's one autograd thread (ROADMAP Queue A item 9)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.comm import LocalMesh
+    from repro_torch.models import moe
+
+    cfg = get_config(MOE_ARCH)
+    d, f, e, k, n = cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.top_k, MOE_EP_RANKS
+    gen = torch.Generator("cuda").manual_seed(0)
+    scale = cfg.n_layers ** -0.5  # a layer of the model's init (fan-in L)
+
+    def rnd(*shape, s=scale):
+        return torch.randn(shape, generator=gen, device="cuda").mul_(s)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    params = {"router": rnd(d, e), "w_gate": rnd(e, d, f), "w_up": rnd(e, d, f),
+              "w_down": rnd(e, f, d)}
+    x = rnd(1, PREFILL_LEN, d, s=1.0)
+    cap = moe.capacity(PREFILL_LEN, k, e, cfg.capacity_factor)
+    with torch.no_grad(), _routing_log() as log_ref:
+        want, want_aux = moe.moe_apply(x, params, k, cfg.capacity_factor)
+    el = e // n
+    local = [{"router": params["router"],
+              **{w: params[w][i * el:(i + 1) * el] for w in ("w_gate", "w_up", "w_down")}}
+             for i in range(n)]
+    mesh = LocalMesh((n,), ("model",), "cuda")
+
+    def rank_fn(comm, p):
+        with torch.no_grad():
+            return moe.moe_apply_ep(comm, x, p, k, cfg.capacity_factor, "model")
+
+    with _routing_log() as log_ep:
+        outs, counts, times = _run_timed(mesh, rank_fn, [local])
+    tol = MOE_EP_RTOL * float(want.abs().max())
+    errs = []
+    for r, (y, aux) in enumerate(outs):
+        errs.append(float((y - want).abs().max()))
+        if not torch.allclose(y, want, rtol=MOE_EP_RTOL, atol=tol) or \
+                abs(float(aux) - float(want_aux)) > 1e-5 * abs(float(want_aux)):
+            raise AssertionError(f"[moe-ep] rank {r}: max |err| {errs[-1]:.3e} against "
+                                 f"moe_apply (atol {tol:.3e}), aux {float(aux)} vs "
+                                 f"{float(want_aux)}")
+    # every rank routes the same tokens as moe_apply's one group
+    for flat_e, keep in log_ep[:n]:
+        if not (torch.equal(flat_e, log_ref[0][0]) and torch.equal(keep, log_ref[0][1])):
+            raise AssertionError("[moe-ep] a rank's routing differs from moe_apply's")
+    slab = e * cap * d * 4
+    want_rank = 2 * slab * (n - 1) // n
+    sent = collections.Counter()
+    for (src, _), b in counts["bytes"].items():
+        sent[src] += b
+    if set(sent.values()) != {want_rank} or len(sent) != n or \
+            set(counts["bytes"].values()) != {2 * slab // n}:
+        raise AssertionError(f"[moe-ep] all_to_all bytes {dict(counts['bytes'])}, want "
+                             f"{want_rank} a rank")
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    dropped = int((~log_ref[0][1]).sum())
+    log(f"[moe-ep] one {cfg.name} MoE layer, fp32, {e} experts over {n} rank threads on "
+        f"cuda:0 ({el} a rank), tokens B 1 x S {PREFILL_LEN} replicated, capacity factor "
+        f"{cfg.capacity_factor} (cap {cap} in both paths, {dropped} of {PREFILL_LEN * k} pairs "
+        f"dropped): moe_apply_ep against moe_apply max |err| {max(errs):.3e} (max |y| "
+        f"{float(want.abs().max()):.3e}, rtol {MOE_EP_RTOL}, atol {tol:.3e}), routing equal; "
+        f"all_to_all bytes a rank {want_rank:,} = 2 x 3/4 x the ({e}, {cap}, {d}) fp32 slab "
+        f"({slab / 1e6:.1f} MB), {sum(counts['messages'].values())} messages; "
+        f"{statistics.median(times):.2f} ms median of {SYNC_REPS} "
+        f"({', '.join(f'{t:.2f}' for t in times)}; in-process transport); peak {peak:.2f} GiB "
+        f"above the phase's start [{smi}]")
+    del params, local, x, want, outs
+    torch.cuda.empty_cache()
+    return {"max_abs_err": max(errs), "bytes_a_rank": want_rank, "slab_bytes": slab,
+            "cap": cap, "ms": statistics.median(times), "ms_runs": times, "peak_gib": peak,
+            "pairs_dropped": dropped}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1402,9 +2080,15 @@ def main() -> int:
     driver = phase_train_driver()
     sync = phase_sync_collectives(smi)
     sync_train = phase_sync_train(smi)
+    moe_serve = phase_moe_serve(smi)
+    moe_cfg, moe_params, moe_fp32 = phase_moe_fp32(smi)
+    moe_train = phase_moe_train(moe_cfg, moe_params, smi)
+    del moe_params
+    moe_ep = phase_moe_ep(smi)
 
     paths = {"prefill": prefill, "train_steps": train, "train_driver": driver,
-             "train_sync": sync_train["launches"]}
+             "train_sync": sync_train["launches"], "prefill_moe": moe_serve["launches"],
+             "train_moe": moe_train["launches"]}
 
     def by_path(key):
         return {path: counts[key] for path, counts in paths.items()}
@@ -1460,6 +2144,8 @@ def main() -> int:
     }]}
     log(json.dumps(line))
     log(json.dumps({"sync": {"device": smi, **sync, "train": sync_train}}))
+    log(json.dumps({"moe": {"device": smi, "arch": MOE_ARCH, "serve": moe_serve,
+                            "fp32": moe_fp32, "train": moe_train, "ep": moe_ep}}))
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -2,11 +2,11 @@
 
 The JAX package writes the paper's allreduce algorithms once, per device,
 inside ``shard_map``, and reaches the other devices through
-``lax.axis_index``, ``lax.ppermute``, ``lax.psum`` and ``lax.all_gather``
-over named mesh axes.  Here a ``Mesh`` has the same named axes and shape,
+``lax.axis_index``, ``lax.ppermute``, ``lax.psum``, ``lax.all_gather`` and
+``lax.all_to_all`` over named mesh axes.  Here a ``Mesh`` has the same named axes and shape,
 and ``Mesh.run(fn, *per_rank_args)`` calls ``fn(comm, *args)`` once per rank,
 as ``shard_map`` calls its body once per device.  ``comm`` is that rank's
-``Comm``: its coordinates and the four primitives, with JAX's semantics:
+``Comm``: its coordinates and the five primitives, with JAX's semantics:
 
 * ``ppermute(x, axes, perm)``: ``perm`` pairs positions along ``axes`` (one
   axis, or several linearised in the order given); every other coordinate
@@ -16,6 +16,12 @@ as ``shard_map`` calls its body once per device.  ``comm`` is that rank's
 * ``psum(x, axes)`` and ``all_gather(x, axes)`` (a new leading axis, in the
   order of the positions along ``axes``) over the ranks that share every
   other coordinate.
+* ``all_to_all(x, axes)``: ``lax.all_to_all(x, axes, 0, 0, tiled=False)``
+  over the same ranks.  ``x`` has one leading entry a rank of the group;
+  entry i goes to the rank at position i, and entry j of the result is what
+  the rank at position j sent to this one.  It is the one primitive with a
+  backward: the same exchange of the gradient, since with the split and
+  concat axes both 0 the exchange is its own inverse.
 
 Ranks are numbered row-major over the mesh shape (the last axis fastest),
 as ``jax.make_mesh`` lays devices out.  Two transports carry the data:
@@ -26,11 +32,12 @@ as ``jax.make_mesh`` lays devices out.  Two transports carry the data:
   barriers.
 * ``DistMesh``: one rank per process of a ``torch.distributed`` process
   group (gloo on CPU tensors, NCCL on GPUs); ppermute is
-  ``batch_isend_irecv`` between global ranks, psum ``all_reduce`` and
-  all_gather ``all_gather_into_tensor``.
+  ``batch_isend_irecv`` between global ranks, psum ``all_reduce``,
+  all_gather ``all_gather_into_tensor`` and all_to_all ``all_to_all_single``.
 
-Both count what they move in ``Mesh.stats``: ppermute bytes and messages by
-(src, dst) rank pair, and psum and all_gather calls.
+Both count what they move in ``Mesh.stats``: ppermute and all_to_all bytes
+and messages by (src, dst) rank pair, and psum, all_gather and all_to_all
+calls.
 """
 
 from __future__ import annotations
@@ -52,9 +59,11 @@ def _as_tuple(axes: Axes) -> tuple[str, ...]:
 class CommStats:
     """What a mesh's transport moved since the last ``reset``.
 
-    ``bytes`` and ``messages`` count ppermute sends by (src, dst) global rank
-    pair; ``psum_calls`` and ``all_gather_calls`` count one per rank and call.
-    A ``DistMesh`` counts the sends and calls of its own rank only.
+    ``bytes`` and ``messages`` count ppermute sends, and the entries an
+    all_to_all sends to other ranks, by (src, dst) global rank pair;
+    ``psum_calls``, ``all_gather_calls`` and ``all_to_all_calls`` count one
+    per rank and call (an all_to_all's backward is a call too).  A
+    ``DistMesh`` counts the sends and calls of its own rank only.
     """
 
     def __init__(self):
@@ -67,6 +76,7 @@ class CommStats:
             self.messages: Counter = Counter()
             self.psum_calls = 0
             self.all_gather_calls = 0
+            self.all_to_all_calls = 0
 
     def record_send(self, src: int, dst: int, nbytes: int) -> None:
         with self._lock:
@@ -74,11 +84,9 @@ class CommStats:
             self.messages[(src, dst)] += 1
 
     def record_call(self, kind: str) -> None:
+        """One call of ``kind``: "psum", "all_gather" or "all_to_all"."""
         with self._lock:
-            if kind == "psum":
-                self.psum_calls += 1
-            else:
-                self.all_gather_calls += 1
+            setattr(self, f"{kind}_calls", getattr(self, f"{kind}_calls") + 1)
 
 
 class Mesh:
@@ -199,6 +207,9 @@ class Mesh:
     def _all_gather(self, rank, x, axes):
         raise NotImplementedError
 
+    def _all_to_all(self, rank, x, axes):
+        raise NotImplementedError
+
     def _check_args(self, per_rank_args) -> None:
         for a in per_rank_args:
             if len(a) != self.size:
@@ -230,6 +241,41 @@ class Comm:
     def all_gather(self, x: torch.Tensor, axes: Axes) -> torch.Tensor:
         self.mesh.stats.record_call("all_gather")
         return self.mesh._all_gather(self.rank, x.contiguous(), _as_tuple(axes))
+
+    def all_to_all(self, x: torch.Tensor, axes: Axes) -> torch.Tensor:
+        """Entry i of ``x`` (leading size: the ranks along ``axes``) to the rank
+        at position i; entry j of the result from the rank at position j.
+        Differentiable: the backward runs the same exchange on the gradient, so
+        every rank of the group must run its backward too."""
+        axes = _as_tuple(axes)
+        n = self.mesh.axis_size(axes)
+        if x.dim() == 0 or x.shape[0] != n:
+            raise ValueError(f"all_to_all over {axes} needs a leading axis of {n}, got "
+                             f"{tuple(x.shape)}")
+        return _AllToAll.apply(x, self, axes)
+
+    def _exchange_all(self, x: torch.Tensor, axes: tuple[str, ...]) -> torch.Tensor:
+        self.mesh.stats.record_call("all_to_all")
+        group = self.mesh.group(self.rank, axes)
+        nbytes = x[0].numel() * x.element_size()
+        for g in group:
+            if g != self.rank:
+                self.mesh.stats.record_send(self.rank, g, nbytes)
+        return self.mesh._all_to_all(self.rank, x.contiguous(), axes)
+
+
+class _AllToAll(torch.autograd.Function):
+    """``Comm.all_to_all`` under autograd: the exchange, and the same exchange
+    of the gradient (split and concat axes 0: its own inverse)."""
+
+    @staticmethod
+    def forward(ctx, x, comm, axes):
+        ctx.comm, ctx.axes = comm, axes
+        return comm._exchange_all(x, axes)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.comm._exchange_all(grad, ctx.axes), None, None
 
 
 class LocalMesh(Mesh):
@@ -329,6 +375,12 @@ class LocalMesh(Mesh):
         return self._exchange(rank, x, lambda slots: torch.stack([slots[g].to(dev)
                                                                   for g in group]))
 
+    def _all_to_all(self, rank, x, axes):
+        dev, group = self.devices[rank], self.group(rank, axes)
+        i = self.axis_index(rank, axes)
+        return self._exchange(rank, x, lambda slots: torch.stack([slots[g][i].to(dev)
+                                                                  for g in group]))
+
 
 class DistMesh(Mesh):
     """This process's rank of the default ``torch.distributed`` process group.
@@ -407,4 +459,13 @@ class DistMesh(Mesh):
         out = out.reshape((len(group),) + tuple(x.shape))
         # a process group orders its ranks by global rank; the mesh by position
         order = sorted(group)
+        return out[[order.index(g) for g in group]] if order != group else out
+
+    def _all_to_all(self, rank, x, axes):
+        group = self.group(rank, axes)
+        order = sorted(group)  # the process group's order of its ranks
+        if order != group:  # entry j of the exchange goes to order[j]
+            x = x[[group.index(g) for g in order]].contiguous()
+        out = torch.empty_like(x)
+        self._dist.all_to_all_single(out, x, group=self._process_group(axes))
         return out[[order.index(g) for g in group]] if order != group else out

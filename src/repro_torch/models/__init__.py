@@ -6,7 +6,7 @@ from repro_torch.configs.base import ArchConfig
 
 
 def get_model(cfg: ArchConfig):
-    """The model module of ``cfg``'s family; only the dense family is ported."""
+    """The model module of ``cfg``'s family; the dense and MoE families are ported."""
     from repro_torch.models import transformer
 
     transformer._require_ported(cfg)

@@ -35,6 +35,20 @@ def dense_init(gen: torch.Generator, shape, scale: float | None = None,
     return (torch.randn(shape, generator=gen, device=gen.device) * scale).to(dtype)
 
 
+def dense_init_by_layer(gen: torch.Generator, shape, dtype=torch.bfloat16) -> torch.Tensor:
+    """``dense_init``'s distribution (fan_in ``shape[0]``) drawn one leading
+    index at a time into a tensor of ``dtype``.
+
+    For the layer-stacked expert weights, whose float32 draw at full width
+    would be tens of GB beside the result: the peak is one layer's slab.
+    """
+    scale = 1.0 / math.sqrt(shape[0])
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    for part in out:
+        part.copy_(torch.randn(shape[1:], generator=gen, device=gen.device).mul_(scale))
+    return out
+
+
 def embed_init(gen: torch.Generator, shape, dtype=torch.bfloat16) -> torch.Tensor:
     return (torch.randn(shape, generator=gen, device=gen.device) * 0.02).to(dtype)
 

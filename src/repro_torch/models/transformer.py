@@ -1,4 +1,4 @@
-"""Dense decoder-only transformer LM (dense family of ``repro.models.transformer``).
+"""Decoder-only transformer LM: the dense and MoE families of ``repro.models.transformer``.
 
 The parameter layout is the JAX package's: a nested dict with the per-layer
 weights stacked on a leading L axis (``params["layers"]["wq"]`` is
@@ -7,7 +7,13 @@ Layers run as a Python loop over that axis, each stacked weight unbound once
 per call.  ``DenseLM`` holds the stacked parameters as an ``nn.Module`` and
 delegates to the functions here.
 
-The MoE, VLM (M-RoPE) and audio (encoder-decoder) families raise
+The MoE family replaces each layer's SwiGLU with ``models.moe`` under
+``params["layers"]["moe"]`` (an fp32 router beside experts in the model's
+dtype) and returns the load-balancing loss averaged over the layers.  Its
+expert-parallel mode (``moe_mode="ep"``) needs a mesh in ``forward`` and
+raises until the port's shardings bring one (ROADMAP Queue A item 9);
+``moe.moe_apply_ep`` itself runs on a ``core.comm`` mesh.  The VLM (M-RoPE),
+audio (encoder-decoder), SSM and hybrid families raise
 ``NotImplementedError`` until their ROADMAP items are ported.
 """
 
@@ -19,9 +25,9 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 
 _LATER = {
-    "moe": "ROADMAP Queue A, MoE",
     "vlm": "ROADMAP Queue A, VLM and audio families",
     "audio": "ROADMAP Queue A, VLM and audio families",
     "ssm": "ROADMAP Queue A, SSM",
@@ -67,6 +73,18 @@ def _mlp_params(gen, cfg: ArchConfig, n_layers: int, dtype):
     }
 
 
+def _moe_params(gen, cfg: ArchConfig, n_layers: int, dtype):
+    """The router in float32 whatever ``dtype``, as in JAX; the expert stacks
+    (L, E, ...) drawn a layer at a time (``layers.dense_init_by_layer``)."""
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    return {
+        "router": L.dense_init(gen, (n_layers, d, e), dtype=torch.float32),
+        "w_gate": L.dense_init_by_layer(gen, (n_layers, e, d, f), dtype=dtype),
+        "w_up": L.dense_init_by_layer(gen, (n_layers, e, d, f), dtype=dtype),
+        "w_down": L.dense_init_by_layer(gen, (n_layers, e, f, d), dtype=dtype),
+    }
+
+
 def init_params(cfg: ArchConfig, gen: torch.Generator, dtype=torch.bfloat16):
     """Random weights on ``gen.device``, drawn from ``gen`` in a fixed order.
 
@@ -79,8 +97,11 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, dtype=torch.bfloat16):
         "attn_norm": _stack_norm(cfg, cfg.n_layers, gen.device),
         "mlp_norm": _stack_norm(cfg, cfg.n_layers, gen.device),
         **_attn_params(gen, cfg, cfg.n_layers, dtype),
-        **_mlp_params(gen, cfg, cfg.n_layers, dtype),
     }
+    if cfg.family == "moe":
+        layer["moe"] = _moe_params(gen, cfg, cfg.n_layers, dtype)
+    else:
+        layer.update(_mlp_params(gen, cfg, cfg.n_layers, dtype))
     params = {
         "embed": L.embed_init(gen, (cfg.vocab, d), dtype=dtype),
         "layers": layer,
@@ -165,6 +186,18 @@ def _mlp_block(cfg: ArchConfig, p, x):
     return L.gelu_mlp(x, p["w_up"], p["b_up"], p["w_down"], p["b_down"])
 
 
+def _moe_block(cfg: ArchConfig, mp, x):
+    """(y, aux) of one MoE layer in the forward pass, by ``cfg.moe_mode``."""
+    if cfg.moe_mode == "ep":
+        raise NotImplementedError(
+            f"{cfg.name}: moe_mode='ep' in forward needs a mesh, which comes with the "
+            "port's shardings (ROADMAP Queue A item 9); moe.moe_apply_ep runs on a "
+            "core.comm mesh")
+    if cfg.moe_mode == "gshard":
+        return moe_lib.moe_apply_gshard(x, mp, cfg.top_k, cfg.capacity_factor)
+    return moe_lib.moe_apply(x, mp, cfg.top_k, cfg.capacity_factor)
+
+
 def forward(
     cfg: ArchConfig,
     params,
@@ -178,31 +211,40 @@ def forward(
 
     With ``remat`` and autograd on, each layer runs under
     ``torch.utils.checkpoint`` (the counterpart of ``jax.checkpoint`` around
-    the JAX layer): only its input is kept, and the backward pass runs the
-    layer again.  Without autograd (serving) it has no effect.  With
-    ``return_hidden`` the final-norm hidden states (B, S, d) come back in place
-    of the logits, for the chunked cross-entropy.
+    the JAX layer): only its inputs are kept, and the backward pass runs the
+    layer again.  Without autograd (serving) it has no effect.  Each layer
+    carries (h, aux), as the JAX scan does; the MoE loss comes back averaged
+    over the layers (zero for the dense family).  With ``return_hidden`` the
+    final-norm hidden states (B, S, d) come back in place of the logits, for
+    the chunked cross-entropy.
     """
     _require_ported(cfg)
     if positions is None:
         positions = _positions_default(tokens)
     x = params["embed"][tokens.long()]
 
-    def layer_fn(h, lp):
+    def layer_fn(h, aux, lp):
         a = L.apply_norm(h, lp["attn_norm"], cfg.norm_type)
         h = h + _attn_block(cfg, lp, a, positions, causal=True, window=0,
                             use_kernel=use_kernel)
         m = L.apply_norm(h, lp["mlp_norm"], cfg.norm_type)
-        return h + _mlp_block(cfg, lp, m)
+        if cfg.family == "moe":
+            y, a_loss = _moe_block(cfg, lp["moe"], m)
+            aux = aux + a_loss
+        else:
+            y = _mlp_block(cfg, lp, m)
+        return h + y, aux
 
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     checkpointed = remat and torch.is_grad_enabled()
     for lp in _unstack(params["layers"], cfg.n_layers):
         if checkpointed:
-            x = torch.utils.checkpoint.checkpoint(layer_fn, x, lp, use_reentrant=False)
+            x, aux = torch.utils.checkpoint.checkpoint(layer_fn, x, aux, lp,
+                                                       use_reentrant=False)
         else:
-            x = layer_fn(x, lp)
+            x, aux = layer_fn(x, aux, lp)
     x = L.apply_norm(x, params["final_norm"], cfg.norm_type)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)  # dense: no MoE loss
+    aux = aux / cfg.n_layers
     if return_hidden:
         return x, aux
     logits = x @ _unembed(params)
@@ -236,13 +278,17 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, positions=None):
     Unlike the JAX version, which returns a new cache, this writes the new
     keys and values into ``cache["k"]``/``cache["v"]`` in place and advances
     ``cache["len"]``, a Python int, so a step needs no copy of the cache and
-    no host sync.  The cache passed in is the one returned.
+    no host sync.  The cache passed in is the one returned.  Past the cache's
+    end the step writes its last slot, as ``lax.dynamic_update_slice`` clamps
+    its index, while ``len`` and the RoPE position go on counting.  The MoE
+    family runs ``moe.moe_apply`` whatever ``moe_mode``, as in JAX.
     """
     _require_ported(cfg)
     b = tokens.shape[0]
     hd = cfg.kq_head_dim
     h_, kv = cfg.n_heads, cfg.n_kv_heads
     pos = cache["len"]
+    slot = min(pos, cache["k"].shape[2] - 1)
     if positions is None:
         positions = torch.full((b, 1), pos, dtype=torch.int32, device=tokens.device)
     x = params["embed"][tokens.long()]
@@ -253,12 +299,16 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, positions=None):
         v = (a @ lp["wv"]).reshape(b, 1, kv, hd)
         q, k = _apply_pos(cfg, q, k, positions)
         kc, vc = cache["k"][i], cache["v"][i]
-        kc[:, pos:pos + 1] = k
-        vc[:, pos:pos + 1] = v
+        kc[:, slot:slot + 1] = k
+        vc[:, slot:slot + 1] = v
         o = L.attention_decode(q, kc, vc, pos + 1)
         x = x + o.reshape(b, 1, h_ * hd) @ lp["wo"]
         m = L.apply_norm(x, lp["mlp_norm"], cfg.norm_type)
-        x = x + _mlp_block(cfg, lp, m)
+        if cfg.family == "moe":
+            y, _ = moe_lib.moe_apply(m, lp["moe"], cfg.top_k, cfg.capacity_factor)
+        else:
+            y = _mlp_block(cfg, lp, m)
+        x = x + y
     x = L.apply_norm(x, params["final_norm"], cfg.norm_type)
     logits = x @ _unembed(params)
     cache["len"] = pos + 1

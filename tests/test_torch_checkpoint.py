@@ -179,6 +179,39 @@ def test_restore_rejects_a_mismatched_target():
             ckpt.restore(d + "/c", {"p": bad})
 
 
+MOE_CFG = ArchConfig("tiny-moe", "moe", 2, 64, 4, 2, 96, 256, n_experts=4, top_k=2)
+
+
+def test_moe_state_crosses_both_ways_exactly():
+    """bf16 MoE params with their fp32 router (the nested layers.moe subtree) and
+    AdamW's moments: through the bridge, one AdamW step, and checkpoints both ways."""
+    jcfg = JArchConfig(**dataclasses.asdict(MOE_CFG))
+    params = JT.init_params(jcfg, jax.random.PRNGKey(0), dtype=jnp.bfloat16)
+    rng = np.random.default_rng(0)
+    grads = jax.tree.map(lambda a: jnp.asarray(rng.standard_normal(a.shape), a.dtype), params)
+    ocfg = dict(lr=1e-2, warmup_steps=1, total_steps=10)
+    jparams, jstate, _ = jopt.apply(jopt.AdamWConfig(**ocfg), jopt.init(params), params, grads)
+    tparams = bridge.params_from_numpy(jax.device_get(params))
+    moe = tparams["layers"]["moe"]
+    assert moe["router"].dtype == torch.float32 and moe["w_gate"].dtype == torch.bfloat16
+    tparams, tstate, _ = opt.apply(opt.AdamWConfig(**ocfg), opt.init(tparams), tparams,
+                                   bridge.params_from_numpy(jax.device_get(grads)))
+    for t, j in zip(tree_lib.leaves(tparams), jax.tree.leaves(jparams)):
+        tol = 1e-6 if t.dtype == torch.float32 else 1e-2  # bf16 rounds once a step
+        np.testing.assert_allclose(t.float().numpy(), np.asarray(j, np.float32), rtol=tol,
+                                   atol=tol)
+    jfull = {"p": jparams, "o": jstate}
+    with tempfile.TemporaryDirectory() as d:
+        jckpt.save_step(d, jfull, 3)
+        restored, step = ckpt.restore_latest(d, _port_state(jax.tree.map(jnp.zeros_like, jfull)))
+        assert step == 3
+        _assert_same_bits(restored, jfull)
+        ckpt.save_step(d + "/port", restored, 4)
+        back, step = jckpt.restore_latest(d + "/port", jax.tree.map(jnp.zeros_like, jfull))
+    assert step == 4
+    _assert_same_bits(restored, back)
+
+
 def test_opt_state_bridge_round_trips():
     jstate = _mixed_state()["o"]
     back = jopt.AdamWState(*bridge.opt_state_to_numpy(bridge.opt_state_from_numpy(
@@ -248,6 +281,20 @@ def test_train_cli_failure_remap_and_restore_on_cpu(capsys):
     assert "[failure] restarted from checkpoint step 4" in text
     assert "[train] step   12 loss" in text and "[train] done: 12 steps" in text
     assert out["step"] == 12 and np.isfinite(out["loss"]) and np.isfinite(out["grad_norm"])
+
+
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b-smoke", "dbrx-132b-smoke"])
+def test_train_cli_moe_failure_remap_and_restore_on_cpu(arch, capsys):
+    with tempfile.TemporaryDirectory() as d:
+        args = ["--arch", arch, "--batch", "2", "--seq", "16", "--checkpoint-dir", d,
+                "--checkpoint-every", "2", "--device", "cpu"]
+        out = train_cli.main(args + ["--steps", "6", "--simulate-failure", "3"])
+        resumed = train_cli.main(args + ["--steps", "8"])
+    text = capsys.readouterr().out
+    assert "[failure] restarted from checkpoint step 2" in text
+    assert "[train] done: 6 steps" in text and "[train] resumed from step 6" in text
+    assert out["step"] == 6 and resumed["step"] == 8
+    assert np.isfinite(out["loss"]) and np.isfinite(resumed["loss"])
 
 
 def test_train_cli_resumes_from_a_checkpoint(capsys):

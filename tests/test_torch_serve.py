@@ -1,5 +1,6 @@
 """The port's serving entry points: data, CLI, weight bridge and device choice."""
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -48,18 +49,28 @@ def test_make_batch_audio_waits_for_its_slice():
 
 
 def test_serve_cli_runs_on_cpu():
+    _check_serve_cli("llama3.2-3b-smoke")
+
+
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b-smoke", "dbrx-132b-smoke"])
+def test_serve_cli_runs_the_moe_family_on_cpu(arch):
+    _check_serve_cli(arch)
+
+
+def _check_serve_cli(arch):
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"), OMP_NUM_THREADS="2")
     res = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "llama3.2-3b-smoke",
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch,
          "--device", "cpu", "--batch", "2", "--prompt-len", "8", "--decode", "4"],
         capture_output=True, text=True, env=env, cwd=REPO, timeout=300,
     )
     assert res.returncode == 0, res.stderr
     lines = [ln for ln in res.stdout.splitlines() if ln.startswith("[serve]")]
     assert len(lines) == 2
-    assert "arch=llama3.2-3b-smoke batch=2 prefill 8 toks" in lines[0]
+    assert f"arch={arch} batch=2 prefill 8 toks" in lines[0]
     assert "decoded 4 toks/seq" in lines[0]
-    assert len(eval(lines[1].split(":", 1)[1])) == 4  # the 4 decoded ids of sequence 0
+    ids = eval(lines[1].split(":", 1)[1])  # the 4 decoded ids of sequence 0
+    assert len(ids) == 4 and all(0 <= i < get_config(arch).vocab for i in ids)
 
 
 def test_serve_decodes_like_the_decode_step():
@@ -111,5 +122,15 @@ def test_entry_points_want_cuda_unless_told_cpu():
                                   "recurrentgemma-9b-smoke", "qwen2-vl-7b-smoke",
                                   "whisper-tiny-smoke"])
 def test_unported_families_raise(arch):
+    """Each family the port lacks raises naming its ROADMAP item; of the moe family,
+    which is ported, the expert-parallel forward (``moe_mode="ep"``) does."""
+    cfg = get_config(arch)
+    if cfg.family != "moe":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            get_model(cfg)
+        return
+    cfg = dataclasses.replace(cfg, moe_mode="ep")
+    model = get_model(cfg)
+    params = model.init_params(cfg, torch.Generator().manual_seed(0), torch.float32)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model(get_config(arch))
+        model.forward(cfg, params, torch.zeros((1, 4), dtype=torch.int32))

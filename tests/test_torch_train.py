@@ -93,34 +93,75 @@ def _setup():
     (True, True, 5, 16),
 ])
 def test_train_step_matches_jax(remat, use_kernel, ce_chunk, seq):
+    _check_train_step(CFG, remat, use_kernel, ce_chunk, seq)
+
+
+# a tied unembedding, a vocab padded from 250 to 256 whose tail is masked, both
+# (tests/test_torch_transformer.py's EXTRA); and a tiny MoE whose capacity
+# factor of 1.25 drops tokens (16 a group, 2 choices, cap 10 an expert)
+EXTRA_CFGS = [
+    ArchConfig("tied", "dense", 2, 64, 4, 2, 128, 250, head_dim=16, tie_embeddings=True),
+    ArchConfig("padded", "dense", 2, 64, 4, 2, 128, 250, head_dim=16, vocab_pad_to=128),
+    ArchConfig("tied-padded", "dense", 2, 64, 4, 2, 128, 250, head_dim=16,
+               tie_embeddings=True, vocab_pad_to=128),
+]
+MOE_CFG = ArchConfig("tiny-moe", "moe", 2, 64, 4, 2, 96, 256, n_experts=4, top_k=2)
+
+
+@pytest.mark.parametrize("ce_chunk", [0, 5, 8])
+@pytest.mark.parametrize("cfg", EXTRA_CFGS, ids=lambda c: c.name)
+def test_train_step_matches_jax_tied_and_padded(cfg, ce_chunk):
+    _check_train_step(cfg, True, False, ce_chunk, 16)
+
+
+@pytest.mark.parametrize("remat,use_kernel,ce_chunk,moe_mode", [
+    (False, False, 0, "tp"),
+    (True, True, 8, "tp"),
+    (True, False, 0, "gshard"),
+])
+def test_train_step_matches_jax_moe(remat, use_kernel, ce_chunk, moe_mode):
+    """One step of the MoE family: the loss, the aux loss, every gradient leaf
+    (the fp32 router and the expert stacks included) and the updated params."""
+    cfg = dataclasses.replace(MOE_CFG, moe_mode=moe_mode)
+    _check_train_step(cfg, remat, use_kernel, ce_chunk, 16)
+
+
+def _check_train_step(cfg, remat, use_kernel, ce_chunk, seq):
+    jcfg = JArchConfig(**dataclasses.asdict(cfg))
     jopts = jsteps.TrainOptions(remat=remat, use_kernel=use_kernel, ce_chunk=ce_chunk)
     topts = steps_lib.TrainOptions(remat=remat, use_kernel=use_kernel, ce_chunk=ce_chunk)
-    jparams = _jax_params()
+    jparams = _jax_params(jcfg)
     jstate = jopt.init(jparams)
     tparams = bridge.params_from_numpy(jax.device_get(jparams))
     tstate = opt.init(tparams)
 
     # the gradients themselves
-    (_, (jloss, _)), jgrads = jax.jit(jax.value_and_grad(
-        jsteps.make_loss_fn(JCFG, jopts), has_aux=True))(jparams, _jbatch(seq))
+    (_, (jloss, jaux)), jgrads = jax.jit(jax.value_and_grad(
+        jsteps.make_loss_fn(jcfg, jopts), has_aux=True))(jparams, _jbatch(seq, cfg=jcfg))
     (_, (tloss, aux)), tgrads = steps_lib.value_and_grad(
-        steps_lib.make_loss_fn(CFG, topts))(tparams, _tbatch(seq))
+        steps_lib.make_loss_fn(cfg, topts))(tparams, _tbatch(seq, cfg=cfg))
     _close(tloss, jloss)
-    assert float(aux) == 0.0
+    if cfg.family == "moe":
+        _close(aux, jaux)
+        assert float(aux) > 0.0
+    else:
+        assert float(aux) == 0.0
     jflat, tflat = jax.tree.leaves(jgrads), tree_lib.leaves(tgrads)
     assert len(jflat) == len(tflat)
     for t, j in zip(tflat, jflat):
+        assert t.dtype == torch.float32
         _close(t, j)
 
     # one whole step
-    jstep = jax.jit(jsteps.make_train_step(JCFG, jopt.AdamWConfig(**OCFG), jopts, Policy()))
-    jnew, jstate, jm = jstep(jparams, jstate, _jbatch(seq))
-    tstep = steps_lib.make_train_step(CFG, opt.AdamWConfig(**OCFG), topts)
+    jstep = jax.jit(jsteps.make_train_step(jcfg, jopt.AdamWConfig(**OCFG), jopts, Policy()))
+    jnew, jstate, jm = jstep(jparams, jstate, _jbatch(seq, cfg=jcfg))
+    tstep = steps_lib.make_train_step(cfg, opt.AdamWConfig(**OCFG), topts)
     before = tfa.launches
-    tnew, tstate, tm = tstep(tparams, tstate, _tbatch(seq))
+    tnew, tstate, tm = tstep(tparams, tstate, _tbatch(seq, cfg=cfg))
     assert tfa.launches == before  # CPU tensors take the plain version
     assert tnew is tparams  # updated in place
     _close(tm["loss"], jm["loss"])
+    _close(tm["aux"], jm["aux"])
     _close(tm["grad_norm"], jm["grad_norm"])
     np.testing.assert_allclose(float(tm["lr"]), float(jm["lr"]), rtol=1e-6)
     assert int(tstate.step) == int(jstate.step) == 1 and tstate.step.dtype == torch.int32

@@ -116,6 +116,26 @@ def test_decode_steps_match_jax(cfg):
         _close(tcache[name], jcache[name])
 
 
+@pytest.mark.parametrize("cfg", [
+    ArchConfig("tiny", "dense", 2, 64, 4, 2, 128, 256),
+    ArchConfig("tiny-moe", "moe", 2, 64, 4, 2, 96, 256, n_experts=4, top_k=2),
+], ids=lambda c: c.name)
+def test_decode_past_the_cache_end_matches_jax(cfg):
+    # a cache of 2 slots and 3 steps: JAX's dynamic_update_slice clamps the
+    # third write to the last slot, while the length and RoPE position go on
+    jcfg, jparams, tparams = _both(cfg)
+    toks = _tokens(cfg, s=3)
+    jcache = JT.init_cache(jcfg, 2, 2, dtype=jnp.float32)
+    tcache = TT.init_cache(cfg, 2, 2, dtype=torch.float32)
+    for t in range(3):
+        want, jcache = JT.decode_step(jcfg, jparams, jcache, jnp.asarray(toks[:, t:t + 1]))
+        got, tcache = TT.decode_step(cfg, tparams, tcache, torch.from_numpy(toks[:, t:t + 1]))
+        _close(got, want)
+    assert tcache["len"] == int(jcache["len"]) == 3
+    for name in ("k", "v"):
+        _close(tcache[name], jcache[name])
+
+
 def test_decode_step_tokens_match_jax():
     cfg = get_config("llama3.2-3b-smoke")
     jcfg, jparams, tparams = _both(cfg)
