@@ -5,8 +5,9 @@
 Builds every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
 with nvcc (sm_90a), holds each against its plain PyTorch version on the card,
 then serves and trains llama3.2-3b at full width with random weights from a
-seed, runs the paper's gradient sync over 16 ranks, and serves and trains the
-MoE moonshot-v1-16b-a3b:
+seed, runs the paper's gradient sync over 16 ranks, serves and trains the
+MoE moonshot-v1-16b-a3b, the SSM mamba2-130m and the hybrid
+recurrentgemma-9b (the last two reach no kernel, in JAX or here):
 
 1. device and toolchain: card name and power limit, torch and nvcc versions;
 2. build, timed (one nvcc per source, all started together), with ptxas's
@@ -81,9 +82,30 @@ MoE moonshot-v1-16b-a3b:
 13. expert parallelism: one moonshot MoE layer in fp32 over a 4-rank
    ``LocalMesh`` on cuda:0 (16 experts a rank, ``Comm.all_to_all``) against
    ``moe_apply``, its all-to-all bytes against the slab sizes; forward only;
-14. one JSON line on every kernel (launches by path, the MoE paths
-   included), one on the sync phase, one on the MoE phases, the card's name
-   and power limit, and last the JSON result line.
+14. mamba2-130m (the SSM family: 24 layers, d_model 768, 24 heads of 64,
+   state 128, chunk 256; 167.5M parameters) at full width and depth:
+   ``ssd_chunked`` on layer 0's own inputs (B 1, S 2048 and a ragged 1000)
+   against the recurrence a step at a time in fp64, itself in fp64 (the
+   algorithm) and in fp32 (within 2^-23 x the largest cumulative decay, the
+   rounding of its decay matrix); the bf16 prefill (batch 4 x 2048, one
+   warm-up and three timed calls, profiled) and serving loop; in fp32 the
+   decode loop against the prefill beside the floor of ssm_chunk 64 against
+   256; fp32 training (batch 2 x 2048, remat, 3 AdamW steps);
+15. recurrentgemma-9b (the hybrid family: 12 x (2 RG-LRU + 1 local MQA
+   attention, window 2048, head_dim 256) + 2 RG-LRU, d_model 4096; 10.44G
+   parameters): the RG-LRU's log-depth scan against its step loop at full
+   width (B 1 x 2048 x 4096), forward and gradient in fp64, and in fp32
+   against the fp64 loop; bf16 at full width and depth (20.9 GB of weights):
+   the prefill and serving loop as for the SSM; fp32 at 5 layers (one block
+   and the 2-layer tail, the stacks scaled to the 38-layer init): the decode
+   loop against the prefill at a 128-token prompt (floor: chunked against
+   dense attention) and past the window (2112 tokens, batch 1), then
+   training (batch 2 x 2048, remat, 3 AdamW steps).  Both families take
+   ``use_kernel=True`` and ignore it, as JAX's ``**_`` does: every flash and
+   RMSNorm count on their paths must be 0;
+16. one JSON line on every kernel (launches by path, the MoE, SSM and
+   hybrid paths included), one each on the sync, MoE, SSM and hybrid
+   phases, the card's name and power limit, and last the JSON result line.
 
 Any failure raises and exits nonzero; without a CUDA device, or without the
 rest of the repository beside it, the script exits nonzero and prints no
@@ -992,11 +1014,16 @@ def _profile(label: str, fn, top: int = 10) -> None:
         log(f"[profile] {label}: the profiler saw no device time; the timed calls are the "
             "measure")
         return
-    groups = {"matmul (gemm)": 0.0, "flash_attention_fwd kernel": 0.0, "other": 0.0}
+    groups = dict.fromkeys(("matmul (gemm)", "flash_attention_fwd kernel", "copy/cat/index",
+                            "reduction", "elementwise", "other"), 0.0)
     for e in kernels:
         name = e.key.lower()
         key = ("flash_attention_fwd kernel" if "flash_fwd" in name or "split_kv" in name
                else "matmul (gemm)" if any(w in name for w in ("gemm", "cutlass", "nvjet"))
+               else "copy/cat/index" if any(w in name for w in ("copy", "cat", "index",
+                                                                 "gather", "scatter"))
+               else "reduction" if any(w in name for w in ("reduce", "softmax", "scan"))
+               else "elementwise" if "elementwise" in name
                else "other")
         groups[key] += e.self_device_time_total
     log(f"[profile] {label} under torch.profiler: wall {wall_us / 1e6:.3f}s, device busy "
@@ -2055,6 +2082,415 @@ def phase_moe_ep(smi) -> dict:
             "pairs_dropped": dropped}
 
 
+# ---------------------------------------------------------------------------
+# the SSM (mamba2-130m) and hybrid (recurrentgemma-9b) families: no kernel
+# ---------------------------------------------------------------------------
+
+SSM_ARCH, HYBRID_ARCH = "mamba2-130m", "recurrentgemma-9b"
+SSD_RAGGED = 1000  # a ragged length for the SSD check (4 chunks of 256, the last padded)
+SSM_OTHER_CHUNK = 64  # the SSM's floor: the prefill at ssm_chunk 64 against 256
+ALGO_TOL = 1e-10  # a chunked or log-depth scan against its loop, both in fp64
+# recurrentgemma-9b's fp32 phases run one (rec, rec, attn) block and the 38-layer
+# model's tail of 2 recurrent layers: 3.22G params, 51.5 GB of training state
+# (38 layers: 167 GB).  dense_init draws a stack of L layers at scale
+# 1/sqrt(L), so the cut stacks (rec 2, attn 1) are scaled to the 38-layer
+# model's (rec 24, attn 12; the tail has 2 either way).
+HYBRID_LAYERS = 5
+HYBRID_OTHER_CHUNK = 32  # the hybrid's floor: chunked attention at 128 tokens vs dense
+HYBRID_TRAIN_BATCH = 2
+
+
+class _Stop(Exception):
+    pass
+
+
+def _first_call_args(module, name: str, run) -> tuple:
+    """The arguments of the first call of ``module.name`` while ``run()`` runs; the
+    run stops there."""
+    from unittest import mock
+
+    seen = []
+
+    def spy(*args, **kwargs):
+        seen.append(args)
+        raise _Stop
+
+    with mock.patch.object(module, name, spy), torch.no_grad():
+        try:
+            run()
+        except _Stop:
+            pass
+    return seen[0]
+
+
+def _no_launches(label: str) -> dict:
+    """The launch counts since the last reset, which must all be 0: neither family
+    reaches a kernel, in JAX or in the port (``use_kernel`` is ignored, as JAX's
+    ``**_`` ignores it)."""
+    counts = _counts()
+    if any(counts.values()):
+        raise AssertionError(f"{label} launched {counts}; the family reaches no kernel")
+    return counts
+
+
+def _family_prefill(cfg, params, tag: str, smi) -> dict:
+    """bf16 prefill at batch 4 x 2048 through ``make_prefill_step(use_kernel=True)``:
+    one warm-up call, three timed (their median), the peak, one profiled call."""
+    from repro_torch.data.pipeline import make_batch
+
+    tokens = torch.from_numpy(make_batch(cfg, PREFILL_LEN, PREFILL_BATCH)["tokens"]).cuda()
+    torch.cuda.reset_peak_memory_stats()
+    secs = []
+    for _ in range(4):
+        _reset_counts()
+        logits, t = _prefill(cfg, params, tokens, use_kernel=True)
+        launches = _no_launches(f"{cfg.name} prefill")
+        if logits.shape != (PREFILL_BATCH, 1, cfg.vocab) or not torch.isfinite(logits).all():
+            raise AssertionError(f"{cfg.name} prefill logits {tuple(logits.shape)} not finite "
+                                 "or misshapen")
+        secs.append(t)
+    median = sorted(secs[1:])[1]
+    peak = torch.cuda.max_memory_allocated()
+    ntok = PREFILL_BATCH * PREFILL_LEN
+    log(f"[{tag}-prefill] {cfg.name} bf16 batch {PREFILL_BATCH} x {PREFILL_LEN}: {median:.3f}s "
+        f"median of 3 after a warm-up ({ntok / median:.0f} tok/s; calls "
+        f"{[round(x, 3) for x in secs]} s), launches a call {launches}, peak "
+        f"{peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB) [{smi}]")
+    _profile(f"one {cfg.name} bf16 prefill", lambda: _prefill(cfg, params, tokens, True))
+    return {"prefill_s": median, "prefill_calls_s": secs, "prefill_peak_gib": peak / 2**30,
+            "prefill_tok_s": ntok / median, "launches": launches}
+
+
+def _family_serve(cfg, params, tag: str, smi) -> dict:
+    """The serving loop of ``launch/serve.py`` in bf16 (batch 4, prompt 128, 32 decoded)."""
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.launch.serve import serve
+
+    prompts = torch.from_numpy(make_batch(cfg, SERVE_PROMPT, SERVE_BATCH)["tokens"]).cuda()
+    _reset_counts()
+    res = serve(cfg, params, prompts, SERVE_DECODE)
+    launches = _no_launches(f"{cfg.name} serve")
+    toks = res["tokens"]
+    if toks.shape != (SERVE_BATCH, SERVE_DECODE) or not ((toks >= 0) & (toks < cfg.vocab)).all():
+        raise AssertionError(f"{cfg.name} serve returned bad tokens {tuple(toks.shape)}")
+    log(f"[{tag}-serve] {cfg.name} bf16 batch {SERVE_BATCH}: prompt {SERVE_PROMPT} "
+        f"teacher-forced in {res['prefill_s']:.3f}s "
+        f"({res['prefill_s'] / SERVE_PROMPT * 1e3:.2f} ms a step); decoded {SERVE_DECODE} "
+        f"toks/seq in {res['decode_s']:.3f}s ({SERVE_BATCH * SERVE_DECODE / res['decode_s']:.1f} "
+        f"tok/s, {res['decode_s'] / SERVE_DECODE * 1e3:.2f} ms a step); launches {launches}; "
+        f"sample {toks[0, :8].tolist()} [{smi}]")
+    return {"decode_tok_s": SERVE_BATCH * SERVE_DECODE / res["decode_s"],
+            "decode_ms_step": res["decode_s"] / SERVE_DECODE * 1e3,
+            "prompt_ms_step": res["prefill_s"] / SERVE_PROMPT * 1e3, "launches": launches}
+
+
+def _decode_vs_prefill(cfg, params, prompts, other_cfg, other_label: str, tag: str,
+                       order_gate: bool = True) -> dict:
+    """fp32: the decode loop's logits at the last prompt step against the prefill
+    step's.  Two gates.  Accuracy: the decode's distance from the prefill with
+    the weights in fp64 (where the model computes in fp32 by design, in norms,
+    softmax and RoPE, it still does) at most max(FP32_TOL, twice the fp32
+    prefill's).  Order (``order_gate``): decode vs prefill within
+    max(FP32_TOL, floor), the floor being the prefill of ``other_cfg`` (another
+    fp32 summation order) against the prefill.  Both families amplify rounding
+    where that floor does not look (an RG-LRU decay a near 1 scales its input's
+    error by ~1/(1 - a) in sqrt(1 - a^2); an SSD decay matrix subtracts
+    cumulative sums up to ~1.8e4), so past the hybrid's window, 2112 steps in,
+    only the accuracy gate is applied."""
+    from repro_torch import tree as tree_lib
+
+    dec = _decode_prompt(cfg, params, prompts)
+    pre, _ = _prefill(cfg, params, prompts, use_kernel=False)
+    other, _ = _prefill(other_cfg, params, prompts, use_kernel=False)
+    params64 = tree_lib.tree_map(lambda t: t.double(), params)
+    pre64, _ = _prefill(cfg, params64, prompts, use_kernel=False)
+    del params64
+    torch.cuda.empty_cache()
+    r = {"decode_vs_prefill": rel_l2(dec, pre), "floor": rel_l2(other, pre),
+         "decode_vs_fp64": rel_l2(dec, pre64), "prefill_vs_fp64": rel_l2(pre, pre64),
+         "argmax_agree": float((dec.argmax(-1) == pre.argmax(-1)).float().mean()),
+         "steps": prompts.shape[1]}
+    tol_acc = max(FP32_TOL, 2 * r["prefill_vs_fp64"])
+    tol_order = max(FP32_TOL, r["floor"])
+    log(f"[{tag}] {cfg.name} fp32 decode vs prefill logits at the last of {prompts.shape[1]} "
+        f"prompt steps (batch {prompts.shape[0]}): rel_l2 {r['decode_vs_prefill']:.3e}, "
+        + (f"tol max({FP32_TOL}, floor) = {tol_order:.3e}" if order_gate else "not gated")
+        + f" (floor: {other_label} {r['floor']:.3e}); argmax agreement "
+          f"{r['argmax_agree']:.2f}; from the prefill on fp64 weights: decode "
+          f"{r['decode_vs_fp64']:.3e}, tol max({FP32_TOL}, 2 x the fp32 prefill's "
+          f"{r['prefill_vs_fp64']:.3e}) = {tol_acc:.3e}")
+    if not (r["decode_vs_fp64"] <= tol_acc and torch.isfinite(dec).all()
+            and (r["decode_vs_prefill"] <= tol_order or not order_gate)):
+        raise AssertionError(f"{cfg.name}: the decode loop disagrees with the prefill: {r}")
+    return r
+
+
+def _family_train(cfg, params, batch_size: int, tag: str, smi) -> dict:
+    """fp32 training at batch_size x 2048 with remat: 3 timed AdamW steps through
+    ``make_train_step`` (``use_kernel=True``, which the family ignores), then one
+    profiled step."""
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import steps as st
+
+    n_params = sum(p.numel() for _, p in _named_leaves(params))
+    ocfg = opt.AdamWConfig(lr=3e-3, warmup_steps=1, total_steps=TRAIN_STEPS,
+                           schedule=cfg.schedule)
+    step_fn = st.make_train_step(cfg, ocfg, st.TrainOptions(use_kernel=True, remat=True))
+    ostate = opt.init(params)
+    batches = [{k: torch.from_numpy(v).cuda()
+                for k, v in make_batch(cfg, TRAIN_LEN, batch_size, step=s).items()}
+               for s in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    secs, losses = [], []
+    for s in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, ostate, m = step_fn(params, ostate, batches[s])
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        losses.append(loss)
+        log(f"[{tag}-train] step {s + 1}: loss {loss:.6f} grad_norm {gnorm:.6e} "
+            f"{secs[-1]:.3f}s ({batch_size * TRAIN_LEN / secs[-1]:.0f} tok/s)")
+        if not (math.isfinite(loss) and math.isfinite(gnorm)):
+            raise AssertionError(f"{cfg.name} training step {s + 1}: loss {loss}, "
+                                 f"grad norm {gnorm}")
+    launches = _no_launches(f"{cfg.name} training")
+    peak = torch.cuda.max_memory_allocated()
+    steady = sorted(secs[1:])[len(secs[1:]) // 2]
+    log(f"[{tag}-train] {cfg.name} at {cfg.n_layers} layers, fp32, {n_params / 1e9:.3f}G "
+        f"params, batch {batch_size} x {TRAIN_LEN}, remat, AdamW: {TRAIN_STEPS} steps in "
+        f"{[round(x, 3) for x in secs]} s; steady {steady:.3f} s/step "
+        f"({batch_size * TRAIN_LEN / steady:.0f} tok/s); peak {peak / 2**30:.2f} GiB "
+        f"({peak / 1e9:.2f} GB); launches {launches} [{smi}]")
+    _profile(f"one {cfg.name} train step", lambda: step_fn(params, ostate, batches[0]))
+    del ostate, batches, m
+    return {"steps_s": secs, "steady_s": steady, "losses": losses, "batch": batch_size,
+            "n_params": n_params, "peak_gib": peak / 2**30, "launches": launches}
+
+
+def _ssd_sequential(x, dt, A, B, C):
+    """The SSD as its recurrence, a step at a time in fp64 (tests/test_models.py's)."""
+    x, dt, A, B, C = (t.double() for t in (x, dt, A, B, C))
+    b, s, h, p = x.shape
+    state = torch.zeros((b, h, p, B.shape[-1]), dtype=torch.float64, device=x.device)
+    ys = []
+    for t in range(s):
+        state = (state * torch.exp(dt[:, t] * A)[..., None, None]
+                 + torch.einsum("bh,bn,bhp->bhpn", dt[:, t], B[:, t], x[:, t]))
+        ys.append(torch.einsum("bn,bhpn->bhp", C[:, t], state))
+    return torch.stack(ys, 1), state
+
+
+def _ssd_checks(x, dt, A, B, C, chunk) -> dict:
+    """``ssd_chunked`` on one layer's inputs against the recurrence in fp64: in fp64
+    (the algorithm, to ALGO_TOL) and in fp32 (the model's arithmetic).  In fp32
+    each decay exp(c_i - c_j) is taken of two cumulative sums rounded to fp32, so
+    its relative error is up to ~2^-23·max|c|; the fp32 gate is max(1e-4, that)."""
+    from repro_torch.models import mamba2
+
+    out = {}
+    for s in (x.shape[1], SSD_RAGGED):
+        args = (x[:, :s], dt[:, :s], A, B[:, :s], C[:, :s])
+        y_ref, st_ref = _ssd_sequential(*args)
+        y64, st64 = mamba2.ssd_chunked(*(a.double() for a in args), chunk)
+        y32, st32 = mamba2.ssd_chunked(*args, chunk)
+        dA = (dt[:, :s] * A).double().abs()
+        max_cs = max(float(dA[:, c0:c0 + chunk].sum(1).max()) for c0 in range(0, s, chunk))
+        bound = max(1e-4, 2.0 ** -23 * max_cs)
+        err32 = (y32.double() - y_ref).abs()
+        r = {"fp64_y": rel_l2(y64, y_ref), "fp64_state": rel_l2(st64, st_ref),
+             "fp32_y": rel_l2(y32, y_ref), "fp32_state": rel_l2(st32, st_ref),
+             "fp32_max_abs": float(err32.max()), "max_abs_y": float(y_ref.abs().max()),
+             "fp32_share_outside_1e-4": float((err32 > 1e-5 + 1e-4 * y_ref.abs())
+                                               .double().mean()),
+             "max_cumsum": max_cs, "fp32_bound": bound}
+        log(f"[ssd] S {s} (B {x.shape[0]}, H {x.shape[2]}, P {x.shape[3]}, N {B.shape[-1]}, "
+            f"chunk {chunk}) against the recurrence in fp64: fp64 y {r['fp64_y']:.2e} state "
+            f"{r['fp64_state']:.2e} (tol {ALGO_TOL}); fp32 y {r['fp32_y']:.2e} state "
+            f"{r['fp32_state']:.2e} (tol max(1e-4, 2^-23 x max|cumsum dA| {max_cs:.1f}) = "
+            f"{bound:.2e}), max_abs_err {r['fp32_max_abs']:.3e} on |y| <= "
+            f"{r['max_abs_y']:.1f}, {r['fp32_share_outside_1e-4']:.2%} of elements outside "
+            f"rtol 1e-4 / atol 1e-5")
+        if not (r["fp64_y"] <= ALGO_TOL and r["fp64_state"] <= ALGO_TOL
+                and r["fp32_y"] <= bound and r["fp32_state"] <= bound):
+            raise AssertionError(f"ssd_chunked at S {s} disagrees with the recurrence: {r}")
+        out[s] = r
+        del y_ref, y64, y32, err32
+    return out
+
+
+def phase_ssm(smi) -> dict:
+    """mamba2-130m at full width and depth: the SSD check on layer 0's inputs, bf16
+    prefill and serving, fp32 decode against prefill, fp32 training."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.models import get_model, mamba2
+
+    cfg = get_config(SSM_ARCH)
+    model = get_model(cfg)
+    torch.cuda.empty_cache()
+    params32 = model.init_params(cfg, torch.Generator("cuda").manual_seed(0), torch.float32)
+    tokens = torch.from_numpy(make_batch(cfg, PREFILL_LEN, 1)["tokens"]).cuda()
+    x, dt, A, B, C, chunk, _ = _first_call_args(
+        mamba2, "ssd_chunked", lambda: model.forward(cfg, params32, tokens, remat=False))
+    out = {"ssd": _ssd_checks(x, dt, A, B, C, chunk)}
+    del x, dt, A, B, C
+
+    params = model.init_params(cfg, torch.Generator("cuda").manual_seed(0))
+    n_params = sum(p.numel() for _, p in _named_leaves(params))
+    log(f"[ssm] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{mamba2.dims(cfg)[1]} heads of {cfg.ssm_head_dim}, state {cfg.ssm_state}, chunk "
+        f"{cfg.ssm_chunk}, vocab {cfg.vocab}: {n_params / 1e6:.1f}M params")
+    out.update(_family_prefill(cfg, params, "ssm", smi))
+    out["serve"] = _family_serve(cfg, params, "ssm", smi)
+    del params
+    prompts = torch.from_numpy(make_batch(cfg, SERVE_PROMPT, SERVE_BATCH)["tokens"]).cuda()
+    out["decode_vs_prefill"] = _decode_vs_prefill(
+        cfg, params32, prompts, dataclasses.replace(cfg, ssm_chunk=SSM_OTHER_CHUNK),
+        f"ssm_chunk {SSM_OTHER_CHUNK} vs {cfg.ssm_chunk}", "ssm")
+    out["train"] = _family_train(cfg, params32, TRAIN_BATCH, "ssm", smi)
+    del params32
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rglru_checks(d: int, init_depth: int) -> dict:
+    """``rglru`` (the log-depth scan) against a loop of ``rglru_step`` at B 1 x 2048
+    x d, forward and gradient, both in fp64 (to ALGO_TOL); and both in fp32 (the
+    relation of tests/test_models.py::test_rglru_scan_matches_step, to its rtol
+    1e-5 as relative L2), each beside its distance from the fp64 loop.  In fp32
+    a decay a = 1 - δ near 1 is rounded to ~3e-8, and a state kept over up to
+    2048 steps carries that many roundings, so both fp32 paths sit further
+    from fp64 than from each other.  The weights at ``dense_init``'s scale for
+    ``init_depth`` stacked layers."""
+    from repro_torch.models import recurrentgemma as rg
+
+    gen = torch.Generator("cuda").manual_seed(0)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float64) * scale
+
+    lp = {"w_a": rnd(d, d, scale=init_depth ** -0.5), "w_i": rnd(d, d, scale=init_depth ** -0.5),
+          "lambda_p": torch.full((d,), 0.5, dtype=torch.float64, device=gen.device)}
+    x, h0 = rnd(1, PREFILL_LEN, d), rnd(1, d)
+    cot_y, cot_h = rnd(1, PREFILL_LEN, d), rnd(1, d)
+
+    def grads(fn):
+        leaves = [x, h0, lp["w_a"], lp["w_i"], lp["lambda_p"]]
+        views = [t.detach().requires_grad_(True) for t in leaves]
+        y, h = fn(views[0], dict(zip(("w_a", "w_i", "lambda_p"), views[2:])), views[1])
+        g = torch.autograd.grad((y * cot_y).sum() + (h * cot_h).sum(), views)
+        return y.detach(), h.detach(), g
+
+    def loop(xx, p, hh):
+        ys = []
+        for t in range(xx.shape[1]):
+            yt, hh = rg.rglru_step(xx[:, t:t + 1], p, hh)
+            ys.append(yt)
+        return torch.cat(ys, 1), hh
+
+    t0 = time.perf_counter()
+    y_s, h_s, g_s = grads(rg.rglru)
+    y_l, h_l, g_l = grads(loop)
+    names = ("x", "h0", "w_a", "w_i", "lambda_p")
+    r = {"fp64_y": rel_l2(y_s, y_l), "fp64_h": rel_l2(h_s, h_l),
+         **{f"fp64_grad_{n}": rel_l2(a, b) for n, a, b in zip(names, g_s, g_l)}}
+    args32 = (x.float(), {k: v.float() for k, v in lp.items()}, h0.float())
+    with torch.no_grad():
+        y32, h32 = rg.rglru(*args32)
+        y32_l, h32_l = loop(*args32)
+    r.update(fp32_y=rel_l2(y32, y32_l), fp32_h=rel_l2(h32, h32_l))
+    vs64 = {"scan_y": rel_l2(y32, y_l), "scan_h": rel_l2(h32, h_l),
+            "loop_y": rel_l2(y32_l, y_l), "loop_h": rel_l2(h32_l, h_l)}
+    a, _ = rg._gates(x, lp)
+    log(f"[rglru] B 1 x {PREFILL_LEN} x {d} (weights at the {init_depth}-layer scale, a in "
+        f"[{float(a.min()):.2e}, {float(a.max()):.8f}]): scan vs step loop in fp64: "
+        + ", ".join(f"{k[5:]} {v:.2e}" for k, v in r.items() if k.startswith("fp64"))
+        + f" (tol {ALGO_TOL}); in fp32: y {r['fp32_y']:.2e}, h {r['fp32_h']:.2e} (tol 1e-5); "
+          "from the fp64 loop, the fp32 scan " + f"y {vs64['scan_y']:.2e} h "
+          f"{vs64['scan_h']:.2e}, the fp32 loop y {vs64['loop_y']:.2e} h {vs64['loop_h']:.2e}; "
+          f"{time.perf_counter() - t0:.1f}s")
+    r["fp32_from_fp64"] = vs64
+    bad = [k for k, v in r.items() if k != "fp32_from_fp64"
+           and v > (ALGO_TOL if k.startswith("fp64") else 1e-5)]
+    if bad:
+        raise AssertionError(f"rglru's scan disagrees with its step loop: {bad}: {r}")
+    return r
+
+
+def _hybrid_fp32_model():
+    """recurrentgemma-9b cut to HYBRID_LAYERS layers at full width, fp32, each
+    cut stack scaled to the 38-layer model's init (the comment at HYBRID_LAYERS)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.models import recurrentgemma as rg
+
+    full = get_config(HYBRID_ARCH)
+    cfg = dataclasses.replace(full, n_layers=HYBRID_LAYERS)
+    torch.cuda.empty_cache()
+    params = get_model(cfg).init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                                        dtype=torch.float32)
+    (_, nb, nr, nt), (_, nb_full, nr_full, nt_full) = rg._layout(cfg), rg._layout(full)
+    stacks = {"rec": (params["blocks"]["rec"], nr, nr_full),
+              "attn": (params["blocks"]["attn"], nb, nb_full),
+              "tail": (params["tail"], nt, nt_full)}
+    for tree, n, n_full in stacks.values():
+        for name, leaf in _named_leaves(tree):
+            if name not in ("conv_w", "lambda_p") and not name.endswith("norm.scale"):
+                leaf.mul_(math.sqrt(n / n_full))
+    return full, cfg, params
+
+
+def phase_hybrid(smi) -> dict:
+    """recurrentgemma-9b: the RG-LRU check at full width, bf16 prefill and serving at
+    full width and depth, then fp32 at HYBRID_LAYERS layers: decode against prefill
+    (a 128-token prompt, and past the 2048-token window) and training."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.models import get_model
+
+    cfg = get_config(HYBRID_ARCH)
+    model = get_model(cfg)
+    out = {"rglru": _rglru_checks(cfg.d_model, init_depth=24)}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = model.init_params(cfg, torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for _, p in _named_leaves(params))
+    weights = sum(p.numel() * p.element_size() for _, p in _named_leaves(params))
+    init_peak = torch.cuda.max_memory_allocated() - base - weights
+    log(f"[hybrid] {cfg.name}: {cfg.n_layers} layers ({cfg.n_layers // 3} x (rec, rec, attn) "
+        f"+ {cfg.n_layers % 3} rec), d_model {cfg.d_model}, d_ff {cfg.d_ff}, {cfg.n_heads} "
+        f"heads ({cfg.n_kv_heads} kv) of {cfg.kq_head_dim}, window {cfg.local_window}, vocab "
+        f"{cfg.vocab}: {n_params / 1e9:.3f}G params ({weights / 1e9:.2f} GB) drawn in "
+        f"{init_s:.1f}s, init peak {init_peak / 2**30:.2f} GiB above the weights")
+    out.update(n_params=n_params, weights_gb=weights / 1e9, init_peak_gib=init_peak / 2**30)
+    out.update(_family_prefill(cfg, params, "hybrid", smi))
+    out["serve"] = _family_serve(cfg, params, "hybrid", smi)
+    del params
+    torch.cuda.empty_cache()
+
+    full, cfg, params = _hybrid_fp32_model()
+    prompts = torch.from_numpy(make_batch(cfg, SERVE_PROMPT, SERVE_BATCH)["tokens"]).cuda()
+    out["decode_vs_prefill"] = _decode_vs_prefill(
+        cfg, params, prompts, dataclasses.replace(cfg, attn_chunk=HYBRID_OTHER_CHUNK),
+        f"chunked attention ({HYBRID_OTHER_CHUNK}) vs dense", "hybrid")
+    long = torch.from_numpy(make_batch(cfg, cfg.local_window + 64, 1)["tokens"]).cuda()
+    out["decode_vs_prefill_past_window"] = _decode_vs_prefill(
+        cfg, params, long, dataclasses.replace(cfg, attn_chunk=cfg.local_window + 64),
+        "dense vs chunked attention", "hybrid", order_gate=False)
+    out["train"] = _family_train(cfg, params, HYBRID_TRAIN_BATCH, "hybrid", smi)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2085,10 +2521,15 @@ def main() -> int:
     moe_train = phase_moe_train(moe_cfg, moe_params, smi)
     del moe_params
     moe_ep = phase_moe_ep(smi)
+    ssm = phase_ssm(smi)
+    hybrid = phase_hybrid(smi)
 
     paths = {"prefill": prefill, "train_steps": train, "train_driver": driver,
              "train_sync": sync_train["launches"], "prefill_moe": moe_serve["launches"],
              "train_moe": moe_train["launches"]}
+    for tag, fam in (("ssm", ssm), ("hybrid", hybrid)):
+        paths.update({f"prefill_{tag}": fam["launches"], f"serve_{tag}": fam["serve"]["launches"],
+                      f"train_{tag}": fam["train"]["launches"]})
 
     def by_path(key):
         return {path: counts[key] for path, counts in paths.items()}
@@ -2146,6 +2587,8 @@ def main() -> int:
     log(json.dumps({"sync": {"device": smi, **sync, "train": sync_train}}))
     log(json.dumps({"moe": {"device": smi, "arch": MOE_ARCH, "serve": moe_serve,
                             "fp32": moe_fp32, "train": moe_train, "ep": moe_ep}}))
+    log(json.dumps({"ssm": {"device": smi, "arch": SSM_ARCH, **ssm}}))
+    log(json.dumps({"hybrid": {"device": smi, "arch": HYBRID_ARCH, **hybrid}}))
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(smi)
     print(json.dumps({"ok": True, "device": {

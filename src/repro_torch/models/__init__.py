@@ -6,8 +6,16 @@ from repro_torch.configs.base import ArchConfig
 
 
 def get_model(cfg: ArchConfig):
-    """The model module of ``cfg``'s family; the dense and MoE families are ported."""
-    from repro_torch.models import transformer
+    """The model module of ``cfg``'s family, as ``repro.models.get_model`` picks it.
 
+    The dense, MoE, SSM (``mamba2``) and hybrid (``recurrentgemma``) families
+    are ported; the VLM and audio families raise ``NotImplementedError``.
+    """
+    from repro_torch.models import mamba2, recurrentgemma, transformer
+
+    if cfg.family == "ssm":
+        return mamba2
+    if cfg.family == "hybrid":
+        return recurrentgemma
     transformer._require_ported(cfg)
     return transformer

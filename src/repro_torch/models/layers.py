@@ -1,4 +1,4 @@
-"""Shared neural-network layers (dense subset of ``repro.models.layers``).
+"""Shared neural-network layers (the part of ``repro.models.layers`` the port uses).
 
 Conventions, as in the JAX package:
 * params are nested dicts of tensors; layer-stacked params carry a leading
@@ -53,6 +53,13 @@ def embed_init(gen: torch.Generator, shape, dtype=torch.bfloat16) -> torch.Tenso
     return (torch.randn(shape, generator=gen, device=gen.device) * 0.02).to(dtype)
 
 
+def wide(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in float32, or as it is if float64: where the JAX version computes in
+    float32, the port does too, and in float64 when given float64 (a precision
+    check's reference; the JAX package never sees float64)."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 # ---------------------------------------------------------------------------
 # norms
 # ---------------------------------------------------------------------------
@@ -85,6 +92,33 @@ def norm_params(d: int, norm_type: str, dtype=torch.float32, device=None):
         return {"scale": torch.zeros((d,), dtype=dtype, device=device)}
     return {"scale": torch.ones((d,), dtype=dtype, device=device),
             "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def stack_norm(cfg, n: int, device=None):
+    """``n`` copies of ``cfg``'s norm params, stacked on a leading layer axis."""
+    base = norm_params(cfg.d_model, cfg.norm_type, device=device)
+    return {k: a.expand((n,) + a.shape).clone() for k, a in base.items()}
+
+
+def unstack(tree, n: int) -> list[dict]:
+    """The ``n`` per-layer trees of a layer-stacked param tree.
+
+    Each stacked weight is unbound once, so under autograd its gradient is
+    one ``stack`` of the ``n`` slice gradients.  Indexing ``w[i]`` per layer
+    would instead allocate a zeroed full-size (L, ...) gradient for every
+    layer and sum them.
+    """
+    out: list[dict] = [{} for _ in range(n)]
+    for k, v in tree.items():
+        parts = unstack(v, n) if isinstance(v, dict) else torch.unbind(v, 0)
+        for i in range(n):
+            out[i][k] = parts[i]
+    return out
+
+
+def unembed(params) -> torch.Tensor:
+    """The (d, V) unembedding: ``params["unembed"]``, or the embedding's transpose when tied."""
+    return params["unembed"] if "unembed" in params else params["embed"].T
 
 
 # ---------------------------------------------------------------------------
@@ -237,3 +271,29 @@ def swiglu(x, w_gate, w_up, w_down):
 def gelu_mlp(x, w_up, b_up, w_down, b_down):
     h = F.gelu(x @ w_up + b_up, approximate="tanh")  # jax.nn.gelu's default
     return h @ w_down + b_down
+
+
+# ---------------------------------------------------------------------------
+# temporal conv (mamba2 / recurrentgemma)
+# ---------------------------------------------------------------------------
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor, state: torch.Tensor | None = None):
+    """Depthwise causal conv. x:(B,S,C), w:(W,C). Returns (y, new_state).
+
+    ``state`` holds the ``W-1`` input rows before ``x`` (zeros when None); the
+    new state is the last ``W-1`` rows of the padded input.  The taps are
+    summed in the JAX version's order, each product in the input dtype.
+    """
+    width = w.shape[0]
+    if state is None:
+        pad = torch.zeros((x.shape[0], width - 1, x.shape[2]), dtype=x.dtype, device=x.device)
+    else:
+        pad = state
+    xp = torch.cat([pad, x], dim=1)
+    s = x.shape[1]
+    y = xp[:, 0:s] * w[0]
+    for i in range(1, width):
+        y = y + xp[:, i:i + s] * w[i]
+    new_state = xp[:, -(width - 1):] if width > 1 else pad
+    return y.to(x.dtype), new_state

@@ -1,0 +1,203 @@
+"""Mamba-2 (SSD, state-space duality) language model: ``repro.models.mamba2`` in PyTorch.
+
+Chunked SSD as in the JAX version: a within-chunk quadratic term plus an
+inter-chunk linear state recurrence (a Python loop over the chunks where JAX
+runs ``lax.scan``).  Decode keeps a constant-size recurrent state (B, H, P, N)
+a layer.  The parameter layout is the JAX package's (per-layer weights
+stacked on a leading axis under ``params["layers"]``), so
+``repro_torch.testing.bridge`` moves weights one-to-one.  The family has no
+attention, so ``forward`` accepts ``use_kernel`` and ignores it, as the JAX
+``forward`` does through ``**_``.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+import torch.utils.checkpoint
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import layers as L
+
+
+def dims(cfg: ArchConfig):
+    d_inner = cfg.ssm_expand * cfg.d_model
+    n_heads = d_inner // cfg.ssm_head_dim
+    return d_inner, n_heads, cfg.ssm_head_dim, cfg.ssm_state
+
+
+def init_params(cfg: ArchConfig, gen: torch.Generator, dtype=torch.bfloat16):
+    """Random weights on ``gen.device`` with the JAX version's layout and scales."""
+    d = cfg.d_model
+    di, h, p, n = dims(cfg)
+    lshape = (cfg.n_layers,)
+    conv_ch = di + 2 * n  # conv over x, B, C
+    dev = gen.device
+    layer = {
+        "norm": L.stack_norm(cfg, cfg.n_layers, dev),
+        # in_proj: d -> [z(di), x(di), B(n), C(n), dt(h)]
+        "w_in": L.dense_init(gen, lshape + (d, 2 * di + 2 * n + h), dtype=dtype),
+        "conv_w": (torch.randn(lshape + (cfg.conv_width, conv_ch), generator=gen, device=dev)
+                   * 0.1).to(dtype),
+        "A_log": torch.log(torch.arange(1, h + 1, dtype=torch.float32, device=dev)
+                           ).expand(lshape + (h,)).clone(),
+        "D": torch.ones(lshape + (h,), dtype=torch.float32, device=dev),
+        "dt_bias": torch.zeros(lshape + (h,), dtype=torch.float32, device=dev),
+        "w_out": L.dense_init(gen, lshape + (di, d), dtype=dtype),
+    }
+    return {
+        "embed": L.embed_init(gen, (cfg.vocab, d), dtype=dtype),
+        "layers": layer,
+        "final_norm": L.norm_params(d, cfg.norm_type, device=dev),
+        "unembed": L.dense_init(gen, (d, cfg.vocab), dtype=dtype),
+    }
+
+
+def _segsum(x: torch.Tensor) -> torch.Tensor:
+    """Stable segment-sum: out[..., i, j] = sum_{k=j+1..i} x[..., k]; -inf above the diagonal."""
+    t = x.shape[-1]
+    c = torch.cumsum(x, dim=-1)
+    out = c[..., :, None] - c[..., None, :]
+    mask = torch.tril(torch.ones((t, t), dtype=torch.bool, device=x.device))
+    return torch.where(mask, out, -torch.inf)
+
+
+def ssd_chunked(x, dt, A, B, C, chunk: int, init_state=None):
+    """SSD scan. x:(b,s,h,p), dt:(b,s,h) (post-softplus), A:(h,) (negative),
+    B,C:(b,s,n).  Returns (y (b,s,h,p) in x's dtype, final_state (b,h,p,n) fp32).
+
+    Computed in float32 (float64 for float64 x).  The JAX version's four-operand einsum
+    ``bcln,bcsn,bchls,bcshp->bclhp`` runs as C·Bᵀ, times the decay matrix,
+    times x·dt, so no (b, c, h, l, s, p) intermediate is formed.
+    """
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    pad = (-s) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        B = F.pad(B, (0, 0, 0, pad))
+        C = F.pad(C, (0, 0, 0, pad))
+    sp = x.shape[1]
+    nc = sp // chunk
+    xr = L.wide(x.reshape(b, nc, chunk, h, p))
+    dtr = dt.reshape(b, nc, chunk, h).to(xr.dtype)
+    Br = B.reshape(b, nc, chunk, n).to(xr.dtype)
+    Cr = C.reshape(b, nc, chunk, n).to(xr.dtype)
+
+    dA = dtr * A.to(xr.dtype)  # (b,nc,q,h)  negative
+    dA_cs = torch.cumsum(dA, dim=2)  # (b,nc,q,h)
+
+    # 1) intra-chunk (quadratic) term
+    Lmat = torch.exp(_segsum(dA.movedim(-1, -2)))  # (b,nc,h,q,q)
+    xdt = xr * dtr[..., None]
+    scores = torch.einsum("bcln,bcsn->bcls", Cr, Br)  # (b,nc,q,q)
+    y_diag = torch.einsum("bchls,bcshp->bclhp", scores[:, :, None] * Lmat, xdt)
+
+    # 2) chunk states
+    decay_states = torch.exp(dA_cs[:, :, -1:, :] - dA_cs)  # (b,nc,q,h)
+    states = torch.einsum("bclhp,bcln->bchpn", (decay_states * dtr)[..., None] * xr, Br)
+
+    # 3) inter-chunk recurrence
+    chunk_decay = torch.exp(dA_cs[:, :, -1, :])  # (b,nc,h)
+    prev = (torch.zeros((b, h, p, n), dtype=xr.dtype, device=x.device)
+            if init_state is None else init_state.to(xr.dtype))
+    prevs = []
+    for c in range(nc):
+        prevs.append(prev)
+        prev = prev * chunk_decay[:, c, :, None, None] + states[:, c]
+    prev_states = torch.stack(prevs, dim=1)  # (b,nc,h,p,n)
+
+    # 4) off-chunk contribution
+    state_decay = torch.exp(dA_cs)  # (b,nc,q,h)
+    y_off = torch.einsum("bcln,bchpn->bclhp", Cr, prev_states) * state_decay[..., None]
+
+    y = (y_diag + y_off).reshape(b, sp, h, p)
+    if pad:
+        y = y[:, :s]
+    return y.to(x.dtype), prev
+
+
+def _mix(cfg: ArchConfig, lp, x, conv_state=None, ssm_state=None, single_step=False):
+    """One mamba2 mixing layer. Returns (y, new_conv_state, new_ssm_state)."""
+    b, s, d = x.shape
+    di, h, p, n = dims(cfg)
+    proj = x @ lp["w_in"]
+    z, xin, Bm, Cm, dt = torch.split(proj, [di, di, n, n, h], dim=-1)
+    conv_in = torch.cat([xin, Bm, Cm], dim=-1)
+    conv_out, new_conv = L.causal_conv1d(conv_in, lp["conv_w"], conv_state)
+    conv_out = F.silu(conv_out)
+    xc, Bc, Cc = torch.split(conv_out, [di, n, n], dim=-1)
+    dt = F.softplus(dt.float() + lp["dt_bias"])
+    A = -torch.exp(lp["A_log"])
+    xh = xc.reshape(b, s, h, p)
+    if single_step:
+        # recurrent step: state' = exp(dt*A) state + dt * B ⊗ x, in float32
+        dA = torch.exp(dt[:, 0] * A)  # (b,h)
+        upd = torch.einsum("bh,bn,bhp->bhpn", dt[:, 0], Bc[:, 0].float(), xh[:, 0].float())
+        new_state = ssm_state * dA[..., None, None] + upd
+        y = torch.einsum("bn,bhpn->bhp", Cc[:, 0].float(), new_state)[:, None]
+    else:
+        y, new_state = ssd_chunked(xh, dt, A, Bc, Cc, cfg.ssm_chunk, ssm_state)
+    y = y + lp["D"][None, None, :, None] * xh[:, :s]  # float32, as JAX promotes
+    y = y.reshape(b, s, di).to(x.dtype)
+    y = y * F.silu(z)
+    return y @ lp["w_out"], new_conv, new_state
+
+
+def forward(cfg: ArchConfig, params, tokens: torch.Tensor, remat: bool = True, **_):
+    """Full forward pass -> (logits, 0.0), tokens (B, S) integer.
+
+    With ``remat`` and autograd on, each layer runs under
+    ``torch.utils.checkpoint`` (the JAX version's ``jax.checkpoint``).  Other
+    keywords (``use_kernel``, ``positions``) are accepted and ignored.
+    """
+    x = params["embed"][tokens.long()]
+
+    def layer_fn(h, lp):
+        a = L.apply_norm(h, lp["norm"], cfg.norm_type)
+        y, _, _ = _mix(cfg, lp, a)
+        return h + y
+
+    checkpointed = remat and torch.is_grad_enabled()
+    for lp in L.unstack(params["layers"], cfg.n_layers):
+        if checkpointed:
+            x = torch.utils.checkpoint.checkpoint(layer_fn, x, lp, use_reentrant=False)
+        else:
+            x = layer_fn(x, lp)
+    x = L.apply_norm(x, params["final_norm"], cfg.norm_type)
+    logits = x @ params["unembed"]
+    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16, device=None):
+    """Constant-size state: conv tail + SSM state per layer (``max_len`` is not needed)."""
+    di, h, p, n = dims(cfg)
+    conv_ch = di + 2 * n
+    return {
+        "conv": torch.zeros((cfg.n_layers, batch, cfg.conv_width - 1, conv_ch), dtype=dtype,
+                            device=device),
+        "ssm": torch.zeros((cfg.n_layers, batch, h, p, n), dtype=torch.float32, device=device),
+        "len": 0,
+    }
+
+
+def decode_step(cfg: ArchConfig, params, cache, tokens, positions=None):
+    """One-token decode: tokens (B, 1) -> (logits (B,1,V), cache).
+
+    As ``transformer.decode_step``, the new states are written into the
+    cache passed in, which is the one returned, and ``cache["len"]`` is a
+    Python int.
+    """
+    x = params["embed"][tokens.long()]
+    for i, lp in enumerate(L.unstack(params["layers"], cfg.n_layers)):
+        a = L.apply_norm(x, lp["norm"], cfg.norm_type)
+        y, new_conv, new_ssm = _mix(cfg, lp, a, cache["conv"][i], cache["ssm"][i],
+                                    single_step=True)
+        cache["conv"][i].copy_(new_conv)
+        cache["ssm"][i].copy_(new_ssm)
+        x = x + y
+    x = L.apply_norm(x, params["final_norm"], cfg.norm_type)
+    logits = x @ params["unembed"]
+    cache["len"] += 1
+    return logits, cache

@@ -12,9 +12,10 @@ The MoE family replaces each layer's SwiGLU with ``models.moe`` under
 dtype) and returns the load-balancing loss averaged over the layers.  Its
 expert-parallel mode (``moe_mode="ep"``) needs a mesh in ``forward`` and
 raises until the port's shardings bring one (ROADMAP Queue A item 9);
-``moe.moe_apply_ep`` itself runs on a ``core.comm`` mesh.  The VLM (M-RoPE),
-audio (encoder-decoder), SSM and hybrid families raise
-``NotImplementedError`` until their ROADMAP items are ported.
+``moe.moe_apply_ep`` itself runs on a ``core.comm`` mesh.  The VLM (M-RoPE)
+and audio (encoder-decoder) families raise ``NotImplementedError`` until
+their ROADMAP item is ported; the SSM and hybrid families have modules of
+their own (``mamba2``, ``recurrentgemma``).
 """
 
 from __future__ import annotations
@@ -30,8 +31,6 @@ from repro_torch.models import moe as moe_lib
 _LATER = {
     "vlm": "ROADMAP Queue A, VLM and audio families",
     "audio": "ROADMAP Queue A, VLM and audio families",
-    "ssm": "ROADMAP Queue A, SSM",
-    "hybrid": "ROADMAP Queue A, Hybrid",
 }
 
 
@@ -94,8 +93,8 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, dtype=torch.bfloat16):
     _require_ported(cfg)
     d = cfg.d_model
     layer = {
-        "attn_norm": _stack_norm(cfg, cfg.n_layers, gen.device),
-        "mlp_norm": _stack_norm(cfg, cfg.n_layers, gen.device),
+        "attn_norm": L.stack_norm(cfg, cfg.n_layers, gen.device),
+        "mlp_norm": L.stack_norm(cfg, cfg.n_layers, gen.device),
         **_attn_params(gen, cfg, cfg.n_layers, dtype),
     }
     if cfg.family == "moe":
@@ -117,31 +116,6 @@ def _padded_vocab(cfg: ArchConfig) -> int:
         return cfg.vocab
     p = cfg.vocab_pad_to
     return (cfg.vocab + p - 1) // p * p
-
-
-def _stack_norm(cfg: ArchConfig, n: int, device=None):
-    base = L.norm_params(cfg.d_model, cfg.norm_type, device=device)
-    return {k: a.expand((n,) + a.shape).clone() for k, a in base.items()}
-
-
-def _unstack(tree, n: int) -> list[dict]:
-    """The ``n`` per-layer trees of a layer-stacked param tree.
-
-    Each stacked weight is unbound once, so under autograd its gradient is
-    one ``stack`` of the ``n`` slice gradients.  Indexing ``w[i]`` per layer
-    would instead allocate a zeroed full-size (L, ...) gradient for every
-    layer and sum them.
-    """
-    out: list[dict] = [{} for _ in range(n)]
-    for k, v in tree.items():
-        parts = _unstack(v, n) if isinstance(v, dict) else torch.unbind(v, 0)
-        for i in range(n):
-            out[i][k] = parts[i]
-    return out
-
-
-def _unembed(params):
-    return params["unembed"] if "unembed" in params else params["embed"].T
 
 
 # ---------------------------------------------------------------------------
@@ -237,7 +211,7 @@ def forward(
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     checkpointed = remat and torch.is_grad_enabled()
-    for lp in _unstack(params["layers"], cfg.n_layers):
+    for lp in L.unstack(params["layers"], cfg.n_layers):
         if checkpointed:
             x, aux = torch.utils.checkpoint.checkpoint(layer_fn, x, aux, lp,
                                                        use_reentrant=False)
@@ -247,7 +221,7 @@ def forward(
     aux = aux / cfg.n_layers
     if return_hidden:
         return x, aux
-    logits = x @ _unembed(params)
+    logits = x @ L.unembed(params)
     if logits.shape[-1] != cfg.vocab:  # padded vocab: mask the tail
         keep = torch.arange(logits.shape[-1], device=logits.device) < cfg.vocab
         logits = torch.where(keep, logits, torch.tensor(-1e30, dtype=logits.dtype,
@@ -292,7 +266,7 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, positions=None):
     if positions is None:
         positions = torch.full((b, 1), pos, dtype=torch.int32, device=tokens.device)
     x = params["embed"][tokens.long()]
-    for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
+    for i, lp in enumerate(L.unstack(params["layers"], cfg.n_layers)):
         a = L.apply_norm(x, lp["attn_norm"], cfg.norm_type)
         q = (a @ lp["wq"]).reshape(b, 1, h_, hd)
         k = (a @ lp["wk"]).reshape(b, 1, kv, hd)
@@ -310,7 +284,7 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, positions=None):
             y = _mlp_block(cfg, lp, m)
         x = x + y
     x = L.apply_norm(x, params["final_norm"], cfg.norm_type)
-    logits = x @ _unembed(params)
+    logits = x @ L.unembed(params)
     cache["len"] = pos + 1
     return logits, cache
 

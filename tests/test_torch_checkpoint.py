@@ -285,6 +285,17 @@ def test_train_cli_failure_remap_and_restore_on_cpu(capsys):
 
 @pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b-smoke", "dbrx-132b-smoke"])
 def test_train_cli_moe_failure_remap_and_restore_on_cpu(arch, capsys):
+    _check_failure_remap_and_restore(arch, capsys)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m-smoke", "recurrentgemma-9b-smoke"])
+def test_train_cli_ssm_and_hybrid_failure_remap_and_restore_on_cpu(arch, capsys):
+    _check_failure_remap_and_restore(arch, capsys)
+
+
+def _check_failure_remap_and_restore(arch, capsys):
+    """6 steps with a board failure at 3 and a restart from the checkpoint of step
+    2, then a second run that resumes from step 6 to 8."""
     with tempfile.TemporaryDirectory() as d:
         args = ["--arch", arch, "--batch", "2", "--seq", "16", "--checkpoint-dir", d,
                 "--checkpoint-every", "2", "--device", "cpu"]
@@ -343,8 +354,15 @@ def _example(name):
 @pytest.mark.parametrize("name,extra", [
     ("train_lm_torch", []),
     ("fault_tolerant_training_torch", ["--simulate-failure", "2", "--checkpoint-every", "1"]),
+    ("serve_decode_torch", ["--batch", "2", "--prompt-len", "4", "--decode", "3"]),
 ])
 def test_examples_twins_run_on_cpu(name, extra, capsys):
+    if name == "serve_decode_torch":  # the server: the SSM arch by default
+        _example(name).main(["--device", "cpu", *extra])
+        lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("[serve]")]
+        assert "arch=mamba2-130m-smoke batch=2 prefill 4 toks" in lines[0]
+        assert "decoded 3 toks/seq" in lines[0] and len(eval(lines[1].split(":", 1)[1])) == 3
+        return
     out = _example(name).main(["--steps", "3", "--batch", "2", "--seq", "16", "--device", "cpu",
                                *extra])
     assert out["step"] == 3 and np.isfinite(out["loss"])

@@ -20,8 +20,9 @@ from repro.models import transformer as JT  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data import pipeline as tpipe  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
+from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
-from repro_torch.models import get_model  # noqa: E402
+from repro_torch.models import get_model, mamba2, recurrentgemma  # noqa: E402
 from repro_torch.testing import bridge  # noqa: E402
 
 torch.set_num_threads(2)
@@ -54,6 +55,11 @@ def test_serve_cli_runs_on_cpu():
 
 @pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b-smoke", "dbrx-132b-smoke"])
 def test_serve_cli_runs_the_moe_family_on_cpu(arch):
+    _check_serve_cli(arch)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m-smoke", "recurrentgemma-9b-smoke"])
+def test_serve_cli_runs_the_ssm_and_hybrid_families_on_cpu(arch):
     _check_serve_cli(arch)
 
 
@@ -114,17 +120,34 @@ def test_entry_points_want_cuda_unless_told_cpu():
     for dev in (None, "cuda", "cuda:0"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             resolve_device(dev)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        serve.main(["--arch", "llama3.2-3b-smoke", "--decode", "1"])
+    for arch in ("llama3.2-3b-smoke", "mamba2-130m-smoke", "recurrentgemma-9b-smoke"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            serve.main(["--arch", arch, "--decode", "1"])
 
 
 @pytest.mark.parametrize("arch", ["dbrx-132b-smoke", "mamba2-130m-smoke",
                                   "recurrentgemma-9b-smoke", "qwen2-vl-7b-smoke",
                                   "whisper-tiny-smoke"])
-def test_unported_families_raise(arch):
+def test_unported_families_raise(arch, monkeypatch):
     """Each family the port lacks raises naming its ROADMAP item; of the moe family,
-    which is ported, the expert-parallel forward (``moe_mode="ep"``) does."""
+    which is ported, the expert-parallel forward (``moe_mode="ep"``) does.  The
+    ssm and hybrid families are ported now: ``get_model`` gives their modules,
+    and their ``forward`` ignores ``use_kernel`` as JAX's ``**_`` does, so the
+    flash op, made to raise here, is never called."""
     cfg = get_config(arch)
+    if cfg.family in ("ssm", "hybrid"):
+        model = get_model(cfg)
+        assert model is {"ssm": mamba2, "hybrid": recurrentgemma}[cfg.family]
+
+        def no_flash(*args, **kwargs):
+            raise AssertionError("the flash op was called")
+
+        monkeypatch.setattr(kops, "flash_attention", no_flash)
+        params = model.init_params(cfg, torch.Generator().manual_seed(0), torch.float32)
+        toks = torch.from_numpy(tpipe.make_batch(cfg, 24, 2)["tokens"])  # past the window
+        logits, _ = model.forward(cfg, params, toks, use_kernel=True)
+        assert logits.shape == (2, 24, cfg.vocab) and torch.isfinite(logits).all()
+        return
     if cfg.family != "moe":
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_model(cfg)

@@ -31,11 +31,13 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.configs.base import ArchConfig as JArchConfig  # noqa: E402
 from repro.data import pipeline as jpipe  # noqa: E402
+from repro.models import get_model as jget_model  # noqa: E402
 from repro.models import transformer as JT  # noqa: E402
 from repro.parallel.sharding import Policy  # noqa: E402
 from repro.train import optimizer as jopt  # noqa: E402
 from repro.train import steps as jsteps  # noqa: E402
 from repro_torch import tree as tree_lib  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import ArchConfig  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, SyntheticLM, make_batch  # noqa: E402
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
@@ -54,7 +56,7 @@ OCFG = dict(lr=1e-2, warmup_steps=5, total_steps=100)
 
 
 def _jax_params(cfg=JCFG):
-    return JT.init_params(cfg, jax.random.PRNGKey(0), dtype=jnp.float32)
+    return jget_model(cfg).init_params(cfg, jax.random.PRNGKey(0), dtype=jnp.float32)
 
 
 def _tbatch(seq=16, batch=4, step=0, cfg=CFG):
@@ -126,7 +128,28 @@ def test_train_step_matches_jax_moe(remat, use_kernel, ce_chunk, moe_mode):
     _check_train_step(cfg, remat, use_kernel, ce_chunk, 16)
 
 
-def _check_train_step(cfg, remat, use_kernel, ce_chunk, seq):
+@pytest.mark.parametrize("remat,use_kernel,ce_chunk", [
+    (False, False, 0),
+    (True, False, 0),
+    (True, True, 8),  # both options are read by neither family, as in JAX
+])
+@pytest.mark.parametrize("arch", ["mamba2-130m-smoke", "recurrentgemma-9b-smoke"])
+def test_train_step_matches_jax_ssm_and_hybrid(arch, remat, use_kernel, ce_chunk):
+    """One step of the SSM and hybrid families (16 tokens: two SSD chunks of 8; the
+    hybrid's window of 16): the loss, every gradient leaf (the fp32 A_log, D,
+    dt_bias and lambda_p included) and the updated params.
+
+    The hybrid's init (weights at scale 1/sqrt(L) for stacks of L = 1 or 2)
+    makes near-one-hot attention that amplifies fp32 rounding: each package's
+    gradients are 1e-5 to 9e-5 (relative L2 a leaf) from the port's in fp64,
+    and the two differ by up to 2e-4 in elements near a leaf's largest, inside
+    the gradients' tolerance (rtol 1e-4 plus 1e-4 of the leaf's largest).  The
+    second moment v = (1 - b2)·g² doubles that relative difference, so v is
+    held at rtol 2e-4 here."""
+    _check_train_step(get_config(arch), remat, use_kernel, ce_chunk, 16, v_rtol=2e-4)
+
+
+def _check_train_step(cfg, remat, use_kernel, ce_chunk, seq, v_rtol=1e-4):
     jcfg = JArchConfig(**dataclasses.asdict(cfg))
     jopts = jsteps.TrainOptions(remat=remat, use_kernel=use_kernel, ce_chunk=ce_chunk)
     topts = steps_lib.TrainOptions(remat=remat, use_kernel=use_kernel, ce_chunk=ce_chunk)
@@ -165,10 +188,10 @@ def _check_train_step(cfg, remat, use_kernel, ce_chunk, seq):
     _close(tm["grad_norm"], jm["grad_norm"])
     np.testing.assert_allclose(float(tm["lr"]), float(jm["lr"]), rtol=1e-6)
     assert int(tstate.step) == int(jstate.step) == 1 and tstate.step.dtype == torch.int32
-    for name in ("m", "v"):
+    for name, rtol in (("m", 1e-4), ("v", v_rtol)):
         for t, j in zip(tree_lib.leaves(getattr(tstate, name)),
                         jax.tree.leaves(getattr(jstate, name))):
-            _close(t, j)
+            _close(t, j, rtol)
     _assert_first_update_close(tnew, jnew, tstate, jstate, float(jm["lr"]),
                                jopt.AdamWConfig(**OCFG))
 
