@@ -7,7 +7,8 @@ with nvcc (sm_90a), holds each against its plain PyTorch version on the card,
 then serves and trains llama3.2-3b at full width with random weights from a
 seed, runs the paper's gradient sync over 16 ranks, serves and trains the
 MoE moonshot-v1-16b-a3b, the SSM mamba2-130m and the hybrid
-recurrentgemma-9b (the last two reach no kernel, in JAX or here):
+recurrentgemma-9b (the last two reach no kernel, in JAX or here), the VLM
+qwen2-vl-7b and the audio whisper-tiny:
 
 1. device and toolchain: card name and power limit, torch and nvcc versions;
 2. build, timed (one nvcc per source, all started together), with ptxas's
@@ -15,7 +16,7 @@ recurrentgemma-9b (the last two reach no kernel, in JAX or here):
    wgmma flash kernels (sm90, tf32), counted by ``cuobjdump`` for HGMMA
    (wgmma) and UTMALDG (TMA loads) instructions;
 3. flash attention against its plain version at every shape of the JAX
-   package's kernel tests and more (GQA groups 3 and 6, a ragged 1000, a
+   package's kernel tests and more (GQA groups 3, 6 and 7, a ragged 1000, a
    window at head_dim 128), fp32 and bf16, through every kernel that takes
    the case (``flash_attention.variant`` picks tf32 for fp32, sm90 for bf16
    at head_dim >= 16 and simt for bf16 at 8; simt takes every case too, for
@@ -23,9 +24,11 @@ recurrentgemma-9b (the last two reach no kernel, in JAX or here):
    split of K and V against its plain version, bit for bit; at the
    llama3.2-3b prefill shape the bf16 kernels are timed in turns (sm90,
    simt, SDPA) beside the plain version and the bound, with achieved
-   TFLOP/s, and again at head_dim 64 (the minicpm-2b widths); in fp32 the
-   same at the training shape (batch 2; tf32, simt, SDPA, three rounds) and
-   at the prefill shape (one round) of llama3.2-3b and of moonshot-v1-16b-a3b,
+   TFLOP/s, and again at head_dim 64 (the minicpm-2b widths) and at the
+   moonshot-v1-16b-a3b, qwen2-vl-7b and whisper-tiny prefill shapes; in fp32
+   the same at the training shape (batch 2; tf32, simt, SDPA, three rounds)
+   and at the prefill shape (one round) of llama3.2-3b, moonshot-v1-16b-a3b,
+   qwen2-vl-7b and whisper-tiny,
    each with the 3xTF32 bound and the CUDA-core bound; and at moonshot's
    training shape with q scaled to attention scores ~40 and ~450, each fp32
    kernel against the op in fp64, within the plain version's own error + TOL;
@@ -103,9 +106,31 @@ recurrentgemma-9b (the last two reach no kernel, in JAX or here):
    training (batch 2 x 2048, remat, 3 AdamW steps).  Both families take
    ``use_kernel=True`` and ignore it, as JAX's ``**_`` does: every flash and
    RMSNorm count on their paths must be 0;
-16. one JSON line on every kernel (launches by path, the MoE, SSM and
-   hybrid paths included), one each on the sync, MoE, SSM and hybrid
-   phases, the card's name and power limit, and last the JSON result line.
+16. qwen2-vl-7b (the VLM family: 28 layers, d_model 3584, GQA 28 / 4 heads of
+   128, a group of 7, d_ff 18944, vocab 152064, M-RoPE sections (16, 24,
+   24)) in bf16 at full width and depth: the prefill (batch 4 x 2048) through
+   the sm90 kernel, 28 launches a call, at ``make_batch``'s text positions
+   (one warm-up and three timed calls, profiled) and once at an image grid
+   whose t, h and w differ; the serving loop.  Then fp32 at 8 of its 28
+   layers with the 28-layer init's scale: the prefill through the tf32
+   kernel against the plain path at both positions, the decode loop against
+   the prefill, the training gate (loss and every gradient leaf against the
+   plain path beside the floor of two plain paths and against the flash op
+   in fp64) and 3 AdamW steps at 2 x 2048, 16 tf32 launches a step;
+17. whisper-tiny (the audio family: 4 encoder layers over 1500 frames from
+   ``make_batch``, 4 decoder layers with cross-attention, d_model 384, 6
+   heads of 64, vocab 51865, learned positions) at full width and depth: the
+   bf16 prefill (4 sm90 launches a call; the encoder and the cross-attention
+   plain, as in JAX) and the serving loop; in fp32 the prefill gate, the
+   decode loop against itself on fp64 weights (its cross-attention reads the
+   cache's zero xk/xv, as in JAX, so decode ignores the encoder and is not
+   held against the prefill), the training gate and 3 AdamW steps, 8 tf32
+   launches a step.  Decode reaches no kernel in either family (it runs
+   ``attention_decode``, as JAX does);
+18. one JSON line on every kernel (launches by path, the MoE, SSM, hybrid,
+   VLM and audio paths included), one each on the sync, MoE, SSM, hybrid,
+   VLM and audio phases, the card's name and power limit, and last the JSON
+   result line.
 
 Any failure raises and exits nonzero; without a CUDA device, or without the
 rest of the repository beside it, the script exits nonzero and prints no
@@ -168,20 +193,35 @@ CASES = [
     # "data" mesh (ring, bidir), B 1 on the 4x4 one (torus, hamiltonian)
     (4, 64, 64, 4, 2, 16, True, 0),
     (1, 64, 64, 4, 2, 16, True, 0),
+    # qwen2-vl-7b's GQA group of 7 (H 28, KV 4) at D 128 and 64, ragged; whisper-tiny's
+    # decoder heads (H 6, KV 6, D 64), ragged and at its training batch (B 2 x 2048)
+    (1, 256, 256, 7, 1, 128, True, 0),
+    (2, 200, 200, 14, 2, 64, True, 0),
+    (1, 300, 300, 6, 6, 64, True, 0),
+    (2, 2048, 2048, 6, 6, 64, True, 0),
 ]
-# the prefill shape of llama3.2-3b at head_dim 128, of minicpm-2b at 64, and of
-# moonshot-v1-16b-a3b (MHA, 16 heads of 128): (b, s, h, kv, d), causal
+# the prefill shape of llama3.2-3b at head_dim 128, of minicpm-2b at 64, of
+# moonshot-v1-16b-a3b (MHA, 16 heads of 128), of qwen2-vl-7b (GQA group 7) and of
+# whisper-tiny's decoder (6 heads of 64): (b, s, h, kv, d), causal
 PREFILL_SHAPES = {"d128": (4, 2048, 24, 8, 128), "d64": (4, 2048, 36, 36, 64),
-                  "moonshot": (4, 2048, 16, 16, 128)}
+                  "moonshot": (4, 2048, 16, 16, 128), "vlm": (4, 2048, 28, 4, 128),
+                  "audio": (4, 2048, 6, 6, 64)}
 PREFILL_BATCH, PREFILL_LEN = 4, 2048
 # the fp32 shapes, (tag, (b, s, h, kv, d), timing rounds), causal: the training
-# and prefill shapes of llama3.2-3b, then of moonshot-v1-16b-a3b
+# and prefill shapes of llama3.2-3b, then of moonshot-v1-16b-a3b, qwen2-vl-7b and
+# whisper-tiny
 FP32_SHAPES = [("train_fp32", (2, 2048, 24, 8, 128), 3),
                ("prefill_d128_fp32", (4, 2048, 24, 8, 128), 1),
                ("train_moe_fp32", (2, 2048, 16, 16, 128), 3),
-               ("prefill_moe_fp32", (4, 2048, 16, 16, 128), 1)]
-# q's scale in the large-score checks: mean row max scores ~40 and ~450
+               ("prefill_moe_fp32", (4, 2048, 16, 16, 128), 1),
+               ("train_vlm_fp32", (2, 2048, 28, 4, 128), 3),
+               ("prefill_vlm_fp32", (4, 2048, 28, 4, 128), 1),
+               ("train_audio_fp32", (2, 2048, 6, 6, 64), 3),
+               ("prefill_audio_fp32", (4, 2048, 6, 6, 64), 1)]
+# q's scale in the large-score checks (mean row max scores ~40 and ~450), at the
+# training shapes of moonshot-v1-16b-a3b and whisper-tiny
 LARGE_SCORE_Q_SCALES = (12.0, 143.0)
+LARGE_SCORE_SHAPES = ("train_moe_fp32", "train_audio_fp32")
 SERVE_BATCH, SERVE_PROMPT, SERVE_DECODE = 4, 128, 32
 # Relative L2 error of fp32 logits between two paths of the full model (the
 # prefill with and without the kernel; the decode loop and the prefill): both
@@ -466,17 +506,28 @@ def _time_flash(q, k, v, kernels, rounds=3) -> dict:
 
 
 def _large_score_checks(gen) -> dict:
-    """Each fp32 kernel at the moonshot training shape with q scaled so that the
+    """Each fp32 kernel at the moonshot training shape (D 128) and at whisper-tiny's
+    (D 64, whose reference init gives scores of ~100) with q scaled so that the
     scores reach those of the MoE fp32 phases' init (~40) and of a 4-layer stack
     drawn with fan-in 4 (~450).  There fp32 rounding of the scores alone moves
     the output by more than TOL, in the plain version too, so each kernel is held
     against the flash op in fp64: its max_abs_err within TOL of the plain fp32
     version's own.  The plain chunked attention (the model gates' floor) is
     reported beside them."""
+    out = {"tf32": {}, "simt": {}}
+    for tag in LARGE_SCORE_SHAPES:
+        shape = next(shape for t, shape, _ in FP32_SHAPES if t == tag)
+        for name, res in _large_score_check(gen, shape).items():
+            out[name][tag] = res
+    return out
+
+
+def _large_score_check(gen, shape) -> dict:
+    """The large-score checks of ``_large_score_checks`` at one (b, s, h, kv, d)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import layers
 
-    b, s, h, kv, d = next(shape for tag, shape, _ in FP32_SHAPES if tag == "train_moe_fp32")
+    b, s, h, kv, d = shape
     q0, k, v = _qkv(b, s, s, h, kv, d, torch.float32, gen)
     out = {"tf32": {}, "simt": {}}
     for scale in LARGE_SCORE_Q_SCALES:
@@ -685,13 +736,15 @@ def phase_rmsnorm_checks() -> dict:
     return {**results[torch.bfloat16], "fp32": results[torch.float32]}
 
 
-def _prefill(cfg, params, tokens, use_kernel: bool):
+def _prefill(cfg, params, tokens, use_kernel: bool, extras=None):
+    """The prefill step's last-position logits and its seconds; ``extras`` holds the
+    batch's other inputs (the VLM's positions, the audio family's frames)."""
     from repro_torch.train.steps import TrainOptions, make_prefill_step
 
     step = make_prefill_step(cfg, TrainOptions(use_kernel=use_kernel))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits = step(params, {"tokens": tokens})
+    logits = step(params, {"tokens": tokens, **(extras or {})})
     torch.cuda.synchronize()
     return logits, time.perf_counter() - t0
 
@@ -1717,18 +1770,13 @@ def _moe_fp32_model():
     """The fp32 phases' model: the full config, its MOE_LAYERS-layer cut, fp32
     weights with the scale of MOE_INIT_DEPTH's init, and that depth."""
     from repro_torch.configs import get_config
-    from repro_torch.models import get_model
 
     full = get_config(MOE_ARCH)
     cfg = dataclasses.replace(full, n_layers=MOE_LAYERS)
-    torch.cuda.empty_cache()
-    params = get_model(cfg).init_params(cfg, torch.Generator("cuda").manual_seed(0),
-                                        dtype=torch.float32)
+    params, _ = _load_model(cfg, "moe-e2e", torch.float32)
     # the init depth's scale on every leaf drawn with fan-in L (the layers' weights)
     init_depth = MOE_INIT_DEPTH or full.n_layers
-    for name, leaf in _named_leaves(params["layers"]):
-        if not name.endswith("norm.scale"):
-            leaf.mul_(math.sqrt(MOE_LAYERS / init_depth))
+    _rescale_stacks(params["layers"], MOE_LAYERS, init_depth)
     return full, cfg, params, init_depth
 
 
@@ -1873,84 +1921,20 @@ def phase_moe_train(cfg, params, smi) -> dict:
                              f"plain path's (floor {free_loss_floor:.3e})")
 
     # the gate: every path takes the plain path's routing, so the paths differ
-    # only continuously, and the floor of two plain paths bounds the kernel again.
-    # Beside it, the kernel's op computed in fp64 (the backward is the plain one in
-    # every path): the kernel's loss and gradients no further from that path's
-    # than the plain path's are
-    from unittest import mock
-
-    runs, host = {}, {}
-    for name, c, use_kernel in paths[:2] + (("fp64", cfg, True),) + paths[2:]:
-        with (_replayed_routing(logs["plain"]), _routing_log() as replayed,
-              mock.patch.object(fa, "launch", _attention_fp64) if name == "fp64"
-              else contextlib.nullcontext()):
-            runs[name] = _loss_and_grads(c, params, batch, use_kernel=use_kernel)
-        if _routing_agreement(replayed, logs["plain"])[1]:
+    # only continuously, and the floor of two plain paths bounds the kernel again
+    @contextlib.contextmanager
+    def replayed(name):
+        with _replayed_routing(logs["plain"]), _routing_log() as seen:
+            yield
+        if _routing_agreement(seen, logs["plain"])[1]:
             raise AssertionError(f"moe training: the {name} path's replayed routing differs")
-        runs[name]["norm"] = float(opt.global_norm(runs[name]["grads"]))
-        if name != "plain":
-            host[name] = {n: g.cpu() for n, g in _named_leaves(runs[name].pop("grads"))}
-            torch.cuda.empty_cache()
-    del logs
-    k, c, p, x = runs["kernel"], runs["chunked"], runs["plain"], runs["fp64"]
-    leaf_err, leaf_floor, plain_fp64, kernel_fp64, chunked_fp64 = {}, {}, {}, {}, {}
-    for n, g in _named_leaves(p.pop("grads")):
-        g64 = host["fp64"][n].cuda()
-        gk = host["kernel"][n].cuda()
-        leaf_err[n], kernel_fp64[n] = rel_l2(gk, g), rel_l2(gk, g64)
-        del gk
-        gc = host["chunked"][n].cuda()
-        leaf_floor[n], chunked_fp64[n] = rel_l2(gc, g), rel_l2(gc, g64)
-        del gc
-        plain_fp64[n] = rel_l2(g, g64)
-        del g64
-    del host
-    torch.cuda.empty_cache()
-    loss_err = abs(k["loss"] - p["loss"]) / abs(p["loss"])
-    loss_floor = abs(c["loss"] - p["loss"]) / abs(p["loss"])
-    norm_err = abs(k["norm"] - p["norm"]) / p["norm"]
-    norm_floor = abs(c["norm"] - p["norm"]) / p["norm"]
-    norm_fp64 = {n: abs(r["norm"] - x["norm"]) / x["norm"] for n, r in (("kernel", k),
-                                                                      ("plain", p))}
-    loss_fp64 = {n: abs(r["loss"] - x["loss"]) / abs(x["loss"]) for n, r in (("kernel", k),
-                                                                           ("plain", p))}
-    bad = [n for n in leaf_err if leaf_err[n] > max(GRAD_RTOL, leaf_floor[n])
-           or kernel_fp64[n] > max(GRAD_RTOL, plain_fp64[n])]
-    log(f"[moe-train] gate, the plain path's routing replayed in every path: loss kernel "
-        f"{k['loss']:.7f} plain {p['loss']:.7f} chunked {c['loss']:.7f} (kernel rel "
-        f"{loss_err:.2e}, floor {loss_floor:.2e}, tol max({LOSS_RTOL}, floor)); grad norm "
-        f"kernel {k['norm']:.6e} plain {p['norm']:.6e} (rel {norm_err:.2e}, floor "
-        f"{norm_floor:.2e}, tol max({GRAD_RTOL}, floor)); against the fp64 op (the kernel "
-        f"within max(tol, plain's)): loss kernel {loss_fp64['kernel']:.2e} plain "
-        f"{loss_fp64['plain']:.2e}, grad norm kernel {norm_fp64['kernel']:.2e} plain "
-        f"{norm_fp64['plain']:.2e}; flash launches {k['launches']}, "
-        f"{c['launches']}, {p['launches']}; {k['s']:.2f}s, {c['s']:.2f}s, {p['s']:.2f}s; peak "
-        f"{k['peak_gib']:.1f}, {c['peak_gib']:.1f}, {p['peak_gib']:.1f} GiB")
-    for n in leaf_err:
-        log(f"[moe-train] gate leaf {n:24s} rel_l2 kernel {leaf_err[n]:.2e} vs floor (chunked) "
-            f"{leaf_floor[n]:.2e}, tol max({GRAD_RTOL}, floor); against the fp64 op: kernel "
-            f"{kernel_fp64[n]:.2e}, plain {plain_fp64[n]:.2e} (tol max({GRAD_RTOL}, plain's)), "
-            f"chunked {chunked_fp64[n]:.2e}")
-    if k["launches"] != k["tf32"] or k["launches"] != 2 * cfg.n_layers or c["launches"] or \
-            p["launches"] or x["launches"]:
-        raise AssertionError(f"moe loss and gradient launched the flash kernel {k['launches']} "
-                             f"times ({k['tf32']} tf32) with it and {c['launches']}, "
-                             f"{p['launches']} without; want {2 * cfg.n_layers} tf32 and 0")
-    if bad or not (loss_err <= max(LOSS_RTOL, loss_floor) and norm_err <= max(
-            GRAD_RTOL, norm_floor) and loss_fp64["kernel"] <= max(LOSS_RTOL, loss_fp64["plain"])
-                   and norm_fp64["kernel"] <= max(GRAD_RTOL, norm_fp64["plain"])
-                   and math.isfinite(k["loss"]) and math.isfinite(k["norm"])):
-        raise AssertionError(f"moe training gate: the kernel's loss, gradient norm or "
-                             f"gradients {bad} disagree with the plain path's")
+
     gate = {"free_loss_rel": free_loss, "free_loss_floor": free_loss_floor,
             "free_norm_rel": free_norm, "free_norm_floor": free_norm_floor,
             "routing_agree": agree_k, "routing_pairs_differ": flips_k,
             "routing_agree_floor": agree_c, "routing_pairs_differ_floor": flips_c,
-            "loss_rel": loss_err, "loss_floor": loss_floor, "norm_rel": norm_err,
-            "norm_floor": norm_floor, "leaf_rel_l2": leaf_err, "leaf_floor": leaf_floor,
-            "loss_rel_fp64": loss_fp64, "norm_rel_fp64": norm_fp64,
-            "leaf_kernel_vs_fp64": kernel_fp64, "leaf_plain_vs_fp64": plain_fp64,
-            "leaf_chunked_vs_fp64": chunked_fp64}
+            **_train_gate(cfg, params, batch, "moe", around=replayed)}
+    del logs
 
     ocfg = opt.AdamWConfig(lr=3e-3, warmup_steps=1, total_steps=TRAIN_STEPS,
                            schedule=cfg.schedule)
@@ -2123,28 +2107,43 @@ def _first_call_args(module, name: str, run) -> tuple:
     return seen[0]
 
 
-def _no_launches(label: str) -> dict:
-    """The launch counts since the last reset, which must all be 0: neither family
-    reaches a kernel, in JAX or in the port (``use_kernel`` is ignored, as JAX's
-    ``**_`` ignores it)."""
+def _expect_launches(label: str, **by_variant) -> dict:
+    """The launch counts since the last reset, which must be ``by_variant``'s flash
+    launches (e.g. ``sm90=28``) and no other.  The SSM and hybrid families reach
+    no kernel, in JAX or in the port (``use_kernel`` is ignored, as JAX's ``**_``
+    ignores it); no model calls RMSNorm."""
+    from repro_torch.kernels import flash_attention as fa
+
     counts = _counts()
-    if any(counts.values()):
-        raise AssertionError(f"{label} launched {counts}; the family reaches no kernel")
+    want = {"flash_attention_fwd": sum(by_variant.values()), "rmsnorm": 0,
+            **{f"flash_attention_fwd_{v}": by_variant.get(v, 0) for v in fa.SOURCES}}
+    if counts != want:
+        raise AssertionError(f"{label} launched {counts}, want {want}")
     return counts
 
 
-def _family_prefill(cfg, params, tag: str, smi) -> dict:
+def _batch_extras(batch: dict) -> dict:
+    """The batch's model inputs beside the tokens, on the card."""
+    from repro_torch.train.steps import model_extras
+    return {k: torch.from_numpy(v).cuda() for k, v in model_extras(batch).items()}
+
+
+def _family_prefill(cfg, params, tag: str, smi, sm90: int = 0, extras=None) -> dict:
     """bf16 prefill at batch 4 x 2048 through ``make_prefill_step(use_kernel=True)``:
-    one warm-up call, three timed (their median), the peak, one profiled call."""
+    one warm-up call, three timed (their median), the peak, one profiled call; each
+    call launches the sm90 kernel ``sm90`` times and nothing else.  ``extras``
+    replaces the batch's positions or frames."""
     from repro_torch.data.pipeline import make_batch
 
-    tokens = torch.from_numpy(make_batch(cfg, PREFILL_LEN, PREFILL_BATCH)["tokens"]).cuda()
+    batch = make_batch(cfg, PREFILL_LEN, PREFILL_BATCH)
+    tokens = torch.from_numpy(batch["tokens"]).cuda()
+    extras = extras or _batch_extras(batch)
     torch.cuda.reset_peak_memory_stats()
     secs = []
     for _ in range(4):
         _reset_counts()
-        logits, t = _prefill(cfg, params, tokens, use_kernel=True)
-        launches = _no_launches(f"{cfg.name} prefill")
+        logits, t = _prefill(cfg, params, tokens, use_kernel=True, extras=extras)
+        launches = _expect_launches(f"{cfg.name} prefill", sm90=sm90)
         if logits.shape != (PREFILL_BATCH, 1, cfg.vocab) or not torch.isfinite(logits).all():
             raise AssertionError(f"{cfg.name} prefill logits {tuple(logits.shape)} not finite "
                                  "or misshapen")
@@ -2156,7 +2155,8 @@ def _family_prefill(cfg, params, tag: str, smi) -> dict:
         f"median of 3 after a warm-up ({ntok / median:.0f} tok/s; calls "
         f"{[round(x, 3) for x in secs]} s), launches a call {launches}, peak "
         f"{peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB) [{smi}]")
-    _profile(f"one {cfg.name} bf16 prefill", lambda: _prefill(cfg, params, tokens, True))
+    _profile(f"one {cfg.name} bf16 prefill",
+             lambda: _prefill(cfg, params, tokens, True, extras=extras))
     return {"prefill_s": median, "prefill_calls_s": secs, "prefill_peak_gib": peak / 2**30,
             "prefill_tok_s": ntok / median, "launches": launches}
 
@@ -2169,7 +2169,7 @@ def _family_serve(cfg, params, tag: str, smi) -> dict:
     prompts = torch.from_numpy(make_batch(cfg, SERVE_PROMPT, SERVE_BATCH)["tokens"]).cuda()
     _reset_counts()
     res = serve(cfg, params, prompts, SERVE_DECODE)
-    launches = _no_launches(f"{cfg.name} serve")
+    launches = _expect_launches(f"{cfg.name} serve")
     toks = res["tokens"]
     if toks.shape != (SERVE_BATCH, SERVE_DECODE) or not ((toks >= 0) & (toks < cfg.vocab)).all():
         raise AssertionError(f"{cfg.name} serve returned bad tokens {tuple(toks.shape)}")
@@ -2225,10 +2225,12 @@ def _decode_vs_prefill(cfg, params, prompts, other_cfg, other_label: str, tag: s
     return r
 
 
-def _family_train(cfg, params, batch_size: int, tag: str, smi) -> dict:
+def _family_train(cfg, params, batch_size: int, tag: str, smi, tf32: int = 0) -> dict:
     """fp32 training at batch_size x 2048 with remat: 3 timed AdamW steps through
-    ``make_train_step`` (``use_kernel=True``, which the family ignores), then one
-    profiled step."""
+    ``make_train_step`` (``use_kernel=True``), each launching the tf32 kernel
+    ``tf32`` times and nothing else (the SSM and hybrid families ignore
+    ``use_kernel``), then one profiled step."""
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.data.pipeline import make_batch
     from repro_torch.train import optimizer as opt
     from repro_torch.train import steps as st
@@ -2244,20 +2246,26 @@ def _family_train(cfg, params, batch_size: int, tag: str, smi) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
-    secs, losses = [], []
+    secs, losses, per_step = [], [], []
     for s in range(TRAIN_STEPS):
+        before = fa.launches
         t0 = time.perf_counter()
         params, ostate, m = step_fn(params, ostate, batches[s])
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
+        per_step.append(fa.launches - before)
         loss, gnorm = float(m["loss"]), float(m["grad_norm"])
         losses.append(loss)
         log(f"[{tag}-train] step {s + 1}: loss {loss:.6f} grad_norm {gnorm:.6e} "
-            f"{secs[-1]:.3f}s ({batch_size * TRAIN_LEN / secs[-1]:.0f} tok/s)")
+            f"{secs[-1]:.3f}s ({batch_size * TRAIN_LEN / secs[-1]:.0f} tok/s), flash "
+            f"launches {per_step[-1]}")
         if not (math.isfinite(loss) and math.isfinite(gnorm)):
             raise AssertionError(f"{cfg.name} training step {s + 1}: loss {loss}, "
                                  f"grad norm {gnorm}")
-    launches = _no_launches(f"{cfg.name} training")
+    launches = _expect_launches(f"{cfg.name} training", tf32=TRAIN_STEPS * tf32)
+    if per_step != [tf32] * TRAIN_STEPS:
+        raise AssertionError(f"{cfg.name} training launched {per_step} flash kernels a step, "
+                             f"want {tf32}")
     peak = torch.cuda.max_memory_allocated()
     steady = sorted(secs[1:])[len(secs[1:]) // 2]
     log(f"[{tag}-train] {cfg.name} at {cfg.n_layers} layers, fp32, {n_params / 1e9:.3f}G "
@@ -2330,20 +2338,16 @@ def phase_ssm(smi) -> dict:
     from repro_torch.models import get_model, mamba2
 
     cfg = get_config(SSM_ARCH)
-    model = get_model(cfg)
-    torch.cuda.empty_cache()
-    params32 = model.init_params(cfg, torch.Generator("cuda").manual_seed(0), torch.float32)
+    desc = (f"{cfg.n_layers} layers, d_model {cfg.d_model}, {mamba2.dims(cfg)[1]} heads of "
+            f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, chunk {cfg.ssm_chunk}, vocab {cfg.vocab}")
+    params32, _ = _load_model(cfg, "ssm", torch.float32, desc)
     tokens = torch.from_numpy(make_batch(cfg, PREFILL_LEN, 1)["tokens"]).cuda()
     x, dt, A, B, C, chunk, _ = _first_call_args(
-        mamba2, "ssd_chunked", lambda: model.forward(cfg, params32, tokens, remat=False))
+        mamba2, "ssd_chunked", lambda: get_model(cfg).forward(cfg, params32, tokens, remat=False))
     out = {"ssd": _ssd_checks(x, dt, A, B, C, chunk)}
     del x, dt, A, B, C
 
-    params = model.init_params(cfg, torch.Generator("cuda").manual_seed(0))
-    n_params = sum(p.numel() for _, p in _named_leaves(params))
-    log(f"[ssm] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{mamba2.dims(cfg)[1]} heads of {cfg.ssm_head_dim}, state {cfg.ssm_state}, chunk "
-        f"{cfg.ssm_chunk}, vocab {cfg.vocab}: {n_params / 1e6:.1f}M params")
+    params, _ = _load_model(cfg, "ssm", desc=desc)
     out.update(_family_prefill(cfg, params, "ssm", smi))
     out["serve"] = _family_serve(cfg, params, "ssm", smi)
     del params
@@ -2421,26 +2425,27 @@ def _rglru_checks(d: int, init_depth: int) -> dict:
     return r
 
 
+def _hybrid_desc(cfg) -> str:
+    return (f"{cfg.n_layers} layers ({cfg.n_layers // 3} x (rec, rec, attn) + "
+            f"{cfg.n_layers % 3} rec), d_model {cfg.d_model}, d_ff {cfg.d_ff}, {cfg.n_heads} "
+            f"heads ({cfg.n_kv_heads} kv) of {cfg.kq_head_dim}, window {cfg.local_window}, "
+            f"vocab {cfg.vocab}")
+
+
 def _hybrid_fp32_model():
     """recurrentgemma-9b cut to HYBRID_LAYERS layers at full width, fp32, each
     cut stack scaled to the 38-layer model's init (the comment at HYBRID_LAYERS)."""
     from repro_torch.configs import get_config
-    from repro_torch.models import get_model
     from repro_torch.models import recurrentgemma as rg
 
     full = get_config(HYBRID_ARCH)
     cfg = dataclasses.replace(full, n_layers=HYBRID_LAYERS)
-    torch.cuda.empty_cache()
-    params = get_model(cfg).init_params(cfg, torch.Generator("cuda").manual_seed(0),
-                                        dtype=torch.float32)
+    params, _ = _load_model(cfg, "hybrid", torch.float32, _hybrid_desc(cfg))
     (_, nb, nr, nt), (_, nb_full, nr_full, nt_full) = rg._layout(cfg), rg._layout(full)
-    stacks = {"rec": (params["blocks"]["rec"], nr, nr_full),
-              "attn": (params["blocks"]["attn"], nb, nb_full),
-              "tail": (params["tail"], nt, nt_full)}
-    for tree, n, n_full in stacks.values():
-        for name, leaf in _named_leaves(tree):
-            if name not in ("conv_w", "lambda_p") and not name.endswith("norm.scale"):
-                leaf.mul_(math.sqrt(n / n_full))
+    for tree, n, n_full in ((params["blocks"]["rec"], nr, nr_full),
+                            (params["blocks"]["attn"], nb, nb_full),
+                            (params["tail"], nt, nt_full)):
+        _rescale_stacks(tree, n, n_full, skip=("conv_w", "lambda_p"))
     return full, cfg, params
 
 
@@ -2450,27 +2455,11 @@ def phase_hybrid(smi) -> dict:
     (a 128-token prompt, and past the 2048-token window) and training."""
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import make_batch
-    from repro_torch.models import get_model
 
     cfg = get_config(HYBRID_ARCH)
-    model = get_model(cfg)
     out = {"rglru": _rglru_checks(cfg.d_model, init_depth=24)}
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    t0 = time.perf_counter()
-    params = model.init_params(cfg, torch.Generator("cuda").manual_seed(0))
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    n_params = sum(p.numel() for _, p in _named_leaves(params))
-    weights = sum(p.numel() * p.element_size() for _, p in _named_leaves(params))
-    init_peak = torch.cuda.max_memory_allocated() - base - weights
-    log(f"[hybrid] {cfg.name}: {cfg.n_layers} layers ({cfg.n_layers // 3} x (rec, rec, attn) "
-        f"+ {cfg.n_layers % 3} rec), d_model {cfg.d_model}, d_ff {cfg.d_ff}, {cfg.n_heads} "
-        f"heads ({cfg.n_kv_heads} kv) of {cfg.kq_head_dim}, window {cfg.local_window}, vocab "
-        f"{cfg.vocab}: {n_params / 1e9:.3f}G params ({weights / 1e9:.2f} GB) drawn in "
-        f"{init_s:.1f}s, init peak {init_peak / 2**30:.2f} GiB above the weights")
-    out.update(n_params=n_params, weights_gb=weights / 1e9, init_peak_gib=init_peak / 2**30)
+    params, sizes = _load_model(cfg, "hybrid", desc=_hybrid_desc(cfg))
+    out.update(sizes)
     out.update(_family_prefill(cfg, params, "hybrid", smi))
     out["serve"] = _family_serve(cfg, params, "hybrid", smi)
     del params
@@ -2486,6 +2475,320 @@ def phase_hybrid(smi) -> dict:
         cfg, params, long, dataclasses.replace(cfg, attn_chunk=cfg.local_window + 64),
         "dense vs chunked attention", "hybrid", order_gate=False)
     out["train"] = _family_train(cfg, params, HYBRID_TRAIN_BATCH, "hybrid", smi)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+# qwen2-vl-7b (the VLM family: M-RoPE over (t, h, w) positions, GQA 28 / 4 heads of
+# 128) and whisper-tiny (the audio family: an encoder over 1500 frames and a decoder
+# with cross-attention).  Both reach the flash kernel in the decoder's
+# self-attention only, as in JAX.  qwen2-vl-7b's fp32 phases run VLM_LAYERS of its
+# 28 layers: 2.95G params, ~47 GB of training state (28 layers: ~122 GB);
+# dense_init draws a stack of L at 1/sqrt(L), so the cut stacks are scaled by
+# sqrt(VLM_LAYERS / 28) to the 28-layer init.  whisper-tiny runs whole.
+VLM_ARCH, AUDIO_ARCH = "qwen2-vl-7b", "whisper-tiny"
+VLM_LAYERS = 8
+VLM_OTHER_CHUNK = 32  # the VLM's decode floor: chunked attention at 128 tokens vs dense
+# the image-like positions: text runs of IMAGE_TEXT tokens between images of
+# IMAGE_GRID (frames, rows, columns) patches
+IMAGE_TEXT, IMAGE_GRID = 64, (2, 16, 24)
+
+
+def _image_positions(b: int, s: int) -> torch.Tensor:
+    """(3, B, S) M-RoPE positions, Qwen2-VL's way, of text runs and images in turn:
+    text carries t == h == w counting on; an image's patches carry t constant over
+    a frame and h, w walking its grid from the image's first position; the text
+    after an image counts on from the largest position before it."""
+    rows, nxt, n = [], 0, 0
+    while n < s:
+        text = nxt + torch.arange(IMAGE_TEXT)
+        grid = torch.stack(torch.meshgrid(*(torch.arange(g) for g in IMAGE_GRID),
+                                          indexing="ij")).reshape(3, -1)
+        image = text[-1] + 1 + grid
+        rows += [text.expand(3, -1), image]
+        nxt, n = int(image.max()) + 1, n + IMAGE_TEXT + image.shape[1]
+    pos = torch.cat(rows, 1)[:, :s]
+    return pos[:, None].expand(3, b, s).to(torch.int32).contiguous().cuda()
+
+
+def _prefill_gate(cfg, params, tokens, extras, tag: str) -> dict:
+    """fp32 prefill through the tf32 kernel (one launch a layer) against the plain
+    path: the last position's logits within max(FP32_TOL, floor), the floor being
+    the plain chunked path (FLOOR_CHUNK) against plain dense."""
+
+    def run(c, use_kernel):  # the last position's logits, not a view of all
+        logits, secs = _prefill(c, params, tokens, use_kernel, extras=extras)
+        return logits.clone(), secs
+
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    with_k, t_k = run(cfg, True)
+    launches = _expect_launches(f"{cfg.name} fp32 prefill", tf32=cfg.n_layers)
+    plain, t_p = run(cfg, False)
+    chunked, _ = run(dataclasses.replace(cfg, attn_chunk=FLOOR_CHUNK), False)
+    err, floor = rel_l2(with_k, plain), rel_l2(chunked, plain)
+    log(f"[{tag}] {cfg.name} at {cfg.n_layers} layers, fp32, batch {tokens.shape[0]} x "
+        f"{tokens.shape[1]}: kernel vs plain logits rel_l2 {err:.3e} (tol max({FP32_TOL}, "
+        f"floor)), floor (plain chunked {FLOOR_CHUNK} vs plain dense) {floor:.3e}, max_abs_err "
+        f"{float((with_k - plain).abs().max()):.3e} on max|logit| "
+        f"{float(plain.abs().max()):.3e}, same argmax "
+        f"{bool((with_k.argmax(-1) == plain.argmax(-1)).all())}; {t_k:.3f}s with kernel, "
+        f"{t_p:.3f}s plain; launches {launches}; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if not (err <= max(FP32_TOL, floor) and torch.isfinite(with_k).all()):
+        raise AssertionError(f"{cfg.name} fp32 prefill with kernel disagrees with plain: "
+                             f"rel_l2 {err:.3e}, floor {floor:.3e}")
+    return {"rel_l2": err, "floor": floor, "kernel_s": t_k, "plain_s": t_p,
+            "launches": launches}
+
+
+def _train_gate(cfg, params, batch, tag: str, around=None) -> dict:
+    """fp32 loss and gradients (remat) through the kernel against the plain path:
+    the loss, the gradient norm and each leaf within max(tol, floor), the floor
+    being the plain chunked path's distance from plain dense; and the loss, the
+    gradient norm, each leaf and the whole gradient (its relative L2 distance) no
+    further from a run with the flash op in fp64 than the plain path is (within
+    max(tol, plain's)).  ``around(name)``, where given, is the context each path
+    runs in (the MoE gate's replayed routing).  The kernel launches twice a layer
+    (forward and remat recompute), all tf32."""
+    from unittest import mock
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.train import optimizer as opt
+
+    runs, host = {}, {}
+    for name, c, use_kernel in (("kernel", cfg, True),
+                                ("chunked", dataclasses.replace(cfg, attn_chunk=FLOOR_CHUNK),
+                                 False),
+                                ("fp64", cfg, True),
+                                ("plain", cfg, False)):
+        with (around(name) if around else contextlib.nullcontext(),
+              mock.patch.object(fa, "launch", _attention_fp64) if name == "fp64"
+              else contextlib.nullcontext()):
+            runs[name] = _loss_and_grads(c, params, batch, use_kernel=use_kernel)
+        runs[name]["norm"] = float(opt.global_norm(runs[name]["grads"]))
+        if name != "plain":  # keep on the host, free the card
+            host[name] = {n: g.cpu() for n, g in _named_leaves(runs[name].pop("grads"))}
+            torch.cuda.empty_cache()
+    k, c, p, x = runs["kernel"], runs["chunked"], runs["plain"], runs["fp64"]
+    leaf_err, leaf_floor, kernel_fp64, plain_fp64, chunked_fp64 = {}, {}, {}, {}, {}
+    sq = dict.fromkeys(("kernel", "plain", "fp64"), 0.0)  # squared distances from fp64, |g64|²
+    for n, g in _named_leaves(p.pop("grads")):
+        g64, gk = host["fp64"][n].cuda().double(), host["kernel"][n].cuda()
+        gc = host["chunked"][n].cuda()
+        leaf_err[n], kernel_fp64[n] = rel_l2(gk, g), rel_l2(gk, g64)
+        leaf_floor[n], chunked_fp64[n] = rel_l2(gc, g), rel_l2(gc, g64)
+        plain_fp64[n] = rel_l2(g, g64)
+        sq["kernel"] += float(torch.sum((gk.double() - g64) ** 2))
+        sq["plain"] += float(torch.sum((g.double() - g64) ** 2))
+        sq["fp64"] += float(torch.sum(g64 ** 2))
+        del g64, gk, gc
+    del host
+    torch.cuda.empty_cache()
+    rel = {name: {"loss": abs(r["loss"] - ref["loss"]) / abs(ref["loss"]),
+                  "norm": abs(r["norm"] - ref["norm"]) / ref["norm"]}
+           for name, r, ref in (("kernel", k, p), ("floor", c, p), ("kernel_fp64", k, x),
+                                ("plain_fp64", p, x))}
+    for name in ("kernel", "plain"):
+        rel[f"{name}_fp64"]["grad_rel_l2"] = math.sqrt(sq[name] / sq["fp64"])
+    bad = [n for n in leaf_err if not (leaf_err[n] <= max(GRAD_RTOL, leaf_floor[n])
+                                       and kernel_fp64[n] <= max(GRAD_RTOL, plain_fp64[n]))]
+    log(f"[{tag}-train] gate {cfg.name} at {cfg.n_layers} layers, fp32, batch "
+        f"{batch['tokens'].shape[0]} x {batch['tokens'].shape[1]}, remat: loss kernel "
+        f"{k['loss']:.7f} plain {p['loss']:.7f} chunked {c['loss']:.7f} fp64 op "
+        f"{x['loss']:.7f} (kernel rel {rel['kernel']['loss']:.2e}, floor "
+        f"{rel['floor']['loss']:.2e}, tol max({LOSS_RTOL}, floor)); grad norm kernel "
+        f"{k['norm']:.6e} plain {p['norm']:.6e} (rel {rel['kernel']['norm']:.2e}, floor "
+        f"{rel['floor']['norm']:.2e}, tol max({GRAD_RTOL}, floor)); against the fp64 op, "
+        f"the kernel within max(tol, plain's): loss kernel {rel['kernel_fp64']['loss']:.2e} "
+        f"plain {rel['plain_fp64']['loss']:.2e}, norm kernel {rel['kernel_fp64']['norm']:.2e} "
+        f"plain {rel['plain_fp64']['norm']:.2e}, gradient rel_l2 kernel "
+        f"{rel['kernel_fp64']['grad_rel_l2']:.2e} plain {rel['plain_fp64']['grad_rel_l2']:.2e}; "
+        f"flash launches {k['launches']}, {c['launches']}, {x['launches']}, {p['launches']}; "
+        f"{k['s']:.2f}s, {c['s']:.2f}s, {p['s']:.2f}s; peak {k['peak_gib']:.1f}, "
+        f"{c['peak_gib']:.1f}, {p['peak_gib']:.1f} GiB")
+    for n in leaf_err:
+        log(f"[{tag}-train] gate leaf {n:28s} rel_l2 kernel {leaf_err[n]:.2e} vs floor "
+            f"(chunked) {leaf_floor[n]:.2e}, tol max({GRAD_RTOL}, floor); against the fp64 "
+            f"op: kernel {kernel_fp64[n]:.2e}, plain {plain_fp64[n]:.2e} (tol max({GRAD_RTOL}, "
+            f"plain's)), chunked {chunked_fp64[n]:.2e}")
+    if k["launches"] != k["tf32"] or k["launches"] != 2 * cfg.n_layers or c["launches"] or \
+            p["launches"] or x["launches"]:
+        raise AssertionError(f"{cfg.name} loss and gradient launched the flash kernel "
+                             f"{k['launches']} times ({k['tf32']} tf32) with it and "
+                             f"{c['launches']}, {p['launches']} without; want "
+                             f"{2 * cfg.n_layers} tf32 and 0")
+    fp64_ok = all(rel["kernel_fp64"][m] <= max(tol, rel["plain_fp64"][m]) for m, tol in (
+        ("loss", LOSS_RTOL), ("norm", GRAD_RTOL), ("grad_rel_l2", GRAD_RTOL)))
+    if bad or not (rel["kernel"]["loss"] <= max(LOSS_RTOL, rel["floor"]["loss"])
+                   and rel["kernel"]["norm"] <= max(GRAD_RTOL, rel["floor"]["norm"])
+                   and fp64_ok and math.isfinite(k["loss"]) and math.isfinite(k["norm"])):
+        raise AssertionError(f"{cfg.name} training gate: the kernel's loss, gradient norm or "
+                             f"gradients {bad} disagree with the plain path's")
+    return {"rel": rel, "leaf_rel_l2": leaf_err, "leaf_floor": leaf_floor,
+            "leaf_kernel_vs_fp64": kernel_fp64, "leaf_plain_vs_fp64": plain_fp64,
+            "leaf_chunked_vs_fp64": chunked_fp64, "launches": k["launches"]}
+
+
+def _load_model(cfg, tag: str, dtype=torch.bfloat16, desc: str | None = None):
+    """``cfg``'s weights drawn on the card, with a line on their size and the init's
+    peak; ``desc`` describes the architecture where the attention's shape does not."""
+    from repro_torch.models import get_model
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = get_model(cfg).init_params(cfg, torch.Generator("cuda").manual_seed(0), dtype)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for _, p in _named_leaves(params))
+    weights = sum(p.numel() * p.element_size() for _, p in _named_leaves(params))
+    init_peak = torch.cuda.max_memory_allocated() - base - weights
+    desc = desc or (f"{cfg.n_layers} layers" + (
+        f" (+ {cfg.enc_layers} encoder layers over {cfg.enc_seq} frames)" if cfg.enc_layers
+        else "") + f", d_model {cfg.d_model}, {cfg.n_heads} heads ({cfg.n_kv_heads} kv) of "
+        f"{cfg.kq_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}")
+    log(f"[{tag}] {cfg.name} {str(dtype).removeprefix('torch.')}: {desc}: "
+        f"{n_params / 1e9:.3f}G params ({weights / 1e9:.2f} GB) drawn in {init_s:.1f}s, init "
+        f"peak {init_peak / 2**30:.2f} GiB above the weights")
+    return params, {"n_params": n_params, "weights_gb": weights / 1e9,
+                    "init_peak_gib": init_peak / 2**30}
+
+
+def _rescale_stacks(tree, n: int, full: int | None, skip=()) -> None:
+    """Scale in place each weight of a stack of ``n`` layers, which ``dense_init``
+    draws at 1/sqrt(n), to 1/sqrt(``full``): the init of the same stack at ``full``
+    layers; or, where ``full`` is None, to 1/sqrt(the weight's own input width,
+    shape[-2]), an init whose attention scores are of order 1.  Norm scales and the
+    leaves named in ``skip`` keep their values (zero biases and norm biases, whose
+    shape[-2] is n, keep theirs too)."""
+    for name, leaf in _named_leaves(tree):
+        if name not in skip and not name.endswith("norm.scale"):
+            leaf.mul_(math.sqrt(n / (full or leaf.shape[-2])))
+
+
+def _vlm_fp32_model():
+    """qwen2-vl-7b cut to VLM_LAYERS layers at full width, fp32, each stack scaled
+    to the 28-layer init (the comment at VLM_LAYERS)."""
+    from repro_torch.configs import get_config
+
+    full = get_config(VLM_ARCH)
+    cfg = dataclasses.replace(full, n_layers=VLM_LAYERS)
+    params, _ = _load_model(cfg, "vlm", torch.float32)
+    _rescale_stacks(params["layers"], VLM_LAYERS, full.n_layers)
+    return cfg, params
+
+
+def phase_vlm(smi) -> dict:
+    """qwen2-vl-7b: bf16 prefill at full width and depth through the sm90 kernel (28
+    launches a call) at the text positions and at an image grid, the serving loop;
+    then fp32 at VLM_LAYERS layers: kernel-vs-plain prefill at both positions,
+    decode vs prefill, the training gate and 3 AdamW steps (16 tf32 launches a step)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_batch
+
+    cfg = get_config(VLM_ARCH)
+    params, out = _load_model(cfg, "vlm")
+    out.update(_family_prefill(cfg, params, "vlm", smi, sm90=cfg.n_layers))
+    batch = make_batch(cfg, PREFILL_LEN, PREFILL_BATCH)
+    tokens, text = torch.from_numpy(batch["tokens"]).cuda(), _batch_extras(batch)
+    grid = {"positions": _image_positions(PREFILL_BATCH, PREFILL_LEN)}
+    _reset_counts()
+    image, t_image = _prefill(cfg, params, tokens, True, extras=grid)
+    launches = _expect_launches(f"{cfg.name} prefill at the image grid", sm90=cfg.n_layers)
+    plain_text = _prefill(cfg, params, tokens, True, extras=text)[0]
+    pos = grid["positions"][:, 0]
+    moved = rel_l2(image.float(), plain_text.float())
+    log(f"[vlm-prefill] at an image grid ({IMAGE_TEXT}-token text runs between images of "
+        f"{IMAGE_GRID} patches; t == h in {float((pos[0] == pos[1]).float().mean()):.2f}, "
+        f"h == w in {float((pos[1] == pos[2]).float().mean()):.2f} of the positions, largest "
+        f"{int(pos.max())}): {t_image:.3f}s, launches {launches}; last-position logits "
+        f"{moved:.3e} (rel_l2) from the text positions'")
+    if not (torch.isfinite(image).all() and moved > 0):
+        raise AssertionError(f"{cfg.name} prefill at the image grid: logits not finite, or "
+                             "equal to the text positions'")
+    out["image"] = {"prefill_s": t_image, "rel_l2_vs_text": moved, "launches": launches}
+    out["serve"] = _family_serve(cfg, params, "vlm", smi)
+    del params, image, plain_text
+    torch.cuda.empty_cache()
+
+    cfg, params = _vlm_fp32_model()
+    out["fp32_layers"] = cfg.n_layers
+    out["prefill_gate"] = {name: _prefill_gate(cfg, params, tokens, extras, f"vlm-e2e {name}")
+                           for name, extras in (("text", text), ("image", grid))}
+    prompts = torch.from_numpy(make_batch(cfg, SERVE_PROMPT, SERVE_BATCH)["tokens"]).cuda()
+    out["decode_vs_prefill"] = _decode_vs_prefill(
+        cfg, params, prompts, dataclasses.replace(cfg, attn_chunk=VLM_OTHER_CHUNK),
+        f"chunked attention ({VLM_OTHER_CHUNK}) vs dense", "vlm")
+    train_batch = {k: torch.from_numpy(v).cuda()
+                   for k, v in make_batch(cfg, TRAIN_LEN, TRAIN_BATCH).items()}
+    out["train_gate"] = _train_gate(cfg, params, train_batch, "vlm")
+    del train_batch
+    out["train"] = _family_train(cfg, params, TRAIN_BATCH, "vlm", smi, tf32=2 * cfg.n_layers)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _decode_vs_fp64(cfg, params, prompts, tag: str) -> dict:
+    """fp32: the decode loop's logits at the last prompt step against the same loop
+    on fp64 weights, within FP32_TOL."""
+    from repro_torch import tree as tree_lib
+
+    dec = _decode_prompt(cfg, params, prompts)
+    params64 = tree_lib.tree_map(lambda t: t.double(), params)
+    dec64 = _decode_prompt(cfg, params64, prompts)
+    del params64
+    err = rel_l2(dec, dec64)
+    log(f"[{tag}] {cfg.name} fp32 decode loop vs the same on fp64 weights, logits at the last "
+        f"of {prompts.shape[1]} prompt steps (batch {prompts.shape[0]}): rel_l2 {err:.3e} "
+        f"(tol {FP32_TOL}), argmax agreement "
+        f"{float((dec.argmax(-1) == dec64.argmax(-1)).float().mean()):.2f}")
+    if not (err <= FP32_TOL and torch.isfinite(dec).all()):
+        raise AssertionError(f"{cfg.name}: the fp32 decode loop is {err:.3e} from fp64")
+    return {"rel_l2": err, "steps": prompts.shape[1]}
+
+
+def phase_audio(smi) -> dict:
+    """whisper-tiny at full width and depth: bf16 prefill through the sm90 kernel
+    (4 launches a call; the encoder and the cross-attention plain), the serving
+    loop; fp32 kernel-vs-plain prefill, the decode loop against itself on fp64
+    weights, the training gate and 3 AdamW steps (8 tf32 launches a step).  The
+    decode loop's cross-attention reads the zero xk/xv of the cache, as in JAX, so
+    it ignores the encoder and has no relation to the prefill to gate.
+
+    The reference init draws each 4-layer stack at 1/sqrt(4): attention scores
+    of ~100, near-one-hot softmax, and fp32 paths 0.2-1.3 (relative L2) apart,
+    so gates of max(tol, floor) would pass a kernel that far off.  The three fp32
+    gates run on a copy of the weights scaled to 1/sqrt(input width)
+    (``_rescale_stacks``), where the floor is small; the timed steps run on the
+    reference init."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_batch
+
+    cfg = get_config(AUDIO_ARCH)
+    params, out = _load_model(cfg, "audio")
+    out.update(_family_prefill(cfg, params, "audio", smi, sm90=cfg.n_layers))
+    out["serve"] = _family_serve(cfg, params, "audio", smi)
+    del params
+    params, _ = _load_model(cfg, "audio", torch.float32)
+    well = tree_lib.tree_map(torch.clone, params)
+    _rescale_stacks(well["layers"], cfg.n_layers, None)
+    _rescale_stacks(well["encoder"]["layers"], cfg.enc_layers, None)
+    log("[audio-e2e] the fp32 gates below run on the weights scaled to 1/sqrt(input width)")
+    batch = make_batch(cfg, PREFILL_LEN, PREFILL_BATCH)
+    out["prefill_gate"] = _prefill_gate(cfg, well, torch.from_numpy(batch["tokens"]).cuda(),
+                                        _batch_extras(batch), "audio-e2e")
+    prompts = torch.from_numpy(make_batch(cfg, SERVE_PROMPT, SERVE_BATCH)["tokens"]).cuda()
+    out["decode_vs_fp64"] = _decode_vs_fp64(cfg, well, prompts, "audio-e2e")
+    train_batch = {k: torch.from_numpy(v).cuda()
+                   for k, v in make_batch(cfg, TRAIN_LEN, TRAIN_BATCH).items()}
+    out["train_gate"] = _train_gate(cfg, well, train_batch, "audio")
+    del train_batch, well
+    out["train"] = _family_train(cfg, params, TRAIN_BATCH, "audio", smi, tf32=2 * cfg.n_layers)
     del params
     torch.cuda.empty_cache()
     return out
@@ -2523,11 +2826,13 @@ def main() -> int:
     moe_ep = phase_moe_ep(smi)
     ssm = phase_ssm(smi)
     hybrid = phase_hybrid(smi)
+    vlm = phase_vlm(smi)
+    audio = phase_audio(smi)
 
     paths = {"prefill": prefill, "train_steps": train, "train_driver": driver,
              "train_sync": sync_train["launches"], "prefill_moe": moe_serve["launches"],
              "train_moe": moe_train["launches"]}
-    for tag, fam in (("ssm", ssm), ("hybrid", hybrid)):
+    for tag, fam in (("ssm", ssm), ("hybrid", hybrid), ("vlm", vlm), ("audio", audio)):
         paths.update({f"prefill_{tag}": fam["launches"], f"serve_{tag}": fam["serve"]["launches"],
                       f"train_{tag}": fam["train"]["launches"]})
 
@@ -2589,6 +2894,8 @@ def main() -> int:
                             "fp32": moe_fp32, "train": moe_train, "ep": moe_ep}}))
     log(json.dumps({"ssm": {"device": smi, "arch": SSM_ARCH, **ssm}}))
     log(json.dumps({"hybrid": {"device": smi, "arch": HYBRID_ARCH, **hybrid}}))
+    log(json.dumps({"vlm": {"device": smi, "arch": VLM_ARCH, **vlm}}))
+    log(json.dumps({"audio": {"device": smi, "arch": AUDIO_ARCH, **audio}}))
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(smi)
     print(json.dumps({"ok": True, "device": {

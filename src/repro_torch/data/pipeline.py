@@ -2,7 +2,9 @@
 
 Batches come from NumPy's generator seeded with (seed, step), exactly as in
 the JAX package, so both packages see bit-identical prompts.  Tensors are
-made from them by the caller, on the device it chose.
+made from them by the caller, on the device it chose.  The audio family's
+encoder frames are the JAX package's bfloat16 values, held in float32
+arrays (``bf16_round``).
 """
 
 from __future__ import annotations
@@ -51,9 +53,24 @@ class SyntheticLM:
             step += 1
 
 
+def bf16_round(x: np.ndarray) -> np.ndarray:
+    """float32 ``x`` rounded to the nearest bfloat16 (ties to even), as float32.
+
+    ``astype(ml_dtypes.bfloat16)`` rounds so; NumPy has no bfloat16, so the
+    low 16 bits of each finite value are rounded away here.
+    """
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    bits = (bits + np.uint32(0x7FFF) + ((bits >> 16) & np.uint32(1))) & np.uint32(0xFFFF0000)
+    return bits.view(np.float32)
+
+
 def make_batch(cfg: ArchConfig, seq_len: int, global_batch: int, step: int = 0,
                seed: int = 0):
-    """One batch with all model-specific extras (positions)."""
+    """One batch with all model-specific extras (positions / frames).
+
+    The frames are float32 arrays of bfloat16 values, where the JAX package
+    returns bfloat16 ones; the model casts them to its dtype either way.
+    """
     data = SyntheticLM(DataConfig(cfg.vocab, seq_len, global_batch, seed)).batch(step)
     if cfg.rope_type == "mrope":
         pos = np.broadcast_to(
@@ -61,8 +78,7 @@ def make_batch(cfg: ArchConfig, seq_len: int, global_batch: int, step: int = 0,
         ).copy()
         data["positions"] = pos
     if cfg.enc_layers:
-        raise NotImplementedError(
-            "encoder frames for the audio family come with the audio slice "
-            "(ROADMAP Queue A, VLM and audio families)"
-        )
+        rng = np.random.default_rng([seed, step, 7])
+        data["encoder_frames"] = bf16_round(rng.standard_normal(
+            (global_batch, cfg.enc_seq, cfg.d_model), dtype=np.float32))
     return data

@@ -8,8 +8,9 @@ from repro_torch.configs.base import ArchConfig
 def get_model(cfg: ArchConfig):
     """The model module of ``cfg``'s family, as ``repro.models.get_model`` picks it.
 
-    The dense, MoE, SSM (``mamba2``) and hybrid (``recurrentgemma``) families
-    are ported; the VLM and audio families raise ``NotImplementedError``.
+    Every family is ported: the SSM (``mamba2``) and hybrid
+    (``recurrentgemma``) families have modules of their own; the dense, MoE,
+    VLM and audio families share ``transformer``.
     """
     from repro_torch.models import mamba2, recurrentgemma, transformer
 
@@ -17,5 +18,4 @@ def get_model(cfg: ArchConfig):
         return mamba2
     if cfg.family == "hybrid":
         return recurrentgemma
-    transformer._require_ported(cfg)
     return transformer

@@ -143,6 +143,28 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10_000.0
     return out.to(x.dtype)
 
 
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, sections, theta: float = 10_000.0):
+    """Qwen2-VL multimodal RoPE: x (B, S, H, D), positions (3, B, S) for (t, h, w).
+
+    Frequency band k rotates by ``positions[sec[k]]``, where ``sec`` repeats
+    0, 1 and 2 by ``sections`` (which sum to D/2).  Text tokens carry
+    t == h == w, where this is ``apply_rope``.  The JAX version also computes
+    a ``take_along_axis`` of the positions whose result it never uses; it is
+    left out here.
+    """
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)  # (d/2,)
+    sec = torch.repeat_interleave(torch.arange(3, device=x.device),
+                                  torch.tensor(sections, device=x.device))  # (d/2,)
+    pos_bands = positions[sec]  # (d/2, B, S)
+    angles = pos_bands.permute(1, 2, 0).float() * freqs  # (B,S,d/2)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # attention
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Decoder-only transformer LM: the dense and MoE families of ``repro.models.transformer``.
+"""Transformer LMs: the dense, MoE, VLM and audio families of ``repro.models.transformer``.
 
 The parameter layout is the JAX package's: a nested dict with the per-layer
 weights stacked on a leading L axis (``params["layers"]["wq"]`` is
@@ -12,10 +12,12 @@ The MoE family replaces each layer's SwiGLU with ``models.moe`` under
 dtype) and returns the load-balancing loss averaged over the layers.  Its
 expert-parallel mode (``moe_mode="ep"``) needs a mesh in ``forward`` and
 raises until the port's shardings bring one (ROADMAP Queue A item 9);
-``moe.moe_apply_ep`` itself runs on a ``core.comm`` mesh.  The VLM (M-RoPE)
-and audio (encoder-decoder) families raise ``NotImplementedError`` until
-their ROADMAP item is ported; the SSM and hybrid families have modules of
-their own (``mamba2``, ``recurrentgemma``).
+``moe.moe_apply_ep`` itself runs on a ``core.comm`` mesh.  The VLM family
+(qwen2-vl) rotates by M-RoPE over (3, B, S) positions.  The audio family
+(whisper) is an encoder-decoder: learned positions, an encoder over
+precomputed frames (B, enc_seq, d), and a cross-attention in every decoder
+layer whose decode cache ``xk``/``xv`` is zeros, as in JAX.  The SSM and
+hybrid families have modules of their own (``mamba2``, ``recurrentgemma``).
 """
 
 from __future__ import annotations
@@ -27,18 +29,6 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
-
-_LATER = {
-    "vlm": "ROADMAP Queue A, VLM and audio families",
-    "audio": "ROADMAP Queue A, VLM and audio families",
-}
-
-
-def _require_ported(cfg: ArchConfig) -> None:
-    if cfg.family in _LATER:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet ({_LATER[cfg.family]})")
-
 
 # ---------------------------------------------------------------------------
 # parameter init
@@ -90,7 +80,6 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, dtype=torch.bfloat16):
     The layout and scales are the JAX package's; the numbers are not, since a
     torch.Generator and a jax.random key give different draws from one seed.
     """
-    _require_ported(cfg)
     d = cfg.d_model
     layer = {
         "attn_norm": L.stack_norm(cfg, cfg.n_layers, gen.device),
@@ -108,6 +97,22 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, dtype=torch.bfloat16):
     }
     if not cfg.tie_embeddings:
         params["unembed"] = L.dense_init(gen, (d, _padded_vocab(cfg)), dtype=dtype)
+    if cfg.rope_type == "learned":
+        params["pos_embed"] = L.embed_init(gen, (cfg.max_pos, d), dtype=dtype)
+    if cfg.enc_layers:
+        params["encoder"] = {
+            "layers": {
+                "attn_norm": L.stack_norm(cfg, cfg.enc_layers, gen.device),
+                "mlp_norm": L.stack_norm(cfg, cfg.enc_layers, gen.device),
+                **_attn_params(gen, cfg, cfg.enc_layers, dtype),
+                **_mlp_params(gen, cfg, cfg.enc_layers, dtype),
+            },
+            "final_norm": L.norm_params(d, cfg.norm_type, device=gen.device),
+            "pos_embed": L.embed_init(gen, (cfg.enc_seq, d), dtype=dtype),
+        }
+        layer["xattn_norm"] = L.stack_norm(cfg, cfg.n_layers, gen.device)
+        layer.update({f"x{k}": v for k, v in _attn_params(gen, cfg, cfg.n_layers,
+                                                          dtype).items()})
     return params
 
 
@@ -134,18 +139,27 @@ def _apply_pos(cfg, q, k, positions):
             L.apply_rope(q, positions, cfg.rope_theta),
             L.apply_rope(k, positions, cfg.rope_theta),
         )
+    if cfg.rope_type == "mrope":
+        return (
+            L.apply_mrope(q, positions, cfg.mrope_sections, cfg.rope_theta),
+            L.apply_mrope(k, positions, cfg.mrope_sections, cfg.rope_theta),
+        )
     return q, k
 
 
-def _attn_block(cfg: ArchConfig, p, x, positions, causal, window, use_kernel=False):
-    """p holds per-layer (unstacked) attention params."""
+def _attn_block(cfg: ArchConfig, p, x, positions, causal, window, kv_seq=None,
+                use_kernel=False):
+    """p holds per-layer (unstacked) attention params.  With ``kv_seq`` (the
+    encoder's output) k and v come from it and nothing is rotated."""
     b, s, d = x.shape
     hd = cfg.kq_head_dim
     h, kv = cfg.n_heads, cfg.n_kv_heads
+    src = x if kv_seq is None else kv_seq
     q = (x @ p["wq"]).reshape(b, s, h, hd)
-    k = (x @ p["wk"]).reshape(b, s, kv, hd)
-    v = (x @ p["wv"]).reshape(b, s, kv, hd)
-    q, k = _apply_pos(cfg, q, k, positions)
+    k = (src @ p["wk"]).reshape(b, src.shape[1], kv, hd)
+    v = (src @ p["wv"]).reshape(b, src.shape[1], kv, hd)
+    if kv_seq is None:
+        q, k = _apply_pos(cfg, q, k, positions)
     o = L.attention(
         q, k, v, causal=causal, window=window,
         chunk_threshold=cfg.attn_chunk * 2, chunk=cfg.attn_chunk,
@@ -177,30 +191,50 @@ def forward(
     params,
     tokens: torch.Tensor,
     positions: torch.Tensor | None = None,
+    encoder_frames: torch.Tensor | None = None,
     remat: bool = True,
     use_kernel: bool = False,
     return_hidden: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Full forward pass -> (logits, moe_aux_loss), tokens (B, S) integer.
 
-    With ``remat`` and autograd on, each layer runs under
-    ``torch.utils.checkpoint`` (the counterpart of ``jax.checkpoint`` around
-    the JAX layer): only its inputs are kept, and the backward pass runs the
-    layer again.  Without autograd (serving) it has no effect.  Each layer
-    carries (h, aux), as the JAX scan does; the MoE loss comes back averaged
-    over the layers (zero for the dense family).  With ``return_hidden`` the
-    final-norm hidden states (B, S, d) come back in place of the logits, for
-    the chunked cross-entropy.
+    For the VLM family (M-RoPE) ``positions`` is (3, B, S); for the audio
+    family ``encoder_frames`` (B, enc_seq, d), the output of the (stubbed)
+    conv frontend, is required.  With ``remat`` and autograd on, each layer
+    (the encoder's too) runs under ``torch.utils.checkpoint`` (the
+    counterpart of ``jax.checkpoint`` around the JAX layer): only its inputs
+    are kept, and the backward pass runs the layer again.  Without autograd
+    (serving) it has no effect.  Each layer carries (h, aux), as the JAX scan
+    does; the MoE loss comes back averaged over the layers (zero for the
+    other families).  With ``return_hidden`` the final-norm hidden states
+    (B, S, d) come back in place of the logits, for the chunked
+    cross-entropy.  ``use_kernel`` takes the flash op in the decoder's
+    self-attention only: the encoder and the cross-attention stay plain, as
+    in JAX.
     """
-    _require_ported(cfg)
     if positions is None:
         positions = _positions_default(tokens)
+        if cfg.rope_type == "mrope":
+            positions = positions.expand(3, *positions.shape)
     x = params["embed"][tokens.long()]
+    if cfg.rope_type == "learned":
+        x = x + params["pos_embed"][: x.shape[1]][None]
+    checkpointed = remat and torch.is_grad_enabled()
 
-    def layer_fn(h, aux, lp):
+    enc_out = None
+    if cfg.enc_layers:
+        if encoder_frames is None:
+            raise ValueError(f"{cfg.name}: the audio family needs encoder frames")
+        enc_out = _encoder_forward(cfg, params["encoder"], encoder_frames, checkpointed)
+
+    def layer_fn(h, aux, lp, enc):
         a = L.apply_norm(h, lp["attn_norm"], cfg.norm_type)
         h = h + _attn_block(cfg, lp, a, positions, causal=True, window=0,
                             use_kernel=use_kernel)
+        if enc is not None:
+            xa = L.apply_norm(h, lp["xattn_norm"], cfg.norm_type)
+            xp = {k[1:]: v for k, v in lp.items() if k.startswith("x") and k != "xattn_norm"}
+            h = h + _attn_block(cfg, xp, xa, positions, causal=False, window=0, kv_seq=enc)
         m = L.apply_norm(h, lp["mlp_norm"], cfg.norm_type)
         if cfg.family == "moe":
             y, a_loss = _moe_block(cfg, lp["moe"], m)
@@ -210,13 +244,12 @@ def forward(
         return h + y, aux
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    checkpointed = remat and torch.is_grad_enabled()
     for lp in L.unstack(params["layers"], cfg.n_layers):
         if checkpointed:
-            x, aux = torch.utils.checkpoint.checkpoint(layer_fn, x, aux, lp,
+            x, aux = torch.utils.checkpoint.checkpoint(layer_fn, x, aux, lp, enc_out,
                                                        use_reentrant=False)
         else:
-            x, aux = layer_fn(x, aux, lp)
+            x, aux = layer_fn(x, aux, lp, enc_out)
     x = L.apply_norm(x, params["final_norm"], cfg.norm_type)
     aux = aux / cfg.n_layers
     if return_hidden:
@@ -229,6 +262,27 @@ def forward(
     return logits, aux
 
 
+def _encoder_forward(cfg: ArchConfig, enc, frames, checkpointed: bool):
+    """The audio encoder: frames in ``pos_embed``'s dtype plus the learned
+    positions, then ``enc_layers`` of non-causal self-attention (plain, never
+    the kernel, as in JAX) and a gelu MLP, then the final norm."""
+    x = frames.to(enc["pos_embed"].dtype) + enc["pos_embed"][: frames.shape[1]][None]
+    pos = _positions_default(frames[..., 0])
+
+    def layer_fn(h, lp):
+        a = L.apply_norm(h, lp["attn_norm"], cfg.norm_type)
+        h = h + _attn_block(cfg, lp, a, pos, causal=False, window=0)
+        m = L.apply_norm(h, lp["mlp_norm"], cfg.norm_type)
+        return h + _mlp_block(cfg, lp, m)
+
+    for lp in L.unstack(enc["layers"], cfg.enc_layers):
+        if checkpointed:
+            x = torch.utils.checkpoint.checkpoint(layer_fn, x, lp, use_reentrant=False)
+        else:
+            x = layer_fn(x, lp)
+    return L.apply_norm(x, enc["final_norm"], cfg.norm_type)
+
+
 # ---------------------------------------------------------------------------
 # KV-cache serving path
 # ---------------------------------------------------------------------------
@@ -236,14 +290,21 @@ def forward(
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                device=None):
-    _require_ported(cfg)
+    """Zero K/V caches (L, B, max_len, KV, hd) and ``len`` 0; for the audio
+    family also the cross-attention's ``xk``/``xv`` (L, B, enc_seq, KV, hd),
+    which stay zero, as in JAX (``decode_step``)."""
     hd = cfg.kq_head_dim
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, hd)
-    return {
+    cache = {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
         "len": 0,
     }
+    if cfg.enc_layers:
+        xshape = (cfg.n_layers, batch, cfg.enc_seq, cfg.n_kv_heads, hd)
+        cache["xk"] = torch.zeros(xshape, dtype=dtype, device=device)
+        cache["xv"] = torch.zeros(xshape, dtype=dtype, device=device)
+    return cache
 
 
 def decode_step(cfg: ArchConfig, params, cache, tokens, positions=None):
@@ -254,18 +315,28 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, positions=None):
     ``cache["len"]``, a Python int, so a step needs no copy of the cache and
     no host sync.  The cache passed in is the one returned.  Past the cache's
     end the step writes its last slot, as ``lax.dynamic_update_slice`` clamps
-    its index, while ``len`` and the RoPE position go on counting.  The MoE
-    family runs ``moe.moe_apply`` whatever ``moe_mode``, as in JAX.
+    its index, while ``len`` and the RoPE position go on counting; the
+    learned position clamps to ``max_pos - 1`` the same way
+    (``lax.dynamic_slice_in_dim``).  The MoE family runs ``moe.moe_apply``
+    whatever ``moe_mode``, as in JAX.  Only the VLM family passes
+    ``local_window`` to the decode attention, as in JAX.
+
+    The audio family's cross-attention reads ``cache["xk"]``/``cache["xv"]``,
+    which nothing fills (neither here nor in JAX): its softmax over zero
+    scores averages zero values, so each layer adds ``0 @ xwo``.
     """
-    _require_ported(cfg)
     b = tokens.shape[0]
     hd = cfg.kq_head_dim
     h_, kv = cfg.n_heads, cfg.n_kv_heads
     pos = cache["len"]
     slot = min(pos, cache["k"].shape[2] - 1)
     if positions is None:
-        positions = torch.full((b, 1), pos, dtype=torch.int32, device=tokens.device)
+        shape = (3, b, 1) if cfg.rope_type == "mrope" else (b, 1)
+        positions = torch.full(shape, pos, dtype=torch.int32, device=tokens.device)
+    window = cfg.local_window if cfg.family == "vlm" else 0
     x = params["embed"][tokens.long()]
+    if cfg.rope_type == "learned":
+        x = x + params["pos_embed"][min(pos, params["pos_embed"].shape[0] - 1)]
     for i, lp in enumerate(L.unstack(params["layers"], cfg.n_layers)):
         a = L.apply_norm(x, lp["attn_norm"], cfg.norm_type)
         q = (a @ lp["wq"]).reshape(b, 1, h_, hd)
@@ -275,8 +346,13 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, positions=None):
         kc, vc = cache["k"][i], cache["v"][i]
         kc[:, slot:slot + 1] = k
         vc[:, slot:slot + 1] = v
-        o = L.attention_decode(q, kc, vc, pos + 1)
+        o = L.attention_decode(q, kc, vc, pos + 1, window=window)
         x = x + o.reshape(b, 1, h_ * hd) @ lp["wo"]
+        if cfg.enc_layers:
+            xa = L.apply_norm(x, lp["xattn_norm"], cfg.norm_type)
+            qx = (xa @ lp["xwq"]).reshape(b, 1, h_, hd)
+            o = L.attention_decode(qx, cache["xk"][i], cache["xv"][i], cfg.enc_seq)
+            x = x + o.reshape(b, 1, h_ * hd) @ lp["xwo"]
         m = L.apply_norm(x, lp["mlp_norm"], cfg.norm_type)
         if cfg.family == "moe":
             y, _ = moe_lib.moe_apply(m, lp["moe"], cfg.top_k, cfg.capacity_factor)
@@ -305,8 +381,9 @@ class DenseLM(nn.Module):
         """The parameter tree the functions of this module take."""
         return _tree(self)
 
-    def forward(self, tokens, positions=None, use_kernel: bool = False):
-        return forward(self.cfg, self.params(), tokens, positions, use_kernel=use_kernel)
+    def forward(self, tokens, positions=None, encoder_frames=None, use_kernel: bool = False):
+        return forward(self.cfg, self.params(), tokens, positions, encoder_frames,
+                       use_kernel=use_kernel)
 
 
 def _register(module: nn.Module, tree: dict) -> None:

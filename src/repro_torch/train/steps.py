@@ -63,6 +63,16 @@ def _token_losses(logits, labels):
     return lse - torch.gather(logits, -1, labels.long()[..., None])[..., 0]
 
 
+# the model inputs a batch may carry beside the tokens: the VLM's (3, B, S)
+# positions, the audio family's encoder frames
+MODEL_EXTRAS = ("positions", "encoder_frames")
+
+
+def model_extras(batch) -> dict:
+    """The entries of ``batch`` that ``forward`` takes beside the tokens."""
+    return {k: batch[k] for k in MODEL_EXTRAS if k in batch}
+
+
 def make_loss_fn(cfg: ArchConfig, options: TrainOptions, act_specs=None):
     """loss_fn(params, batch) -> (loss + moe_aux_weight·aux, (loss, aux)).
 
@@ -71,9 +81,7 @@ def make_loss_fn(cfg: ArchConfig, options: TrainOptions, act_specs=None):
     model = get_model(cfg)
 
     def loss_fn(params, batch):
-        extras = {}
-        if "positions" in batch:
-            extras["positions"] = batch["positions"]
+        extras = model_extras(batch)
         if options.ce_chunk and cfg.family in ("dense", "moe", "vlm"):
             hidden, aux = model.forward(
                 cfg, params, batch["tokens"], remat=options.remat,
@@ -231,9 +239,7 @@ def make_prefill_step(cfg: ArchConfig, options: TrainOptions):
 
     @torch.no_grad()
     def prefill_step(params, batch):
-        extras = {}
-        if "positions" in batch:
-            extras["positions"] = batch["positions"]
+        extras = model_extras(batch)
         logits, _ = model.forward(
             cfg, params, batch["tokens"], remat=options.remat,
             use_kernel=options.use_kernel, **extras,

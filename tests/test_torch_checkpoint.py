@@ -180,6 +180,9 @@ def test_restore_rejects_a_mismatched_target():
 
 
 MOE_CFG = ArchConfig("tiny-moe", "moe", 2, 64, 4, 2, 96, 256, n_experts=4, top_k=2)
+AUDIO_CFG = ArchConfig("tiny-audio", "audio", 2, 64, 4, 4, 128, 256, head_dim=16, enc_layers=2,
+                       enc_seq=16, max_pos=64, rope_type="learned", norm_type="layernorm",
+                       act="gelu")
 
 
 def test_moe_state_crosses_both_ways_exactly():
@@ -194,6 +197,41 @@ def test_moe_state_crosses_both_ways_exactly():
     tparams = bridge.params_from_numpy(jax.device_get(params))
     moe = tparams["layers"]["moe"]
     assert moe["router"].dtype == torch.float32 and moe["w_gate"].dtype == torch.bfloat16
+    tparams, tstate, _ = opt.apply(opt.AdamWConfig(**ocfg), opt.init(tparams), tparams,
+                                   bridge.params_from_numpy(jax.device_get(grads)))
+    for t, j in zip(tree_lib.leaves(tparams), jax.tree.leaves(jparams)):
+        tol = 1e-6 if t.dtype == torch.float32 else 1e-2  # bf16 rounds once a step
+        np.testing.assert_allclose(t.float().numpy(), np.asarray(j, np.float32), rtol=tol,
+                                   atol=tol)
+    jfull = {"p": jparams, "o": jstate}
+    with tempfile.TemporaryDirectory() as d:
+        jckpt.save_step(d, jfull, 3)
+        restored, step = ckpt.restore_latest(d, _port_state(jax.tree.map(jnp.zeros_like, jfull)))
+        assert step == 3
+        _assert_same_bits(restored, jfull)
+        ckpt.save_step(d + "/port", restored, 4)
+        back, step = jckpt.restore_latest(d + "/port", jax.tree.map(jnp.zeros_like, jfull))
+    assert step == 4
+    _assert_same_bits(restored, back)
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_encoder_state_crosses_both_ways_exactly(dtype):
+    """The audio family's params (the encoder subtree with its layers, final norm
+    and pos_embed; the decoder's pos_embed and cross-attention stacks) and
+    AdamW's moments: through the bridge both ways, one AdamW step, and
+    checkpoints both ways."""
+    jcfg = JArchConfig(**dataclasses.asdict(AUDIO_CFG))
+    params = JT.init_params(jcfg, jax.random.PRNGKey(0), dtype=dtype)
+    assert {"encoder", "pos_embed"} <= set(params) and "xwq" in params["layers"]
+    host = jax.device_get(params)
+    tparams = bridge.params_from_numpy(host)
+    assert tparams["encoder"]["pos_embed"].shape == (AUDIO_CFG.enc_seq, AUDIO_CFG.d_model)
+    _assert_same_bits(bridge.params_from_numpy(bridge.params_to_numpy(tparams)), host)
+    rng = np.random.default_rng(0)
+    grads = jax.tree.map(lambda a: jnp.asarray(rng.standard_normal(a.shape), a.dtype), params)
+    ocfg = dict(lr=1e-2, warmup_steps=1, total_steps=10)
+    jparams, jstate, _ = jopt.apply(jopt.AdamWConfig(**ocfg), jopt.init(params), params, grads)
     tparams, tstate, _ = opt.apply(opt.AdamWConfig(**ocfg), opt.init(tparams), tparams,
                                    bridge.params_from_numpy(jax.device_get(grads)))
     for t, j in zip(tree_lib.leaves(tparams), jax.tree.leaves(jparams)):
@@ -290,6 +328,11 @@ def test_train_cli_moe_failure_remap_and_restore_on_cpu(arch, capsys):
 
 @pytest.mark.parametrize("arch", ["mamba2-130m-smoke", "recurrentgemma-9b-smoke"])
 def test_train_cli_ssm_and_hybrid_failure_remap_and_restore_on_cpu(arch, capsys):
+    _check_failure_remap_and_restore(arch, capsys)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-7b-smoke", "whisper-tiny-smoke"])
+def test_train_cli_vlm_and_audio_failure_remap_and_restore_on_cpu(arch, capsys):
     _check_failure_remap_and_restore(arch, capsys)
 
 

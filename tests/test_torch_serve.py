@@ -20,10 +20,12 @@ from repro.models import transformer as JT  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data import pipeline as tpipe  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
+from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
-from repro_torch.models import get_model, mamba2, recurrentgemma  # noqa: E402
+from repro_torch.models import get_model, mamba2, recurrentgemma, transformer  # noqa: E402
 from repro_torch.testing import bridge  # noqa: E402
+from repro_torch.train import steps as steps_lib  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -45,8 +47,15 @@ def test_make_batch_bit_identical(arch, seq, batch, step, seed):
 
 
 def test_make_batch_audio_waits_for_its_slice():
-    with pytest.raises(NotImplementedError, match="audio"):
-        tpipe.make_batch(get_config("whisper-tiny-smoke"), 8, 2)
+    """The name is historical (the batch refused the audio family before its
+    slice was ported): the batch now carries JAX's encoder frames, as float32
+    arrays of its bfloat16 values (bit for bit in test_torch_audio.py)."""
+    want = jpipe.make_batch(jget_config("whisper-tiny-smoke"), 8, 2)
+    got = tpipe.make_batch(get_config("whisper-tiny-smoke"), 8, 2)
+    assert sorted(got) == sorted(want)
+    assert got["encoder_frames"].dtype == np.float32
+    np.testing.assert_array_equal(got["encoder_frames"],
+                                  np.asarray(want["encoder_frames"]).astype(np.float32))
 
 
 def test_serve_cli_runs_on_cpu():
@@ -60,6 +69,11 @@ def test_serve_cli_runs_the_moe_family_on_cpu(arch):
 
 @pytest.mark.parametrize("arch", ["mamba2-130m-smoke", "recurrentgemma-9b-smoke"])
 def test_serve_cli_runs_the_ssm_and_hybrid_families_on_cpu(arch):
+    _check_serve_cli(arch)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-7b-smoke", "whisper-tiny-smoke"])
+def test_serve_cli_runs_the_vlm_and_audio_families_on_cpu(arch):
     _check_serve_cli(arch)
 
 
@@ -133,8 +147,28 @@ def test_unported_families_raise(arch, monkeypatch):
     which is ported, the expert-parallel forward (``moe_mode="ep"``) does.  The
     ssm and hybrid families are ported now: ``get_model`` gives their modules,
     and their ``forward`` ignores ``use_kernel`` as JAX's ``**_`` does, so the
-    flash op, made to raise here, is never called."""
+    flash op, made to raise here, is never called.  The vlm and audio families
+    are ported too: ``get_model`` gives the transformer, and with ``use_kernel``
+    the flash op runs once a decoder layer (the decoder's self-attention; the
+    encoder and the cross-attention stay plain, as in JAX)."""
     cfg = get_config(arch)
+    if cfg.family in ("vlm", "audio"):
+        model = get_model(cfg)
+        assert model is transformer
+        calls = []
+
+        def counted(*args, **kwargs):
+            calls.append(kwargs)
+            return tfa.plain(*args, causal=kwargs["causal"], window=kwargs["window"])
+
+        monkeypatch.setattr(kops, "flash_attention", counted)
+        params = model.init_params(cfg, torch.Generator().manual_seed(0), torch.float32)
+        batch = {k: torch.from_numpy(v) for k, v in tpipe.make_batch(cfg, 24, 2).items()}
+        extras = steps_lib.model_extras(batch)
+        logits, _ = model.forward(cfg, params, batch["tokens"], use_kernel=True, **extras)
+        assert logits.shape == (2, 24, cfg.vocab) and torch.isfinite(logits).all()
+        assert calls == [{"causal": True, "window": 0}] * cfg.n_layers
+        return
     if cfg.family in ("ssm", "hybrid"):
         model = get_model(cfg)
         assert model is {"ssm": mamba2, "hybrid": recurrentgemma}[cfg.family]

@@ -67,9 +67,10 @@ def _jbatch(seq=16, batch=4, step=0, cfg=JCFG):
     return {k: jnp.asarray(v) for k, v in jpipe.make_batch(cfg, seq, batch, step=step).items()}
 
 
-def _close(got, want, rtol=1e-4):
+def _close(got, want, rtol=1e-4, atol_rel=None):
+    """Within rtol, and an atol of ``atol_rel`` (default ``rtol``) of ``want``'s largest."""
     want = np.asarray(want, np.float32)
-    atol = rtol * max(1e-30, float(np.abs(want).max()))
+    atol = (atol_rel or rtol) * max(1e-30, float(np.abs(want).max()))
     np.testing.assert_allclose(np.asarray(got.detach().float()), want, rtol=rtol, atol=atol)
 
 
@@ -149,7 +150,74 @@ def test_train_step_matches_jax_ssm_and_hybrid(arch, remat, use_kernel, ce_chunk
     _check_train_step(get_config(arch), remat, use_kernel, ce_chunk, 16, v_rtol=2e-4)
 
 
-def _check_train_step(cfg, remat, use_kernel, ce_chunk, seq, v_rtol=1e-4):
+LEAF_ATOL_CAP = 1e-2  # a leaf's gradient atol, of its largest, at most
+X64_ATOL = 1e-3  # the port's float64 gradients against JAX's, of a leaf's largest
+
+
+@pytest.mark.parametrize("remat,use_kernel,ce_chunk", [
+    (False, False, 0),
+    (True, True, 0),
+    (True, False, 8),  # the chunked CE for the vlm family; audio takes the full logits
+])
+@pytest.mark.parametrize("arch", ["qwen2-vl-7b-smoke", "whisper-tiny-smoke"])
+def test_train_step_matches_jax_vlm_and_audio(arch, remat, use_kernel, ce_chunk):
+    """One step of the VLM family (the batch's (3, B, S) M-RoPE positions) and of
+    the audio family (the batch's encoder frames; every leaf of the encoder
+    subtree, the learned positions and the cross-attention stacks): the loss,
+    every gradient leaf and the updated params.
+
+    At these smoke configs the init's near-one-hot attention leaves both
+    packages' fp32 gradients far from exact.  The reference is the JAX
+    package's own loss on the same weights cast to float64, under x64: JAX's
+    float32 gradients are up to 2.1e-4 (vlm) and 4.3e-3 (audio) of a leaf's
+    largest from it, and the two packages' float32 gradients differ by up to
+    2.1e-4 and 5.2e-4.  (The vlm smoke config run as a dense RoPE model gives
+    the same numbers: it is the dense path's fp32 error at this batch, not
+    M-RoPE's.)  So each gradient leaf, and the first moment, is held within
+    rtol 1e-4 and an atol of twice JAX's own float32 distance from that
+    reference, at least 1e-4 and at most ``LEAF_ATOL_CAP``, of the leaf's
+    largest, and the second moment (g²) within twice that: a bound the port
+    has no part in.  The port's own gradients on the float64 weights are held
+    to the JAX reference within ``X64_ATOL`` of a leaf's largest.  Not closer:
+    both packages keep their norms, rotations, scores and softmax in float32
+    on float64 weights, in sums of different order, and the near-one-hot
+    attention amplifies that to 1.7e-5 (vlm) and 3.6e-4 (audio)."""
+    cfg = get_config(arch)
+    jcfg = JArchConfig(**dataclasses.asdict(cfg))
+    jopts = jsteps.TrainOptions(remat=remat, use_kernel=use_kernel, ce_chunk=ce_chunk)
+    jloss_fn = jsteps.make_loss_fn(jcfg, jopts)
+    jparams = jax.device_get(_jax_params(jcfg))
+    jbatch = jpipe.make_batch(jcfg, 16, 4)
+    _, jgrads = jax.jit(jax.value_and_grad(jloss_fn, has_aux=True))(
+        jparams, {k: jnp.asarray(v) for k, v in jbatch.items()})
+    with jax.enable_x64(True):
+        wide = lambda a: jnp.asarray(  # noqa: E731
+            a if np.issubdtype(a.dtype, np.integer) else np.asarray(a, np.float64))
+        _, jg64 = jax.jit(jax.value_and_grad(jloss_fn, has_aux=True))(
+            jax.tree.map(wide, jparams), {k: wide(v) for k, v in jbatch.items()})
+        jg64 = [np.asarray(g) for g in jax.tree.leaves(jg64)]
+    assert all(g.dtype == np.float64 for g in jg64)
+
+    f = steps_lib.value_and_grad(steps_lib.make_loss_fn(cfg, steps_lib.TrainOptions(
+        remat=remat, use_kernel=use_kernel, ce_chunk=ce_chunk)))
+    tparams = bridge.params_from_numpy(jparams)
+    batch64 = {k: v.double() if v.is_floating_point() else v
+               for k, v in _tbatch(16, cfg=cfg).items()}
+    _, g64 = f(tree_lib.tree_map(lambda t: t.double(), tparams), batch64)
+    leaf_atol = []
+    for j, ref, t in zip(jax.tree.leaves(jgrads), jg64, tree_lib.leaves(g64)):
+        scale = float(np.abs(ref).max())
+        assert t.dtype == torch.float64 and scale > 0
+        np.testing.assert_allclose(t.numpy(), ref, rtol=0, atol=X64_ATOL * scale)
+        dist = float(np.abs(np.asarray(j, np.float64) - ref).max()) / scale
+        leaf_atol.append(min(LEAF_ATOL_CAP, max(1e-4, 2 * dist)))
+    _check_train_step(cfg, remat, use_kernel, ce_chunk, 16, leaf_atol=leaf_atol)
+
+
+def _check_train_step(cfg, remat, use_kernel, ce_chunk, seq, v_rtol=1e-4, leaf_atol=None):
+    """``leaf_atol``: each gradient leaf's atol (relative to its largest) where
+    the default of ``_close`` does not hold it; the first moment takes the
+    same and the second twice it."""
     jcfg = JArchConfig(**dataclasses.asdict(cfg))
     jopts = jsteps.TrainOptions(remat=remat, use_kernel=use_kernel, ce_chunk=ce_chunk)
     topts = steps_lib.TrainOptions(remat=remat, use_kernel=use_kernel, ce_chunk=ce_chunk)
@@ -171,9 +239,10 @@ def _check_train_step(cfg, remat, use_kernel, ce_chunk, seq, v_rtol=1e-4):
         assert float(aux) == 0.0
     jflat, tflat = jax.tree.leaves(jgrads), tree_lib.leaves(tgrads)
     assert len(jflat) == len(tflat)
-    for t, j in zip(tflat, jflat):
+    leaf_atol = leaf_atol or [None] * len(jflat)
+    for t, j, atol in zip(tflat, jflat, leaf_atol):
         assert t.dtype == torch.float32
-        _close(t, j)
+        _close(t, j, atol_rel=atol)
 
     # one whole step
     jstep = jax.jit(jsteps.make_train_step(jcfg, jopt.AdamWConfig(**OCFG), jopts, Policy()))
@@ -188,10 +257,10 @@ def _check_train_step(cfg, remat, use_kernel, ce_chunk, seq, v_rtol=1e-4):
     _close(tm["grad_norm"], jm["grad_norm"])
     np.testing.assert_allclose(float(tm["lr"]), float(jm["lr"]), rtol=1e-6)
     assert int(tstate.step) == int(jstate.step) == 1 and tstate.step.dtype == torch.int32
-    for name, rtol in (("m", 1e-4), ("v", v_rtol)):
-        for t, j in zip(tree_lib.leaves(getattr(tstate, name)),
-                        jax.tree.leaves(getattr(jstate, name))):
-            _close(t, j, rtol)
+    for name, rtol, scale in (("m", 1e-4, 1), ("v", v_rtol, 2)):
+        for t, j, atol in zip(tree_lib.leaves(getattr(tstate, name)),
+                              jax.tree.leaves(getattr(jstate, name)), leaf_atol):
+            _close(t, j, rtol, atol_rel=atol and scale * atol)
     _assert_first_update_close(tnew, jnew, tstate, jstate, float(jm["lr"]),
                                jopt.AdamWConfig(**OCFG))
 
