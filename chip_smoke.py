@@ -5,10 +5,11 @@
 Builds every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
 with nvcc (sm_90a), holds each against its plain PyTorch version on the card,
 then serves and trains llama3.2-3b at full width with random weights from a
-seed, runs the paper's gradient sync over 16 ranks, serves and trains the
-MoE moonshot-v1-16b-a3b, the SSM mamba2-130m and the hybrid
-recurrentgemma-9b (the last two reach no kernel, in JAX or here), the VLM
-qwen2-vl-7b and the audio whisper-tiny:
+seed (also through a 4-stage pipeline), shards and reshards it, runs the
+paper's gradient sync over 16 ranks and the train CLI under torchrun, serves
+and trains the MoE moonshot-v1-16b-a3b (also expert-parallel in the model),
+the SSM mamba2-130m and the hybrid recurrentgemma-9b (the last two reach no
+kernel, in JAX or here), the VLM qwen2-vl-7b and the audio whisper-tiny:
 
 1. device and toolchain: card name and power limit, torch and nvcc versions;
 2. build, timed (one nvcc per source, all started together), with ptxas's
@@ -127,10 +128,39 @@ qwen2-vl-7b and the audio whisper-tiny:
    held against the prefill), the training gate and 3 AdamW steps, 8 tf32
    launches a step.  Decode reaches no kernel in either family (it runs
    ``attention_decode``, as JAX does);
-18. one JSON line on every kernel (launches by path, the MoE, SSM, hybrid,
-   VLM and audio paths included), one each on the sync, MoE, SSM, hybrid,
-   VLM and audio phases, the card's name and power limit, and last the JSON
-   result line.
+18. pipeline parallelism (after 9): first a probe, ``loss.backward()``
+   through ``Comm.ppermute``'s backward on 4 rank threads of the card at
+   ``check_pipeline_parallel``'s size, which the ranks' shared autograd
+   thread deadlocks until the barrier's timeout (recorded, not gated); then
+   llama3.2-3b at full width and depth in fp32, its 28 layers as 4 stages of
+   7 on 4 rank threads, 4 microbatches of 1 x 2048 (the embedded tokens),
+   through ``make_pipelined_value_and_grad`` with the tf32 kernel in every
+   stage: the loss and each stage's gradient leaves against the sequential
+   run of the same layers, weights and microbatches within max(FP32_TOL,
+   floor), the ppermute bytes forward and backward and the tf32 launches
+   asserted exactly, then one timed training step (AdamW on each stage) with
+   its peak memory and the bubble's share of the ticks;
+19. sharding (after 18): llama3.2-3b in bf16 at 2 of its 28 layers under
+   ``default_policy`` and ``sanitize_specs`` on a (4, 4) ``LocalMesh`` of
+   cuda:0, every rank's block of every leaf against its slice of the global
+   tensor, each rank's bytes; saved, restored on (2, 8), every block again
+   bit for bit;
+20. the train CLI under ``torchrun --standalone --nproc_per_node 1`` (after
+   10): NCCL at world size 1, a ``DistMesh``, 3 steps of ``--sync ring``
+   through the tf32 kernel, its checkpoint against the same CLI's in this
+   process;
+21. expert parallelism in the model: moonshot-v1-16b-a3b with
+   ``moe_mode="ep"`` over 4 rank threads of the card, the rank's ``Comm`` as
+   ``act_specs["mesh"]``: the bf16 prefill step at full width and depth on
+   the weights of 11 (batch 2 x 2048, the config's capacity factor, 192
+   sm90 launches a call, its all-to-all bytes against the slab sizes, one
+   warm-up and three timed calls); and the fp32 gate on the weights of 12
+   (4 layers, batch 1 x 2048, no-drop capacity factor) against
+   ``moe_mode="tp"``, tp's routing replayed.  Forward only (the probe of 18);
+22. one JSON line on every kernel (launches by path, the MoE, SSM, hybrid,
+   VLM, audio, pipeline and EP paths included), one each on the sync, MoE,
+   SSM, hybrid, VLM, audio, pipeline, EP-model, sharding and torchrun
+   phases, the card's name and power limit, and last the JSON result line.
 
 Any failure raises and exits nonzero; without a CUDA device, or without the
 rest of the repository beside it, the script exits nonzero and prints no
@@ -153,6 +183,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -1585,23 +1616,28 @@ def _routing_log():
 
 
 @contextlib.contextmanager
-def _replayed_routing(log_):
+def _replayed_routing(log_, per_rank: bool = False):
     """Every MoE dispatch takes the experts of ``log_`` (a ``_routing_log`` of the
     same dispatches, in the same order) in place of its own top-k.  The gates and
     the aux loss are the router's at those experts, so gradients flow as in a run
-    that chose them: two paths of the model then differ only continuously."""
+    that chose them: two paths of the model then differ only continuously.  The
+    dispatches read the log in turn, whatever thread runs them (the backward's
+    remat recompute runs on the autograd engine's); with ``per_rank`` each rank
+    thread of a ``LocalMesh`` replays the whole log on its own."""
     from unittest import mock
 
     from repro_torch.models import moe
 
-    it = iter(log_)
+    iters, lock = {}, threading.Lock()
 
     def top_k(probs, k):
+        with lock:
+            it = iters.setdefault(threading.get_ident() if per_rank else 0, iter(log_))
         return next(it)[0].reshape(*probs.shape[:-1], k)
 
     with mock.patch.object(moe, "_top_k", top_k):
         yield
-    if next(it, None) is not None:
+    if any(next(it, None) is not None for it in iters.values()) or (log_ and not iters):
         raise AssertionError("a replayed routing log outlived its dispatches")
 
 
@@ -1660,10 +1696,11 @@ def _span_line(ms: dict, total_ms: float) -> str:
         f"({rest / total_ms:.1%})")
 
 
-def phase_moe_serve(smi) -> dict:
+def phase_moe_serve(smi) -> tuple[dict, dict]:
     """moonshot-v1-16b-a3b at full width and depth in bf16: the prefill through the
     sm90 kernel (one warm-up call, three timed), its device time by part and under
-    the profiler, then the serving loop of ``launch/serve.py``."""
+    the profiler, then the serving loop of ``launch/serve.py``.  Returns the
+    numbers and the weights (for ``phase_moe_ep_prefill``)."""
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import make_batch
     from repro_torch.kernels import flash_attention as fa
@@ -1745,9 +1782,9 @@ def phase_moe_serve(smi) -> dict:
            "decode_tok_s": SERVE_BATCH * SERVE_DECODE / res["decode_s"],
            "decode_ms_step": res["decode_s"] / SERVE_DECODE * 1e3,
            "n_params": n_params, "weights_gb": weights / 1e9}
-    del params, logits, tokens, prompts, res, cache, tok
+    del logits, tokens, prompts, res, cache, tok
     torch.cuda.empty_cache()
-    return out
+    return out, params
 
 
 def _by_layer(log_, n_layers: int, steps: int):
@@ -1991,7 +2028,7 @@ def phase_moe_ep(smi) -> dict:
     ``LocalMesh`` of 4 rank threads on cuda:0 (16 experts a rank; tokens
     replicated, as check_moe_ep), against ``moe_apply`` on the card; the
     all-to-all bytes against the slab sizes.  Forward only: the ranks' backwards
-    would share the card's one autograd thread (ROADMAP Queue A item 9)."""
+    would share the card's one autograd thread (``_pipeline_probe``)."""
     from repro_torch.configs import get_config
     from repro_torch.core.comm import LocalMesh
     from repro_torch.models import moe
@@ -2794,6 +2831,552 @@ def phase_audio(smi) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# pipeline training, expert parallelism in the model, sharding with elastic
+# resharding, and the torchrun launch
+# ---------------------------------------------------------------------------
+
+PIPE_ARCH = "llama3.2-3b"
+PIPE_STAGES, PIPE_MICRO, PIPE_MB = 4, 4, 1  # 28 layers as 7 a stage; 4 microbatches of 1 x 2048
+# autograd through the rank threads' ppermutes on one card, probed at
+# check_pipeline_parallel's size: each wait at a collective ends after this
+# many seconds, and a wait that nothing else can end (a deadlock) then raises
+PIPE_PROBE_TIMEOUT = 5.0
+EP_GATE_BATCH = 1  # the EP fp32 gate: 1 x 2048 tokens; no-drop slabs of (64, 2112, 2048) a rank
+# the bf16 EP prefill: 2 x 2048 tokens a rank, so that the 4 ranks' logits and
+# activations fit beside 56.1 GB of weights
+EP_PREFILL_BATCH = 2
+SHARD_LAYERS = 2  # llama3.2-3b at 2 of 28 layers: 1.98 GB of bf16 written and read
+SHARD_MESHES = ((4, 4), (2, 8))
+TORCHRUN_TIMEOUT = 300
+
+
+def _pipeline_probe(smi) -> dict:
+    """``loss.backward()`` of ``make_pipelined_loss`` on 4 rank threads on cuda:0
+    (4 stages of tanh(h @ w), 8 microbatches of 4 x 16): the ranks' backward
+    ppermutes all queue on the card's one autograd thread.  Records how it ends."""
+    from repro_torch.core.comm import LocalMesh
+    from repro_torch.parallel import pipeline as pp
+
+    gen = torch.Generator("cuda").manual_seed(0)
+    ws = torch.randn(4, 16, 16, generator=gen, device="cuda") * 0.3
+    x = torch.randn(8, 4, 16, generator=gen, device="cuda")
+    loss_fn = pp.make_pipelined_loss(lambda w, h: torch.tanh(h @ w),
+                                     lambda o, lab: torch.mean((o - lab) ** 2), "pipe")
+    mesh = LocalMesh((4,), ("pipe",), "cuda", timeout=PIPE_PROBE_TIMEOUT)
+
+    def rank_fn(comm, w):
+        w = w.clone().requires_grad_(True)
+        loss_fn(comm, w, x, torch.zeros_like(x)).backward()
+        return w.grad
+
+    t0 = time.perf_counter()
+    try:
+        mesh.run(rank_fn, list(ws))
+        outcome = "completed"
+    except threading.BrokenBarrierError as e:
+        outcome = f"deadlocked ({type(e).__name__})"
+    secs = time.perf_counter() - t0
+    log(f"[pipeline] probe: loss.backward() through Comm.ppermute's backward on 4 rank threads "
+        f"of cuda:0 (smoke size) {outcome} after {secs:.1f}s (barrier timeout "
+        f"{PIPE_PROBE_TIMEOUT}s) [{smi}]")
+    return {"outcome": outcome, "s": secs, "timeout_s": PIPE_PROBE_TIMEOUT}
+
+
+def _pipeline_fns(cfg, params):
+    """(stage_fn, final_fn) of llama3.2-3b's pipeline: a stage's decoder layers
+    through the flash op (no remat inside: the route recomputes each stage from
+    its saved input), and the final norm, unembed and cross-entropy over the
+    (M, mb, S, d) outputs."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.train import steps as st
+
+    def stage_fn(layers, h):
+        return T.forward_layers(cfg, layers, h, remat=False, use_kernel=True)[0]
+
+    def final_fn(outs, labels):
+        h = L.apply_norm(outs.reshape(-1, *outs.shape[2:]), params["final_norm"], cfg.norm_type)
+        return st.cross_entropy(h @ L.unembed(params), labels.reshape(-1, labels.shape[-1]))
+
+    return stage_fn, final_fn
+
+
+def _sequential_grads(cfg, params, x, labels, final_fn, use_kernel: bool,
+                      micro: bool = True) -> dict:
+    """The loss of the whole stack of layers (remat) and its gradient by layer leaf,
+    on the host: a microbatch at a time through one graph, as the pipeline splits
+    the batch (``micro``), or every microbatch at once."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.models import transformer as T
+
+    flat, spec = tree_lib.flatten(params["layers"])
+    views = [t.detach().requires_grad_(True) for t in flat]
+    layers = tree_lib.unflatten(spec, views)
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if micro:
+        h = torch.stack([T.forward_layers(cfg, layers, xm, remat=True, use_kernel=use_kernel)[0]
+                         for xm in x])
+    else:
+        h = T.forward_layers(cfg, layers, x.flatten(0, 1), remat=True,
+                             use_kernel=use_kernel)[0].reshape(x.shape)
+    loss = final_fn(h, labels)
+    grads = torch.autograd.grad(loss, views)
+    torch.cuda.synchronize()
+    out = {"loss": float(loss.detach()), "s": time.perf_counter() - t0, "launches": _counts(),
+           "grads": {n: g.cpu() for (n, _), g in
+                     zip(_named_leaves(params["layers"]), grads, strict=True)}}
+    del h, loss, grads, views
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_pipeline(smi) -> dict:
+    """llama3.2-3b at full width and depth in fp32, its 28 layers as 4 stages of 7 on
+    a ("pipe",) LocalMesh of 4 rank threads on cuda:0, 4 microbatches of 1 x 2048,
+    through ``make_pipelined_value_and_grad`` (the tf32 kernel in every stage): the
+    loss and every stage's gradient against the sequential run of the same layers
+    on the same weights and microbatches, within max(FP32_TOL, floor) (the floor:
+    plain chunked against plain dense, as ``_train_gate``); the ppermute bytes and
+    the tf32 launches exactly; then a timed training step (the pipeline and AdamW
+    on each stage).  First the probe of the autograd route (``_pipeline_probe``).
+    The sequential run over the 4 microbatches at once is reported beside: at the
+    init's near one-hot attention the backward amplifies the rounding of the
+    other GEMM shapes (1 x 2048 rows against 4 x 2048) past the floor."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import get_config
+    from repro_torch.core.comm import LocalMesh
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.parallel import pipeline as pp
+    from repro_torch.train import optimizer as opt
+
+    probe = _pipeline_probe(smi)
+    cfg = get_config(PIPE_ARCH)
+    p, m, ls = PIPE_STAGES, PIPE_MICRO, cfg.n_layers // PIPE_STAGES
+    ticks = m + p - 1
+    params, meta = _load_model(cfg, "pipeline", torch.float32)
+    batch = make_batch(cfg, TRAIN_LEN, m * PIPE_MB)
+    tokens = torch.from_numpy(batch["tokens"]).cuda()
+    labels = torch.from_numpy(batch["labels"]).cuda().reshape(m, PIPE_MB, TRAIN_LEN)
+    x_micro = params["embed"][tokens.long()].reshape(m, PIPE_MB, TRAIN_LEN, cfg.d_model)
+    stage_fn, final_fn = _pipeline_fns(cfg, params)
+    stages = [tree_lib.tree_map(lambda v, i=i: v[i * ls:(i + 1) * ls], params["layers"])
+              for i in range(p)]
+    vg = pp.make_pipelined_value_and_grad(stage_fn, final_fn, "pipe")
+    mesh = LocalMesh((p,), ("pipe",), "cuda")
+    hop = PIPE_MB * TRAIN_LEN * cfg.d_model * 4
+    want_bytes = {**{(i, i + 1): ticks * hop for i in range(p - 1)},
+                  **{(i + 1, i): ticks * hop for i in range(p - 1)}}
+    want_launches = p * 2 * ticks * ls  # every tick forward, and again in reverse
+
+    def run(fn):
+        """One pipelined call on every rank: results, seconds, launches, peak."""
+        mesh.stats.reset()
+        _reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = mesh.run(fn, stages)
+        torch.cuda.synchronize()
+        secs, launches = time.perf_counter() - t0, _counts()
+        if dict(mesh.stats.bytes) != want_bytes or mesh.stats.psum_calls != p:
+            raise AssertionError(f"[pipeline] ppermute bytes {dict(mesh.stats.bytes)}, want "
+                                 f"{want_bytes}; psum calls {mesh.stats.psum_calls}")
+        if launches["flash_attention_fwd_tf32"] != want_launches or launches[
+                "flash_attention_fwd"] != want_launches:
+            raise AssertionError(f"[pipeline] launched {launches}, want {want_launches} tf32")
+        return res, secs, launches, torch.cuda.max_memory_allocated() / 2**30
+
+    res, gate_s, _, gate_peak = run(lambda c, sp: vg(c, sp, x_micro, labels))
+    losses = [float(loss) for loss, _ in res]
+    host = [{n: g.cpu() for n, g in _named_leaves(grads)} for _, grads in res]
+    del res
+    torch.cuda.empty_cache()
+    seq = {name: _sequential_grads(c, params, x_micro, labels, final_fn, use_kernel=k,
+                                   micro=name != "batched")
+           for name, c, k in (("kernel", cfg, True), ("plain", cfg, False),
+                              ("chunked", dataclasses.replace(cfg, attn_chunk=FLOOR_CHUNK),
+                               False), ("batched", cfg, True))}
+    if seq["kernel"]["launches"]["flash_attention_fwd_tf32"] != m * 2 * cfg.n_layers or seq[
+            "batched"]["launches"]["flash_attention_fwd_tf32"] != 2 * cfg.n_layers:
+        raise AssertionError(f"[pipeline] the sequential runs launched "
+                             f"{seq['kernel']['launches']}, {seq['batched']['launches']}")
+    ref = seq["kernel"]
+    loss_err = abs(losses[-1] - ref["loss"]) / abs(ref["loss"])
+    loss_floor = abs(seq["chunked"]["loss"] - seq["plain"]["loss"]) / abs(seq["plain"]["loss"])
+    leaf_err, leaf_floor, leaf_batched, bad = {}, {}, {}, []
+    for s in range(p):
+        for n, g in host[s].items():
+            sl = slice(s * ls, (s + 1) * ls)
+            want = ref["grads"][n][sl].cuda()
+            leaf_err[f"{s}.{n}"] = err = rel_l2(g.cuda(), want)
+            leaf_floor[f"{s}.{n}"] = floor = rel_l2(seq["chunked"]["grads"][n][sl].cuda(),
+                                                    seq["plain"]["grads"][n][sl].cuda())
+            leaf_batched[f"{s}.{n}"] = rel_l2(seq["batched"]["grads"][n][sl].cuda(), want)
+            if not err <= max(FP32_TOL, floor):
+                bad.append(f"{s}.{n}")
+    for v in seq.values():
+        del v["grads"]
+    del host
+    torch.cuda.empty_cache()
+    log(f"[pipeline] {cfg.name} fp32, {cfg.n_layers} layers as {p} stages of {ls} on {p} rank "
+        f"threads of cuda:0, {m} microbatches of {PIPE_MB} x {TRAIN_LEN}, tf32 kernel: loss "
+        f"{losses[-1]:.7f} on every rank {len(set(losses)) == 1} (sequential kernel "
+        f"{ref['loss']:.7f}, rel {loss_err:.2e}; plain {seq['plain']['loss']:.7f}, chunked "
+        f"{seq['chunked']['loss']:.7f}, floor {loss_floor:.2e}; tol max({FP32_TOL}, floor); "
+        f"the microbatches at once {seq['batched']['loss']:.7f}); {gate_s:.2f}s, peak "
+        f"{gate_peak:.2f} GiB; sequential {seq['kernel']['s']:.2f}s / {seq['plain']['s']:.2f}s "
+        f"/ {seq['chunked']['s']:.2f}s / {seq['batched']['s']:.2f}s (kernel / plain / chunked, "
+        f"a microbatch at a time; kernel, all at once)")
+    for n in leaf_err:
+        log(f"[pipeline] gate stage.leaf {n:22s} rel_l2 vs sequential {leaf_err[n]:.2e}, "
+            f"floor (chunked vs plain) {leaf_floor[n]:.2e}, tol max({FP32_TOL}, floor); the "
+            f"microbatches at once vs a microbatch at a time {leaf_batched[n]:.2e} (reported)")
+    if bad or len(set(losses)) != 1 or not (loss_err <= max(FP32_TOL, loss_floor)
+                                            and math.isfinite(losses[-1])):
+        raise AssertionError(f"[pipeline] the pipelined loss or stage gradients {bad} disagree "
+                             f"with the sequential run's")
+
+    # one timed training step: the pipeline, then AdamW on each rank's stage
+    ocfg = opt.AdamWConfig(lr=3e-3, warmup_steps=1, total_steps=TRAIN_STEPS,
+                           schedule=cfg.schedule)
+    ostates = [opt.init(sp) for sp in stages]
+
+    def train_step(comm, sp):
+        loss, grads = vg(comm, sp, x_micro, labels)
+        opt.apply(ocfg, ostates[comm.rank], sp, grads)
+        return loss
+
+    losses, step_s, launches, step_peak = run(train_step)
+    if not all(math.isfinite(float(v)) for v in losses):
+        raise AssertionError(f"[pipeline] training step loss {losses}")
+    bubble = (p - 1) / ticks
+    ntok = m * PIPE_MB * TRAIN_LEN
+    log(f"[pipeline] training step (pipeline + AdamW on each stage): {step_s:.2f}s "
+        f"({ntok / step_s:.0f} tok/s), peak {step_peak:.2f} GiB ({step_peak * 2**30 / 1e9:.2f} "
+        f"GB); ppermute {sum(want_bytes.values()) // 2:,} B forward and the same backward "
+        f"({ticks} ticks x {p - 1} hops x {hop:,} B); tf32 launches a step {want_launches} "
+        f"({p} ranks x {ticks} ticks x {ls} layers, forward and again in reverse); bubble "
+        f"{p - 1}/{ticks} = {bubble:.4f} of the ticks; loss {float(losses[0]):.7f} [{smi}]")
+    del ostates, stages, params, x_micro
+    torch.cuda.empty_cache()
+    return {"probe": probe, "stages": p, "microbatches": m, "microbatch": [PIPE_MB, TRAIN_LEN],
+            "loss": float(ref["loss"]), "loss_rel": loss_err, "loss_floor": loss_floor,
+            "leaf_rel_l2": leaf_err, "leaf_floor": leaf_floor,
+            "leaf_batched_rel_l2": leaf_batched, "gate_s": gate_s,
+            "gate_peak_gib": gate_peak, "step_s": step_s, "step_peak_gib": step_peak,
+            "sequential_s": {k: v["s"] for k, v in seq.items()},
+            "ppermute_bytes_each_way": sum(want_bytes.values()) // 2,
+            "bubble_share": bubble, "launches": launches, **meta}
+
+
+def _ep_bytes_check(tag, stats, n, slab, layers) -> int:
+    """Every rank sends each other rank 2 x slab / n a layer (the exchange there and
+    back); the bytes a rank sends."""
+    pair = 2 * layers * slab // n
+    want = {(a, b): pair for a in range(n) for b in range(n) if a != b}
+    if dict(stats.bytes) != want:
+        raise AssertionError(f"[{tag}] all_to_all bytes {dict(stats.bytes)}, want {pair} a pair")
+    return (n - 1) * pair
+
+
+def phase_moe_ep_gate(cfg, params, smi) -> dict:
+    """The MoE model with ``moe_mode="ep"`` in fp32 at 4 of 48 layers (the weights of
+    ``phase_moe_fp32``), over a ("model",) LocalMesh of 4 rank threads on cuda:0,
+    at the no-drop capacity factor, batch 1 x 2048, through the tf32 kernel,
+    against ``moe_mode="tp"`` on the same weights: the last position's logits
+    with the tp path's routing replayed within max(FP32_TOL, floor) (the floor:
+    plain chunked against plain dense, with the same routing); with free
+    routing, reported.  The aux losses are reported: they differ by design."""
+    from repro_torch.core.comm import LocalMesh
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+
+    ncfg = dataclasses.replace(cfg, capacity_factor=MOE_NODROP_CF)
+    ep_cfg = dataclasses.replace(ncfg, moe_mode="ep")
+    n = MOE_EP_RANKS
+    tokens = torch.from_numpy(make_batch(cfg, PREFILL_LEN, EP_GATE_BATCH)["tokens"]).cuda()
+
+    def last(c, use_kernel, act=None):
+        with torch.no_grad():
+            logits, aux = T.forward(c, params, tokens, use_kernel=use_kernel, act_specs=act)
+        return logits[:, -1:].clone(), float(aux)
+
+    with _routing_log() as log_ref:
+        ref, aux_ref = last(ncfg, True)
+    with _replayed_routing(log_ref):
+        plain, _ = last(ncfg, False)
+    with _replayed_routing(log_ref):
+        chunked, _ = last(dataclasses.replace(ncfg, attn_chunk=FLOOR_CHUNK), False)
+    floor = rel_l2(chunked, plain)
+    mesh = LocalMesh((n,), ("model",), "cuda")
+
+    def ep_rank(comm):
+        return last(ep_cfg, True, {"mesh": comm})
+
+    torch.cuda.reset_peak_memory_stats()
+    mesh.stats.reset()
+    _reset_counts()
+    t0 = time.perf_counter()
+    free = mesh.run(ep_rank)
+    torch.cuda.synchronize()
+    secs, launches = time.perf_counter() - t0, _counts()
+    cap = moe.capacity(EP_GATE_BATCH * PREFILL_LEN, cfg.top_k, cfg.n_experts, MOE_NODROP_CF)
+    slab = cfg.n_experts * cap * cfg.d_model * 4
+    sent = _ep_bytes_check("moe-ep-gate", mesh.stats, n, slab, cfg.n_layers)
+    with _replayed_routing(log_ref, per_rank=True):
+        replayed = mesh.run(ep_rank)
+    errs = [rel_l2(y, ref) for y, _ in replayed]
+    free_errs = [rel_l2(y, ref) for y, _ in free]
+    dropped = sum(int((~k).sum()) for _, k in log_ref)
+    log(f"[moe-ep-gate] {cfg.name} moe_mode='ep' at {cfg.n_layers} layers, fp32, {n} rank "
+        f"threads of cuda:0 ({cfg.n_experts // n} experts a rank), batch {EP_GATE_BATCH} x "
+        f"{PREFILL_LEN}, capacity factor {MOE_NODROP_CF} (cap {cap}, {dropped} pairs dropped): "
+        f"last logits vs moe_mode='tp' with tp's routing replayed rel_l2 "
+        f"{max(errs):.3e} (tol max({FP32_TOL}, floor)), floor (plain chunked vs plain dense) "
+        f"{floor:.3e}; free routing {max(free_errs):.3e}; aux ep {free[0][1]:.6f} tp "
+        f"{aux_ref:.6f} (reported); all_to_all {sent:,} B a rank ({cfg.n_layers} layers x 2 x "
+        f"3/4 x the ({cfg.n_experts}, {cap}, {cfg.d_model}) fp32 slab); launches {launches}; "
+        f"{secs:.2f}s; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{smi}]")
+    if launches["flash_attention_fwd_tf32"] != n * cfg.n_layers:
+        raise AssertionError(f"[moe-ep-gate] launched {launches}, want {n * cfg.n_layers} tf32")
+    if dropped or not (max(errs) <= max(FP32_TOL, floor)
+                       and all(torch.isfinite(y).all() for y, _ in free)):
+        raise AssertionError(f"[moe-ep-gate] ep logits {errs} from tp's, floor {floor:.3e}, "
+                             f"{dropped} pairs dropped")
+    aux_ep = free[0][1]
+    del free, replayed, ref, plain, chunked, log_ref
+    torch.cuda.empty_cache()
+    return {"rel_l2": max(errs), "floor": floor, "free_rel_l2": max(free_errs),
+            "aux_ep": aux_ep, "aux_tp": aux_ref, "cap": cap,
+            "all_to_all_bytes_a_rank": sent, "s": secs, "launches": launches}
+
+
+def phase_moe_ep_prefill(params, smi) -> dict:
+    """moonshot-v1-16b-a3b at full width and depth in bf16 with ``moe_mode="ep"``: the
+    prefill step (batch 2 x 2048, the config's capacity factor) on each of 4 rank
+    threads of cuda:0, through the sm90 kernel, on ``phase_moe_serve``'s weights
+    (every rank reads the same tensors; each takes views of its 16 experts).
+    Forward only: the ranks' backwards would share the card's one autograd
+    thread (the pipeline probe).  The all-to-all bytes against the slab sizes;
+    one warm-up call, then three timed; the logits against ``moe_mode="tp"``'s on
+    the same tokens, reported: tp routes each row as a group (capacity 240), EP
+    a rank's 4096 tokens as one (capacity 480), so they drop other pairs."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.comm import LocalMesh
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.models import moe
+    from repro_torch.train import steps as st
+
+    cfg = get_config(MOE_ARCH)
+    ep_cfg = dataclasses.replace(cfg, moe_mode="ep")
+    n = MOE_EP_RANKS
+    tokens = torch.from_numpy(make_batch(cfg, PREFILL_LEN, EP_PREFILL_BATCH)["tokens"]).cuda()
+    tp_logits, tp_s = _prefill(cfg, params, tokens, use_kernel=True)
+    mesh = LocalMesh((n,), ("model",), "cuda")
+    opts = st.TrainOptions(use_kernel=True)
+
+    def rank_fn(comm):
+        return st.make_prefill_step(ep_cfg, opts, act_specs={"mesh": comm})(
+            params, {"tokens": tokens})
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mesh.stats.reset()
+    _reset_counts()
+    outs = mesh.run(rank_fn)
+    torch.cuda.synchronize()
+    launches = _counts()
+    cap = moe.capacity(EP_PREFILL_BATCH * PREFILL_LEN, cfg.top_k, cfg.n_experts,
+                       cfg.capacity_factor)
+    slab = cfg.n_experts * cap * cfg.d_model * 2
+    sent = _ep_bytes_check("moe-ep-prefill", mesh.stats, n, slab, cfg.n_layers)
+    want = n * cfg.n_layers
+    if launches["flash_attention_fwd_sm90"] != want or launches["flash_attention_fwd"] != want:
+        raise AssertionError(f"[moe-ep-prefill] launched {launches}, want {want} sm90")
+    for r, y in enumerate(outs):
+        if y.shape != (EP_PREFILL_BATCH, 1, cfg.vocab) or not torch.isfinite(y).all():
+            raise AssertionError(f"[moe-ep-prefill] rank {r} logits {tuple(y.shape)} not finite "
+                                 "or misshapen")
+    spread = max(float((y.float() - outs[0].float()).abs().max()) for y in outs)
+    err = rel_l2(outs[0], tp_logits)
+    agree = float((outs[0].argmax(-1) == tp_logits.argmax(-1)).float().mean())
+    del outs
+    secs = []
+    for _ in range(SYNC_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mesh.run(rank_fn)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ntok = EP_PREFILL_BATCH * PREFILL_LEN
+    log(f"[moe-ep-prefill] {cfg.name} bf16 moe_mode='ep', {cfg.n_layers} layers, {n} rank "
+        f"threads of cuda:0 ({cfg.n_experts // n} experts a rank), batch {EP_PREFILL_BATCH} x "
+        f"{PREFILL_LEN} on every rank, capacity factor {cfg.capacity_factor} (cap {cap}): "
+        f"{statistics.median(secs):.3f}s median of {SYNC_REPS} ({', '.join(f'{t:.3f}' for t in secs)};"
+        f" {ntok / statistics.median(secs):.0f} tok/s; tp's prefill of the same tokens "
+        f"{tp_s:.3f}s), peak {peak:.2f} GiB; all_to_all {sent:,} B a rank ({cfg.n_layers} layers "
+        f"x 2 x 3/4 x the ({cfg.n_experts}, {cap}, {cfg.d_model}) bf16 slab); launches a call "
+        f"{launches}; ranks' logits within {spread:.3e} of rank 0's; vs tp rel_l2 {err:.3e}, "
+        f"argmax agreement {agree:.2f} (bf16, reported) [{smi}]")
+    del tp_logits, tokens
+    torch.cuda.empty_cache()
+    return {"s": statistics.median(secs), "s_runs": secs, "tp_s": tp_s, "peak_gib": peak,
+            "cap": cap, "all_to_all_bytes_a_rank": sent, "launches": launches,
+            "rank_spread": spread, "tp_rel_l2": err, "tp_argmax_agree": agree}
+
+
+def _named_block(mesh, rank, spec, shape) -> tuple:
+    """The slices of a global tensor that ``rank`` holds under ``spec``, from its
+    coordinates (the block index's digits are the entry's axes, the first the most
+    significant): the check of ``NamedSharding.block``."""
+    coords, out = mesh.coords(rank), []
+    for i, size in enumerate(shape):
+        entry = spec[i] if i < len(spec) else None
+        axes = () if entry is None else entry if isinstance(entry, tuple) else (entry,)
+        parts, index = 1, 0
+        for a in axes:
+            parts, index = parts * mesh.shape[a], index * mesh.shape[a] + coords[a]
+        out.append(slice(index * (size // parts), (index + 1) * (size // parts)))
+    return tuple(out)
+
+
+def _check_sharded(tag, params, sharded, specs) -> int:
+    """Every rank's block of every leaf equal, bit for bit, to the slice of the
+    global tensor its spec names; the number of blocks checked."""
+    from repro_torch import tree as tree_lib
+
+    checked = 0
+    for (name, x), s, spec in zip(_named_leaves(params), tree_lib.leaves(sharded),
+                                  tree_lib.leaves(specs), strict=True):
+        mesh = s.sharding.mesh
+        for r in range(mesh.size):
+            if not torch.equal(s.blocks[r], x[_named_block(mesh, r, spec, x.shape)]):
+                raise AssertionError(f"[{tag}] {name}: rank {r}'s block is not its slice {spec}")
+            checked += 1
+    return checked
+
+
+def phase_sharding(smi) -> dict:
+    """llama3.2-3b at full width, 2 of its 28 layers, in bf16: its parameters under
+    ``default_policy`` and ``sanitize_specs`` on a (4, 4) LocalMesh on cuda:0, every
+    rank's block against its slice of the global tensor; saved, restored on a
+    (2, 8) mesh under that mesh's specs, every block again bit for bit."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.core.comm import LocalMesh
+    from repro_torch.parallel import sharding as sh
+
+    cfg = dataclasses.replace(get_config(PIPE_ARCH), n_layers=SHARD_LAYERS)
+    params, meta = _load_model(cfg, "sharding", torch.bfloat16)
+    policy = sh.default_policy(cfg)
+    out = {"policy": dataclasses.asdict(policy), **meta}
+    meshes = [LocalMesh(shape, ("data", "model"), "cuda") for shape in SHARD_MESHES]
+    specs = [sh.sanitize_specs(params, sh.param_specs(cfg, params, policy), mesh)
+             for mesh in meshes]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sharded = sh.shard_tree(params, sh.to_shardings(meshes[0], specs[0]))
+    torch.cuda.synchronize()
+    put_s = time.perf_counter() - t0
+    checked = _check_sharded("sharding", params, sharded, specs[0])
+    rank_bytes = [sum(s.blocks[r].numel() * s.blocks[r].element_size()
+                      for s in tree_lib.leaves(sharded)) for r in range(meshes[0].size)]
+    spec_line = ", ".join(f"{n} {tuple(s)}" for (n, _), s in
+                          zip(_named_leaves(params), tree_lib.leaves(specs[0])))
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        ckpt.save(f"{d}/c", sharded, step=1)
+        save_s = time.perf_counter() - t0
+        del sharded
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        restored, step = ckpt.restore(f"{d}/c", params,
+                                      shardings=sh.to_shardings(meshes[1], specs[1]))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    if step != 1:
+        raise AssertionError(f"[sharding] restored step {step}")
+    checked += _check_sharded("resharding", params, restored, specs[1])
+    new_bytes = [sum(s.blocks[r].numel() * s.blocks[r].element_size()
+                     for s in tree_lib.leaves(restored)) for r in range(meshes[1].size)]
+    log(f"[sharding] {cfg.name} bf16 at {SHARD_LAYERS} of 28 layers ({meta['weights_gb']:.2f} "
+        f"GB), default_policy {policy}: specs on {SHARD_MESHES[0]}: {spec_line}; bytes a rank "
+        f"on {SHARD_MESHES[0]}: {rank_bytes[0]:,} (min {min(rank_bytes):,}, max "
+        f"{max(rank_bytes):,}; all ranks {sum(rank_bytes):,}), on {SHARD_MESHES[1]}: min "
+        f"{min(new_bytes):,} max {max(new_bytes):,}; put {put_s:.2f}s, save (gather to the host, "
+        f"write) {save_s:.2f}s, restore on {SHARD_MESHES[1]} {restore_s:.2f}s; {checked} blocks "
+        f"equal to their slices, bit for bit [{smi}]")
+    del restored, params
+    torch.cuda.empty_cache()
+    return {**out, "meshes": SHARD_MESHES, "rank_bytes": rank_bytes, "rank_bytes_after": new_bytes,
+            "blocks_checked": checked, "put_s": put_s, "save_s": save_s, "restore_s": restore_s}
+
+
+def phase_torchrun(smi) -> dict:
+    """``torchrun --standalone --nproc_per_node 1 -m repro_torch.launch.train --sync
+    ring`` at smoke width through the tf32 kernel: the CLI initialises NCCL, builds a
+    ``DistMesh`` of one rank (the constructor's all-reduce) and trains 3 steps;
+    its checkpoint against the same CLI's in this process (a one-rank LocalMesh)."""
+    import os
+    import signal
+
+    import numpy as np
+
+    from repro_torch.launch import train as train_cli
+
+    args = ["--arch", "llama3.2-3b-smoke", "--steps", "3", "--sync", "ring", "--use-kernel",
+            "--checkpoint-every", "3"]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), *filter(None, [os.environ.get("PYTHONPATH")])]))
+    with tempfile.TemporaryDirectory() as d:
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", "1", "-m", "repro_torch.launch.train", *args,
+               "--checkpoint-dir", f"{d}/dist"]
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True, start_new_session=True)
+        try:
+            text, _ = proc.communicate(timeout=TORCHRUN_TIMEOUT)
+        finally:
+            if proc.poll() is None:  # stop torchrun and its worker
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+        secs = time.perf_counter() - t0
+        for line in text.splitlines():
+            log(f"[torchrun] {line}")
+        if proc.returncode:
+            raise AssertionError(f"[torchrun] exited {proc.returncode}")
+        with contextlib.redirect_stdout(io.StringIO()):
+            local = train_cli.main([*args, "--checkpoint-dir", f"{d}/local"])
+        files = sorted(f for f in os.listdir(f"{d}/local/step_3") if f.endswith(".npy"))
+        if files != sorted(f for f in os.listdir(f"{d}/dist/step_3") if f.endswith(".npy")):
+            raise AssertionError("[torchrun] the two checkpoints hold other leaves")
+        worst, equal = 0.0, 0
+        for f in files:
+            a = np.load(f"{d}/dist/step_3/{f}")
+            b = np.load(f"{d}/local/step_3/{f}")
+            equal += int(np.array_equal(a, b))
+            a64, b64 = a.astype(np.float64), b.astype(np.float64)
+            worst = max(worst, float(np.linalg.norm(a64 - b64) / max(np.linalg.norm(b64), 1e-30)))
+    loss = re.findall(r"\[train\] step\s+3 loss (\S+)", text)
+    log(f"[torchrun] world size 1 over NCCL on cuda:0: 3 steps of --sync ring in {secs:.1f}s "
+        f"(process start, NCCL init, DistMesh's all-reduce, the steps); its checkpoint against "
+        f"the one-process run's: {equal} of {len(files)} leaves bit for bit, worst rel_l2 "
+        f"{worst:.2e}; loss {loss} and {local['loss']:.4f}.  A run over NCCL with more than one "
+        f"rank needs at least two cards; this run has {torch.cuda.device_count()} [{smi}]")
+    if not loss or worst > 1e-6:
+        raise AssertionError(f"[torchrun] the torchrun checkpoint is {worst:.2e} from the "
+                             "one-process run's")
+    return {"s": secs, "leaves_equal": equal, "leaves": len(files), "worst_rel_l2": worst,
+            "loss": float(loss[0]), "local_loss": local["loss"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2817,10 +3400,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     train = phase_train(cfg, smi)
     driver = phase_train_driver()
+    pipeline = phase_pipeline(smi)
+    sharding = phase_sharding(smi)
     sync = phase_sync_collectives(smi)
     sync_train = phase_sync_train(smi)
-    moe_serve = phase_moe_serve(smi)
+    torchrun = phase_torchrun(smi)
+    moe_serve, moe_bf16 = phase_moe_serve(smi)
+    moe_ep_prefill = phase_moe_ep_prefill(moe_bf16, smi)
+    del moe_bf16
     moe_cfg, moe_params, moe_fp32 = phase_moe_fp32(smi)
+    moe_ep_gate = phase_moe_ep_gate(moe_cfg, moe_params, smi)
     moe_train = phase_moe_train(moe_cfg, moe_params, smi)
     del moe_params
     moe_ep = phase_moe_ep(smi)
@@ -2831,7 +3420,8 @@ def main() -> int:
 
     paths = {"prefill": prefill, "train_steps": train, "train_driver": driver,
              "train_sync": sync_train["launches"], "prefill_moe": moe_serve["launches"],
-             "train_moe": moe_train["launches"]}
+             "train_moe": moe_train["launches"], "train_pipeline": pipeline["launches"],
+             "prefill_moe_ep": moe_ep_prefill["launches"]}
     for tag, fam in (("ssm", ssm), ("hybrid", hybrid), ("vlm", vlm), ("audio", audio)):
         paths.update({f"prefill_{tag}": fam["launches"], f"serve_{tag}": fam["serve"]["launches"],
                       f"train_{tag}": fam["train"]["launches"]})
@@ -2896,6 +3486,11 @@ def main() -> int:
     log(json.dumps({"hybrid": {"device": smi, "arch": HYBRID_ARCH, **hybrid}}))
     log(json.dumps({"vlm": {"device": smi, "arch": VLM_ARCH, **vlm}}))
     log(json.dumps({"audio": {"device": smi, "arch": AUDIO_ARCH, **audio}}))
+    log(json.dumps({"pipeline": {"device": smi, "arch": PIPE_ARCH, **pipeline}}))
+    log(json.dumps({"moe_ep_model": {"device": smi, "arch": MOE_ARCH, "gate": moe_ep_gate,
+                                     "prefill": moe_ep_prefill}}))
+    log(json.dumps({"sharding": {"device": smi, "arch": PIPE_ARCH, **sharding}}))
+    log(json.dumps({"torchrun": {"device": smi, **torchrun}}))
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,18 @@
-"""Checkpoint/restart in the JAX package's format (counterpart of ``repro.checkpoint``).
+"""Sharded checkpoint/restart with elastic resharding, in the JAX package's format
+(counterpart of ``repro.checkpoint``).
 
 Format: one ``leaf_%05d.npy`` per leaf of the state tree, numbered in
 ``jax.tree.flatten``'s order (``repro_torch.tree``), with bfloat16 stored as
 a uint16 view, and a ``manifest.json`` holding ``step``, ``n_leaves``,
 ``dtypes``, ``treedef`` (informational) and ``extra``.  A checkpoint written
-by either package restores in the other.  Leaves go through host memory;
-``restore`` puts each on the device of the target's leaf.
+by either package restores in the other.  Leaves go through host memory: a
+sharded leaf (``parallel.sharding.Sharded``) is saved as its global tensor,
+put back together from its blocks, as JAX's ``np.asarray`` gathers a sharded
+array (on a ``DistMesh`` that gather is collective: every process calls
+``save``).  ``restore`` puts each leaf on the device of the target's leaf, or,
+given a tree of ``NamedSharding``s, cuts it into the blocks of that
+sharding's mesh, which need not be the mesh it was saved from (elastic
+scaling: the paper's checkpoint, reallocate and restart of §IV-A-b).
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch import tree as tree_lib
+from repro_torch.parallel.sharding import Sharded
 
 MANIFEST = "manifest.json"
 
@@ -26,8 +34,8 @@ def _leaf_path(i: int) -> str:
     return f"leaf_{i:05d}.npy"
 
 
-def _to_numpy(x: torch.Tensor) -> tuple[np.ndarray, str]:
-    t = x.detach().cpu().contiguous()
+def _to_numpy(x) -> tuple[np.ndarray, str]:
+    t = x.gather() if isinstance(x, Sharded) else x.detach().cpu().contiguous()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
     arr = t.numpy()
@@ -65,23 +73,33 @@ def save(directory: str, state, step: int, extra: dict | None = None) -> None:
     os.replace(tmp, directory)  # atomic-ish publish
 
 
-def restore(directory: str, target_state):
+def restore(directory: str, target_state, shardings=None):
     """Load into the structure of ``target_state`` -> (state, step).
 
     The target gives the tree structure, each leaf's shape (checked) and its
     device; the dtype is the stored one, as in the JAX version.
+    ``shardings``: an optional tree of ``parallel.sharding.NamedSharding`` of
+    the target's structure (elastic resharding); each leaf then comes back as
+    a ``Sharded`` cut for that sharding's mesh.
     """
     with open(os.path.join(directory, MANIFEST)) as f:
         manifest = json.load(f)
     leaves, structure = tree_lib.flatten(target_state)
     if manifest["n_leaves"] != len(leaves):
         raise ValueError(f"checkpoint has {manifest['n_leaves']} leaves, target {len(leaves)}")
+    shard_leaves = ([None] * len(leaves) if shardings is None
+                    else tree_lib.leaves(shardings))
+    if len(shard_leaves) != len(leaves):
+        raise ValueError(f"{len(shard_leaves)} shardings for {len(leaves)} leaves")
     out = []
-    for i, ref in enumerate(leaves):
+    for i, (ref, shard) in enumerate(zip(leaves, shard_leaves)):
         arr = np.load(os.path.join(directory, _leaf_path(i)))
         if tuple(arr.shape) != tuple(ref.shape):
             raise ValueError(f"leaf {i}: {arr.shape} != {tuple(ref.shape)}")
-        out.append(_from_numpy(arr, manifest["dtypes"][i], ref.device))
+        if shard is not None:
+            out.append(shard.put(_from_numpy(arr, manifest["dtypes"][i], "cpu")))
+        else:
+            out.append(_from_numpy(arr, manifest["dtypes"][i], ref.device))
     return tree_lib.unflatten(structure, out), manifest["step"]
 
 
@@ -111,8 +129,8 @@ def save_step(base_dir: str, state, step: int, keep: int = 3) -> None:
         shutil.rmtree(os.path.join(base_dir, f"step_{old}"), ignore_errors=True)
 
 
-def restore_latest(base_dir: str, target_state):
+def restore_latest(base_dir: str, target_state, shardings=None):
     step = latest_step(base_dir)
     if step is None:
         return None, None
-    return restore(os.path.join(base_dir, f"step_{step}"), target_state)
+    return restore(os.path.join(base_dir, f"step_{step}"), target_state, shardings)

@@ -12,16 +12,32 @@ as ``shard_map`` calls its body once per device.  ``comm`` is that rank's
   axis, or several linearised in the order given); every other coordinate
   is held fixed, so the pairs expand to global (src, dst) ranks as JAX
   expands a ppermute over named axes.  A rank that no pair sends to gets
-  zeros.
+  zeros.  Its backward is JAX's transpose: the ppermute of the gradient
+  with every pair reversed (a rank that no reversed pair sends to gets
+  zeros).
 * ``psum(x, axes)`` and ``all_gather(x, axes)`` (a new leading axis, in the
   order of the positions along ``axes``) over the ranks that share every
-  other coordinate.
+  other coordinate.  ``psum``'s output is the same on every rank of the
+  group, and its backward passes that one value's gradient to each rank's
+  input unchanged: the gradient JAX gives ``jax.grad`` of a ``shard_map``
+  whose output is a psum (``out_specs=P()``), and not the group's sum of it.
 * ``all_to_all(x, axes)``: ``lax.all_to_all(x, axes, 0, 0, tiled=False)``
   over the same ranks.  ``x`` has one leading entry a rank of the group;
   entry i goes to the rank at position i, and entry j of the result is what
-  the rank at position j sent to this one.  It is the one primitive with a
-  backward: the same exchange of the gradient, since with the split and
-  concat axes both 0 the exchange is its own inverse.
+  the rank at position j sent to this one.  Its backward is the same
+  exchange of the gradient, since with the split and concat axes both 0 the
+  exchange is its own inverse.
+* ``pvary(x, axes)`` and ``replicated_out(x, axes)`` move nothing forward;
+  they give a ``shard_map`` body's boundary JAX's gradients (see each).
+
+A collective's backward runs only under autograd, on a tensor that needs a
+gradient; every rank of the group must then run its backward too.  Under
+``no_grad``, or on a tensor that needs none, each primitive is the plain
+exchange.  Training through a collective needs one autograd engine thread a
+rank: it works on the CPU (each calling thread runs its own backward) and
+one process a rank, but not for rank threads that share one GPU, whose
+backwards all queue on that device's one engine thread
+(``parallel/pipeline.py`` keeps collectives out of autograd for that case).
 
 Ranks are numbered row-major over the mesh shape (the last axis fastest),
 as ``jax.make_mesh`` lays devices out.  Two transports carry the data:
@@ -59,8 +75,9 @@ def _as_tuple(axes: Axes) -> tuple[str, ...]:
 class CommStats:
     """What a mesh's transport moved since the last ``reset``.
 
-    ``bytes`` and ``messages`` count ppermute sends, and the entries an
-    all_to_all sends to other ranks, by (src, dst) global rank pair;
+    ``bytes`` and ``messages`` count ppermute sends (those of its backward
+    too), and the entries an all_to_all sends to other ranks, by (src, dst)
+    global rank pair;
     ``psum_calls``, ``all_gather_calls`` and ``all_to_all_calls`` count one
     per rank and call (an all_to_all's backward is a call too).  A
     ``DistMesh`` counts the sends and calls of its own rank only.
@@ -231,12 +248,42 @@ class Comm:
         return self.mesh.axis_size(axes)
 
     def ppermute(self, x: torch.Tensor, axes: Axes, perm) -> torch.Tensor:
+        if _tracks_grad(x):
+            return _PPermute.apply(x, self, axes, tuple(perm))
+        return self._send(x, axes, perm)
+
+    def _send(self, x, axes, perm):
         src, dst = self.mesh.peers(self.rank, axes, perm)
         return self.mesh._ppermute(self.rank, x.contiguous(), src, dst)
 
     def psum(self, x: torch.Tensor, axes: Axes) -> torch.Tensor:
+        if _tracks_grad(x):
+            return _PSum.apply(x, self, _as_tuple(axes))
+        return self._sum(x, _as_tuple(axes))
+
+    def _sum(self, x, axes):
         self.mesh.stats.record_call("psum")
-        return self.mesh._psum(self.rank, x.contiguous(), _as_tuple(axes))
+        return self.mesh._psum(self.rank, x.contiguous(), axes)
+
+    def pvary(self, x: torch.Tensor, axes: Axes) -> torch.Tensor:
+        """``x``, the same on every rank along ``axes``, as an input that each rank
+        uses on its own (JAX's ``lax.pvary``): the identity, whose backward is the
+        ``psum`` of the ranks' gradients.  With ``replicated_out`` it gives a
+        replicated input of a ``shard_map`` body (``in_specs=P()``) the gradient
+        JAX gives it."""
+        if _tracks_grad(x):
+            return _PVary.apply(x, self, _as_tuple(axes))
+        return x
+
+    def replicated_out(self, x: torch.Tensor, axes: Axes) -> torch.Tensor:
+        """``x``, computed alike on every rank along ``axes``, as a ``shard_map``
+        output replicated over them (``out_specs=P()``, ``check_vma=False``): the
+        identity, whose backward divides the gradient by the size of ``axes``, as
+        JAX's transpose of such an output does.  Each rank's backward then carries
+        its share, and a ``pvary`` input sums the shares."""
+        if _tracks_grad(x):
+            return _ScaleGrad.apply(x, 1.0 / self.mesh.axis_size(axes))
+        return x
 
     def all_gather(self, x: torch.Tensor, axes: Axes) -> torch.Tensor:
         self.mesh.stats.record_call("all_gather")
@@ -262,6 +309,63 @@ class Comm:
             if g != self.rank:
                 self.mesh.stats.record_send(self.rank, g, nbytes)
         return self.mesh._all_to_all(self.rank, x.contiguous(), axes)
+
+
+def _tracks_grad(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _PPermute(torch.autograd.Function):
+    """``Comm.ppermute`` under autograd: the backward is the ppermute of the
+    gradient over the reversed pairs (JAX's transpose rule)."""
+
+    @staticmethod
+    def forward(ctx, x, comm, axes, perm):
+        ctx.comm, ctx.axes, ctx.perm = comm, axes, perm
+        return comm._send(x, axes, perm)
+
+    @staticmethod
+    def backward(ctx, grad):
+        back = [(b, a) for a, b in ctx.perm]
+        return ctx.comm._send(grad, ctx.axes, back), None, None, None
+
+
+class _PSum(torch.autograd.Function):
+    """``Comm.psum`` under autograd: the output's gradient passes to the input."""
+
+    @staticmethod
+    def forward(ctx, x, comm, axes):
+        return comm._sum(x, axes)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+class _PVary(torch.autograd.Function):
+    """``Comm.pvary``: the identity forward, the psum of the gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x, comm, axes):
+        ctx.comm, ctx.axes = comm, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.comm._sum(grad, ctx.axes), None, None
+
+
+class _ScaleGrad(torch.autograd.Function):
+    """The identity forward; the gradient times ``scale`` backward."""
+
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.scale = scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad * ctx.scale, None
 
 
 class _AllToAll(torch.autograd.Function):

@@ -10,24 +10,35 @@ allocation-layer remap → restore-and-continue.  It runs on the GPU unless
 ``torch.Generator(device).manual_seed(seed)``, so their numbers differ from
 the JAX version's; the batches are the same.  ``--sync`` other than ``auto``
 reduces the gradients with one of the paper's algorithms over a 1D
-``"data"`` mesh of this process's devices, as the JAX driver does over
-``jax.devices()``: every visible GPU (a ``LocalMesh``, one rank a GPU), or
-one rank with ``--device cpu``.  On a 1D mesh ``torus`` and ``hamiltonian``
-raise ("needs a 2D mesh"), as in JAX; ``--compress-k`` takes effect with a
-sync mode only.
+``"data"`` mesh, as the JAX driver does over ``jax.devices()``:
+
+* in one process, of this process's devices: every visible GPU (a
+  ``LocalMesh``, one rank a GPU), or one rank with ``--device cpu``;
+* under ``torchrun`` (``WORLD_SIZE`` set), of the processes: a ``DistMesh``
+  with one rank a process, over NCCL on this process's GPU
+  (``LOCAL_RANK``), or over gloo with ``--device cpu``.  Each process takes
+  its shard of the batch; only rank 0 prints and writes checkpoints.
+
+  torchrun --standalone --nproc_per_node N -m repro_torch.launch.train \
+      --sync ring [--device cpu] ...
+
+On a 1D mesh ``torus`` and ``hamiltonian`` raise ("needs a 2D mesh"), as in
+JAX; ``--compress-k`` takes effect with a sync mode only.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import checkpoint as ckpt_lib
 from repro_torch.configs import get_config
 from repro_torch.core import allocation as alloc_lib
-from repro_torch.core.comm import LocalMesh
+from repro_torch.core.comm import DistMesh, LocalMesh
 from repro_torch.data.pipeline import make_batch
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import local_devices
@@ -49,7 +60,9 @@ def build(args, device: torch.device):
     options = steps_lib.TrainOptions(sync=args.sync, remat=not args.no_remat,
                                      compress_k=args.compress_k, use_kernel=args.use_kernel)
     mesh = None
-    if args.sync != "auto":
+    if args.sync != "auto" and dist.is_initialized():
+        mesh = DistMesh((dist.get_world_size(),), ("data",), device)
+    elif args.sync != "auto":
         devices = local_devices(device)
         mesh = LocalMesh((len(devices),), ("data",), devices)
     step_fn = steps_lib.make_train_step(cfg, ocfg, options, Policy(data_axes=("data",)), mesh)
@@ -79,6 +92,23 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
+    if "WORLD_SIZE" in os.environ:  # under torchrun: one rank a process
+        if device.type == "cuda":
+            device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+            torch.cuda.set_device(device)
+            dist.init_process_group("nccl", device_id=device)
+        else:
+            dist.init_process_group("gloo")
+    try:
+        return _run(args, device)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _run(args, device):
+    lead = not dist.is_initialized() or dist.get_rank() == 0
+    say = print if lead else (lambda *a, **k: None)
     cfg, params, opt_state, step_fn = build(args, device)
     start = 0
     if args.checkpoint_dir:
@@ -87,12 +117,12 @@ def main(argv=None):
         if restored is not None:
             params, opt_state = restored["p"], restored["o"]
             start = rstep
-            print(f"[train] resumed from step {start}")
+            say(f"[train] resumed from step {start}")
 
     # the job's boards on a small HxMesh (the paper's allocation layer)
     allocator = alloc_lib.HxMeshAllocator(8, 8)
     placement = allocator.allocate(alloc_lib.Job(0, 2, 4), transpose=True)
-    print(f"[train] job placed on boards rows={placement.rows} cols={placement.cols}")
+    say(f"[train] job placed on boards rows={placement.rows} cols={placement.cols}")
 
     t0 = time.time()
     step = start
@@ -104,17 +134,20 @@ def main(argv=None):
         params, opt_state, metrics = step_fn(params, opt_state, batch)
         step += 1
         if step % 10 == 0 or step == args.steps:
-            print(f"[train] step {step:4d} loss {float(metrics['loss']):.4f} "
+            say(f"[train] step {step:4d} loss {float(metrics['loss']):.4f} "
                   f"lr {float(metrics['lr']):.2e} "
                   f"gnorm {float(metrics['grad_norm']):.2f} "
                   f"({(time.time() - t0):.1f}s)")
         if args.checkpoint_dir and step % args.checkpoint_every == 0:
-            ckpt_lib.save_step(args.checkpoint_dir, {"p": params, "o": opt_state}, step)
+            if lead:
+                ckpt_lib.save_step(args.checkpoint_dir, {"p": params, "o": opt_state}, step)
+            if dist.is_initialized():
+                dist.barrier()
 
         if args.simulate_failure and step == args.simulate_failure:
             # -- the paper's fault-tolerance loop (§III-E, §IV) --------------
             r, c = placement.boards[0]
-            print(f"[failure] board ({r},{c}) failed — evicting job")
+            say(f"[failure] board ({r},{c}) failed — evicting job")
             allocator.fail_board(r, c)
             new_pl = alloc_lib.remap_after_failure(
                 allocator, alloc_lib.Job(0, 2, 4), transpose=True, aspect=True)
@@ -123,7 +156,7 @@ def main(argv=None):
             if not alloc_lib.is_virtual_subhxmesh(new_pl.boards):
                 raise RuntimeError(f"remap is not a virtual sub-HxMesh: {new_pl.boards}")
             placement = new_pl
-            print(f"[failure] remapped to rows={new_pl.rows} cols={new_pl.cols}")
+            say(f"[failure] remapped to rows={new_pl.rows} cols={new_pl.cols}")
             if not args.checkpoint_dir:
                 raise ValueError("failure simulation needs checkpoints (--checkpoint-dir)")
             cfg, params, opt_state, step_fn = build(args, device)
@@ -133,10 +166,10 @@ def main(argv=None):
                 raise RuntimeError(f"no checkpoint in {args.checkpoint_dir} to restart from")
             params, opt_state = restored["p"], restored["o"]
             step = rstep
-            print(f"[failure] restarted from checkpoint step {rstep}")
+            say(f"[failure] restarted from checkpoint step {rstep}")
             args.simulate_failure = 0  # only once
 
-    print(f"[train] done: {args.steps} steps in {time.time() - t0:.1f}s")
+    say(f"[train] done: {args.steps} steps in {time.time() - t0:.1f}s")
     return {"step": step, **{k: float(v) for k, v in metrics.items()}}
 
 

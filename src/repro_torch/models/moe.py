@@ -142,13 +142,13 @@ def moe_apply(x, params, top_k: int, capacity_factor: float = 1.25):
     return y, torch.mean(aux)
 
 
-def moe_apply_gshard(x, params, top_k: int, capacity_factor: float):
+def moe_apply_gshard(x, params, top_k: int, capacity_factor: float, expert_spec=None):
     """GShard-style einsum dispatch: one-hot (G, T·k, E, C) dispatch and combine
     tensors in place of the scatter and gather.
 
-    The JAX version's ``expert_spec`` (a sharding of the buffers' E dim) comes
-    with the port's shardings (ROADMAP Queue A item 9); without it both compute
-    the same function.
+    ``expert_spec`` is the JAX version's layout constraint on the (G, E, C, D)
+    buffers (``activation_specs``' ``"experts"``): accepted, and it changes no
+    number.
     """
     b, s, d = x.shape
     xg, n_groups, group, pad = _groups(x)

@@ -10,9 +10,9 @@ delegates to the functions here.
 The MoE family replaces each layer's SwiGLU with ``models.moe`` under
 ``params["layers"]["moe"]`` (an fp32 router beside experts in the model's
 dtype) and returns the load-balancing loss averaged over the layers.  Its
-expert-parallel mode (``moe_mode="ep"``) needs a mesh in ``forward`` and
-raises until the port's shardings bring one (ROADMAP Queue A item 9);
-``moe.moe_apply_ep`` itself runs on a ``core.comm`` mesh.  The VLM family
+expert-parallel mode (``moe_mode="ep"``) runs ``forward`` once a rank of a
+``core.comm`` mesh with a ``"model"`` axis, the rank's ``Comm`` given as
+``act_specs["mesh"]`` where JAX gives its mesh.  The VLM family
 (qwen2-vl) rotates by M-RoPE over (3, B, S) positions.  The audio family
 (whisper) is an encoder-decoder: learned positions, an encoder over
 precomputed frames (B, enc_seq, d), and a cross-attention in every decoder
@@ -174,15 +174,37 @@ def _mlp_block(cfg: ArchConfig, p, x):
     return L.gelu_mlp(x, p["w_up"], p["b_up"], p["w_down"], p["b_down"])
 
 
-def _moe_block(cfg: ArchConfig, mp, x):
+def _moe_ep(cfg: ArchConfig, mp, x, comm):
+    """Expert-parallel MoE on one rank: the body of JAX's ``shard_map`` over
+    ``"model"`` (tokens and router replicated, experts split).  ``mp`` holds every
+    expert, as the global arrays JAX's ``in_specs`` cut; the rank takes its
+    ``E / n`` of them (views, no copy).  ``pvary`` and ``replicated_out`` give the
+    gradients JAX's transpose gives: the replicated inputs' summed over the
+    ranks, the experts' each on its own rank."""
+    n, i = comm.axis_size("model"), comm.axis_index("model")
+    e = mp["w_gate"].shape[0]
+    if e != cfg.n_experts or e % n:
+        raise ValueError(f"{cfg.name}: moe_mode='ep' takes all {cfg.n_experts} experts, "
+                         f"split over {n} ranks; got {e}")
+    el = e // n
+    local = {"router": comm.pvary(mp["router"], "model"),
+             **{w: mp[w][i * el:(i + 1) * el] for w in ("w_gate", "w_up", "w_down")}}
+    y, aux = moe_lib.moe_apply_ep(comm, comm.pvary(x, "model"), local, cfg.top_k,
+                                  cfg.capacity_factor, axis="model")
+    return comm.replicated_out(y, "model"), comm.replicated_out(aux, "model")
+
+
+def _moe_block(cfg: ArchConfig, mp, x, act_specs=None):
     """(y, aux) of one MoE layer in the forward pass, by ``cfg.moe_mode``."""
     if cfg.moe_mode == "ep":
-        raise NotImplementedError(
-            f"{cfg.name}: moe_mode='ep' in forward needs a mesh, which comes with the "
-            "port's shardings (ROADMAP Queue A item 9); moe.moe_apply_ep runs on a "
-            "core.comm mesh")
+        comm = (act_specs or {}).get("mesh")
+        if comm is None:
+            raise ValueError(f"{cfg.name}: moe_mode='ep' needs the rank's core.comm Comm "
+                             "as act_specs['mesh'] (forward inside Mesh.run)")
+        return _moe_ep(cfg, mp, x, comm)
     if cfg.moe_mode == "gshard":
-        return moe_lib.moe_apply_gshard(x, mp, cfg.top_k, cfg.capacity_factor)
+        return moe_lib.moe_apply_gshard(x, mp, cfg.top_k, cfg.capacity_factor,
+                                        expert_spec=(act_specs or {}).get("experts"))
     return moe_lib.moe_apply(x, mp, cfg.top_k, cfg.capacity_factor)
 
 
@@ -194,6 +216,7 @@ def forward(
     encoder_frames: torch.Tensor | None = None,
     remat: bool = True,
     use_kernel: bool = False,
+    act_specs=None,
     return_hidden: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Full forward pass -> (logits, moe_aux_loss), tokens (B, S) integer.
@@ -210,7 +233,10 @@ def forward(
     (B, S, d) come back in place of the logits, for the chunked
     cross-entropy.  ``use_kernel`` takes the flash op in the decoder's
     self-attention only: the encoder and the cross-attention stay plain, as
-    in JAX.
+    in JAX.  ``act_specs`` is JAX's: its ``"act"``, ``"logits"`` and
+    ``"experts"`` anchors constrain layouts only, and with no layout here they
+    are accepted and change no number; ``"mesh"`` is read for
+    ``moe_mode="ep"`` (``_moe_ep``).
     """
     if positions is None:
         positions = _positions_default(tokens)
@@ -219,13 +245,39 @@ def forward(
     x = params["embed"][tokens.long()]
     if cfg.rope_type == "learned":
         x = x + params["pos_embed"][: x.shape[1]][None]
-    checkpointed = remat and torch.is_grad_enabled()
 
     enc_out = None
     if cfg.enc_layers:
         if encoder_frames is None:
             raise ValueError(f"{cfg.name}: the audio family needs encoder frames")
-        enc_out = _encoder_forward(cfg, params["encoder"], encoder_frames, checkpointed)
+        enc_out = _encoder_forward(cfg, params["encoder"], encoder_frames,
+                                   remat and torch.is_grad_enabled())
+
+    x, aux = forward_layers(cfg, params["layers"], x, positions, enc_out, remat=remat,
+                            use_kernel=use_kernel, act_specs=act_specs)
+    x = L.apply_norm(x, params["final_norm"], cfg.norm_type)
+    aux = aux / cfg.n_layers
+    if return_hidden:
+        return x, aux
+    logits = x @ L.unembed(params)
+    if logits.shape[-1] != cfg.vocab:  # padded vocab: mask the tail
+        keep = torch.arange(logits.shape[-1], device=logits.device) < cfg.vocab
+        logits = torch.where(keep, logits, torch.tensor(-1e30, dtype=logits.dtype,
+                                                        device=logits.device))
+    return logits, aux
+
+
+def forward_layers(cfg: ArchConfig, layers, x, positions=None, enc_out=None, remat=True,
+                   use_kernel=False, act_specs=None):
+    """The decoder layers of a stack (the leading axis of every leaf of ``layers``;
+    all of the model's, or a pipeline stage's) over hidden states x (B, S, d) ->
+    (x, the MoE loss summed over these layers).  ``forward`` without the embed,
+    final norm and unembed; the arguments are ``forward``'s."""
+    if positions is None:
+        positions = _positions_default(x)
+        if cfg.rope_type == "mrope":
+            positions = positions.expand(3, *positions.shape)
+    checkpointed = remat and torch.is_grad_enabled()
 
     def layer_fn(h, aux, lp, enc):
         a = L.apply_norm(h, lp["attn_norm"], cfg.norm_type)
@@ -237,29 +289,21 @@ def forward(
             h = h + _attn_block(cfg, xp, xa, positions, causal=False, window=0, kv_seq=enc)
         m = L.apply_norm(h, lp["mlp_norm"], cfg.norm_type)
         if cfg.family == "moe":
-            y, a_loss = _moe_block(cfg, lp["moe"], m)
+            y, a_loss = _moe_block(cfg, lp["moe"], m, act_specs)
             aux = aux + a_loss
         else:
             y = _mlp_block(cfg, lp, m)
         return h + y, aux
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for lp in L.unstack(params["layers"], cfg.n_layers):
+    n = layers["attn_norm"]["scale"].shape[0]
+    for lp in L.unstack(layers, n):
         if checkpointed:
             x, aux = torch.utils.checkpoint.checkpoint(layer_fn, x, aux, lp, enc_out,
                                                        use_reentrant=False)
         else:
             x, aux = layer_fn(x, aux, lp, enc_out)
-    x = L.apply_norm(x, params["final_norm"], cfg.norm_type)
-    aux = aux / cfg.n_layers
-    if return_hidden:
-        return x, aux
-    logits = x @ L.unembed(params)
-    if logits.shape[-1] != cfg.vocab:  # padded vocab: mask the tail
-        keep = torch.arange(logits.shape[-1], device=logits.device) < cfg.vocab
-        logits = torch.where(keep, logits, torch.tensor(-1e30, dtype=logits.dtype,
-                                                        device=logits.device))
-    return logits, aux
+    return x, aux
 
 
 def _encoder_forward(cfg: ArchConfig, enc, frames, checkpointed: bool):

@@ -76,7 +76,9 @@ def model_extras(batch) -> dict:
 def make_loss_fn(cfg: ArchConfig, options: TrainOptions, act_specs=None):
     """loss_fn(params, batch) -> (loss + moe_aux_weight·aux, (loss, aux)).
 
-    ``act_specs`` (activation shardings) is accepted for the JAX signature.
+    ``act_specs`` goes to the model's ``forward``: its layout anchors change no
+    number, and its ``"mesh"``, the rank's ``Comm``, carries the MoE family's
+    ``moe_mode="ep"`` (``models/transformer.py::forward``).
     """
     model = get_model(cfg)
 
@@ -85,7 +87,8 @@ def make_loss_fn(cfg: ArchConfig, options: TrainOptions, act_specs=None):
         if options.ce_chunk and cfg.family in ("dense", "moe", "vlm"):
             hidden, aux = model.forward(
                 cfg, params, batch["tokens"], remat=options.remat,
-                use_kernel=options.use_kernel, return_hidden=True, **extras,
+                use_kernel=options.use_kernel, act_specs=act_specs, return_hidden=True,
+                **extras,
             )
             unembed = params["unembed"] if "unembed" in params else params["embed"].T
             loss = chunked_cross_entropy(
@@ -93,7 +96,7 @@ def make_loss_fn(cfg: ArchConfig, options: TrainOptions, act_specs=None):
         else:
             logits, aux = model.forward(
                 cfg, params, batch["tokens"], remat=options.remat,
-                use_kernel=options.use_kernel, **extras,
+                use_kernel=options.use_kernel, act_specs=act_specs, **extras,
             )
             loss = cross_entropy(logits, batch["labels"])
         return loss + options.moe_aux_weight * aux, (loss, aux)
@@ -161,8 +164,8 @@ def make_train_step(cfg: ArchConfig, ocfg: opt.AdamWConfig, options: TrainOption
     ``data_axes`` name axes of ``mesh`` (a ``core.comm.Mesh``).  Ranks along
     an axis that is not a data axis take the same shard and do the same work.
     The step updates ``params`` and the moments in place (``optimizer.apply``),
-    once, with the synced gradients, and returns them.  ``act_specs``
-    (activation shardings) is accepted for the JAX signature.
+    once, with the synced gradients, and returns them.  ``act_specs`` goes to
+    ``make_loss_fn``.
     """
     grad_fn = value_and_grad(make_loss_fn(cfg, options, act_specs=act_specs))
 
@@ -233,8 +236,9 @@ def _data_shard(batch, index: int, n: int):
 # ---------------------------------------------------------------------------
 
 
-def make_prefill_step(cfg: ArchConfig, options: TrainOptions):
-    """prefill_step(params, batch) -> logits of the last position, (B, 1, V)."""
+def make_prefill_step(cfg: ArchConfig, options: TrainOptions, act_specs=None):
+    """prefill_step(params, batch) -> logits of the last position, (B, 1, V).
+    ``act_specs`` goes to the model's ``forward``, as in ``make_loss_fn``."""
     model = get_model(cfg)
 
     @torch.no_grad()
@@ -242,7 +246,7 @@ def make_prefill_step(cfg: ArchConfig, options: TrainOptions):
         extras = model_extras(batch)
         logits, _ = model.forward(
             cfg, params, batch["tokens"], remat=options.remat,
-            use_kernel=options.use_kernel, **extras,
+            use_kernel=options.use_kernel, act_specs=act_specs, **extras,
         )
         return logits[:, -1:]
 

@@ -208,9 +208,9 @@ class _Recorder:
         for name in ("moe_apply", "moe_apply_gshard"):
             fn = getattr(TM, name)
 
-            def wrapped(x, params, top_k, cf, fn=fn):
+            def wrapped(x, params, top_k, cf, fn=fn, **layout):  # gshard's expert_spec
                 self.calls.append((x.detach().numpy().copy(), params, top_k, cf))
-                return fn(x, params, top_k, cf)
+                return fn(x, params, top_k, cf, **layout)
 
             monkeypatch.setattr(TM, name, wrapped)
 
@@ -287,10 +287,22 @@ def test_moe_forward_under_remat_and_autograd_matches_without():
 
 
 def test_moe_mode_ep_in_forward_waits_for_the_sharding_slice():
-    cfg = dataclasses.replace(get_config("moonshot-v1-16b-a3b-smoke"), moe_mode="ep")
+    """The sharding slice brought the mesh: ``forward`` with ``moe_mode="ep"`` takes
+    the rank's ``Comm`` as ``act_specs["mesh"]`` and raises without one.  On 2 rank
+    threads it gives the tp forward's logits at a no-drop capacity factor."""
+    from repro_torch.core.comm import LocalMesh
+
+    cfg = dataclasses.replace(get_config("moonshot-v1-16b-a3b-smoke"), moe_mode="ep",
+                              capacity_factor=8.0)
     params = TT.init_params(cfg, torch.Generator().manual_seed(0), torch.float32)
-    with pytest.raises(NotImplementedError, match="Queue A item 9"):
-        TT.forward(cfg, params, torch.zeros((1, 4), dtype=torch.int32))
+    toks = torch.from_numpy(_tokens(cfg, s=12))
+    with pytest.raises(ValueError, match="act_specs"):
+        TT.forward(cfg, params, toks)
+    want, _ = TT.forward(dataclasses.replace(cfg, moe_mode="tp"), params, toks)
+    mesh = LocalMesh((2,), ("model",), "cpu", timeout=60.0)
+    for got, _ in mesh.run(lambda c: TT.forward(cfg, params, toks, act_specs={"mesh": c})):
+        np.testing.assert_allclose(got.detach().numpy(), want.detach().numpy(), rtol=1e-5,
+                                   atol=1e-5)
     # decode runs moe_apply whatever moe_mode, as in JAX
     cache = TT.init_cache(cfg, 1, 2, dtype=torch.float32)
     logits, _ = TT.decode_step(cfg, params, cache, torch.zeros((1, 1), dtype=torch.int32))

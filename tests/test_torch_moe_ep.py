@@ -22,6 +22,19 @@
 * The same over 4 gloo processes (``DistMesh``; a ``FileStore``
   rendezvous, no TCP port), bit for bit against the ``LocalMesh``: the same
   arithmetic on each rank, and exchanges that only copy.
+* The model with ``moe_mode="ep"``: moonshot-v1-16b-a3b-smoke (2 layers, 8
+  experts top-2, 2 a rank) through ``make_loss_fn`` with the rank's ``Comm``
+  as ``act_specs["mesh"]``, over the 4 ``LocalMesh`` threads and the 4 gloo
+  processes (bit for bit), against JAX's forward with its mesh in
+  ``act_specs`` on the same bridged weights (the 4 fake devices): the
+  logits, the aux loss, and the gradients of the loss + 0.01 aux, at the
+  config's capacity factor 1.25 (which drops) and at the no-drop 8.0, within
+  rtol 1e-5 (atol 1e-5 of the largest value) for the values and 1e-4 in
+  relative L2 a leaf for the gradients (float32 in both, in other orders).
+  Every rank's gradient of a replicated leaf is JAX's, and the expert
+  leaves' gradients summed over the ranks are JAX's (each rank's is zero
+  off its own experts).  At the no-drop factor the logits equal
+  ``moe_mode="tp"``'s (the aux losses differ by design).
 
 Run as a script (``python tests/test_torch_moe_ep.py OUT.npz``, with
 ``XLA_FLAGS=--xla_force_host_platform_device_count=4``) it writes the JAX
@@ -29,6 +42,7 @@ outputs; the module imports no JAX otherwise, so the gloo workers that
 import it stay light.
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -39,8 +53,12 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.comm import DistMesh, LocalMesh  # noqa: E402
+from repro_torch.data.pipeline import make_batch  # noqa: E402
 from repro_torch.models import moe as TM  # noqa: E402
+from repro_torch.models import transformer as TT  # noqa: E402
+from repro_torch.train import steps as TS  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -97,13 +115,54 @@ def _a2a_cases(comm):
             "both": comm.all_to_all(_a2a_input(comm.rank, 4), ("model", "data"))}
 
 
+MODEL_ARCH = "moonshot-v1-16b-a3b-smoke"
+MODEL_CFS = (1.25, float(E))  # the config's (drops) and no-drop
+MODEL_B, MODEL_S = 2, 16
+
+
+def _model(cf):
+    """The smoke config in ``moe_mode="ep"`` at capacity factor ``cf``, its fp32
+    weights (the port's init, seed 0) and a batch."""
+    cfg = dataclasses.replace(get_config(MODEL_ARCH), moe_mode="ep", capacity_factor=cf)
+    params = TT.init_params(cfg, torch.Generator().manual_seed(0), dtype=torch.float32)
+    return cfg, params, make_batch(cfg, MODEL_S, MODEL_B, seed=0)
+
+
+def _model_cases(comm):
+    """The EP model on this rank, at each factor of ``MODEL_CFS``: its logits and
+    aux loss, and the gradients of make_loss_fn's total by leaf name."""
+    out = {}
+    for cf in MODEL_CFS:
+        cfg, params, batch = _model(cf)
+        batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+        act = {"mesh": comm}
+        with torch.no_grad():
+            out[f"m_logits_{cf}"], out[f"m_aux_{cf}"] = TT.forward(
+                cfg, params, batch["tokens"], act_specs=act)
+        grad_fn = TS.value_and_grad(TS.make_loss_fn(cfg, TS.TrainOptions(), act_specs=act))
+        (total, _), grads = grad_fn(params, batch)
+        out[f"m_total_{cf}"] = total
+        out.update({f"m_grad_{cf}/{n}": g for n, g in _named(grads)})
+    return out
+
+
+def _named(tree, prefix=""):
+    """(leaf path, leaf) of a tree of dicts, in flatten order (sorted keys)."""
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from _named(tree[k], f"{prefix}{k}.")
+        else:
+            yield prefix + k, tree[k]
+
+
 def _run_cases(make_mesh):
-    """Per-rank results of ``_ep_cases`` and ``_a2a_cases`` for the ranks of this
-    process, in rank order."""
+    """Per-rank results of ``_ep_cases``, ``_a2a_cases`` and ``_model_cases`` for
+    the ranks of this process, in rank order."""
     inp, ginp = _inputs(), _inputs(seed=1, b=GRAD_B)
     ep = make_mesh((N,), (AXIS,)).run(_ep_cases, [inp] * N, [ginp] * N)
     a2a = make_mesh((2, 2), ("data", "model")).run(_a2a_cases)
-    return [{**a, **c} for a, c in zip(ep, a2a)]
+    model = make_mesh((N,), (AXIS,)).run(_model_cases)
+    return [{**a, **c, **m} for a, c, m in zip(ep, a2a, model)]
 
 
 @pytest.fixture(scope="module")
@@ -174,6 +233,21 @@ def test_moe_apply_ep_matches_moe_apply_at_no_drop_capacity(local_results):
     want, _ = TM.moe_apply(torch.from_numpy(inp["x"]), _local_params_all(inp), K, float(E))
     for res in local_results:
         _close(res[f"y_{float(E)}"], want.numpy(), rtol=1e-4, atol=1e-5)
+
+
+def test_model_ep_matches_tp_at_no_drop_capacity(local_results):
+    cfg, params, batch = _model(float(E))
+    with torch.no_grad():
+        want, _ = TT.forward(dataclasses.replace(cfg, moe_mode="tp"), params,
+                             torch.from_numpy(batch["tokens"]))
+    for res in local_results:
+        _close(res[f"m_logits_{float(E)}"], want.numpy())
+
+
+def test_model_ep_without_a_comm_raises():
+    cfg, params, batch = _model(float(E))
+    with pytest.raises(ValueError, match="needs the rank's core.comm Comm"):
+        TT.forward(cfg, params, torch.from_numpy(batch["tokens"]))
 
 
 def _local_params_all(inp):
@@ -295,6 +369,22 @@ def _write_jax_reference(path):
         out[f"y_{cf}"], out[f"aux_{cf}"] = jax.jit(compat.shard_map(
             ep, mesh=mesh, check_vma=False, in_specs=(P(None, None, None), specs),
             out_specs=(P(AXIS, None, None, None), P(AXIS))))(x, params)
+    # the model with moe_mode="ep", its mesh in act_specs, on the port's weights
+    from repro.models import transformer as JT
+    from repro.train import steps as JS
+    from repro_torch.testing import bridge
+
+    for cf in MODEL_CFS:
+        cfg, params_t, batch = _model(cf)
+        params = jax.tree.map(jnp.asarray, bridge.params_to_numpy(params_t))
+        jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+        act = {"mesh": mesh}
+        out[f"m_logits_{cf}"], out[f"m_aux_{cf}"] = jax.jit(
+            lambda p, t, cfg=cfg: JT.forward(cfg, p, t, act_specs=act))(params, jbatch["tokens"])
+        loss_fn = JS.make_loss_fn(cfg, JS.TrainOptions(), act_specs=act)
+        (total, _), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(params, jbatch)
+        out[f"m_total_{cf}"] = total
+        out.update({f"m_grad_{cf}/{n}": g for n, g in _named(grads)})
     np.savez(path, **{k: np.asarray(v) for k, v in out.items()})
 
 
@@ -318,6 +408,37 @@ def test_local_mesh_matches_jax_per_rank(cf, jax_reference, local_results):
     if cf == float(E):  # check_moe_ep's own assertion, on the JAX side
         np.testing.assert_allclose(jax_reference[f"y_{cf}"][0], jax_reference["y_ref"],
                                    rtol=1e-4, atol=1e-5)
+
+
+def _rel_l2(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+EXPERT_LEAVES = ("layers.moe.w_down", "layers.moe.w_gate", "layers.moe.w_up")
+
+
+@pytest.mark.timeout(200)
+@pytest.mark.parametrize("cf", MODEL_CFS)
+def test_model_ep_matches_jax(cf, jax_reference, local_results):
+    names = [n for n in jax_reference if n.startswith(f"m_grad_{cf}/")]
+    assert len(names) == len(list(_named(_model(cf)[1])))
+    el = E // N
+    for r, res in enumerate(local_results):
+        _close(res[f"m_logits_{cf}"], jax_reference[f"m_logits_{cf}"])
+        _close(res[f"m_aux_{cf}"], jax_reference[f"m_aux_{cf}"])
+        _close(res[f"m_total_{cf}"], jax_reference[f"m_total_{cf}"])
+        for n in names:
+            leaf = n.split("/", 1)[1]
+            if leaf in EXPERT_LEAVES:  # (L, E, ...): this rank's experts only
+                off = np.delete(res[n].numpy(), np.s_[r * el:(r + 1) * el], axis=1)
+                assert not off.any(), (n, r)
+            else:
+                assert _rel_l2(res[n], jax_reference[n]) <= 1e-4, (n, r)
+    for n in names:
+        if n.split("/", 1)[1] in EXPERT_LEAVES:
+            total = sum(res[n] for res in local_results)
+            assert _rel_l2(total, jax_reference[n]) <= 1e-4, n
 
 
 if __name__ == "__main__":

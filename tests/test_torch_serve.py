@@ -18,6 +18,7 @@ from repro.configs import get_config as jget_config  # noqa: E402
 from repro.data import pipeline as jpipe  # noqa: E402
 from repro.models import transformer as JT  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.comm import LocalMesh  # noqa: E402
 from repro_torch.data import pipeline as tpipe  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
@@ -144,7 +145,8 @@ def test_entry_points_want_cuda_unless_told_cpu():
                                   "whisper-tiny-smoke"])
 def test_unported_families_raise(arch, monkeypatch):
     """Each family the port lacks raises naming its ROADMAP item; of the moe family,
-    which is ported, the expert-parallel forward (``moe_mode="ep"``) does.  The
+    which is ported, the expert-parallel forward (``moe_mode="ep"``) raises without
+    the rank's ``Comm`` in ``act_specs`` and runs inside ``Mesh.run`` with it.  The
     ssm and hybrid families are ported now: ``get_model`` gives their modules,
     and their ``forward`` ignores ``use_kernel`` as JAX's ``**_`` does, so the
     flash op, made to raise here, is never called.  The vlm and audio families
@@ -189,5 +191,10 @@ def test_unported_families_raise(arch, monkeypatch):
     cfg = dataclasses.replace(cfg, moe_mode="ep")
     model = get_model(cfg)
     params = model.init_params(cfg, torch.Generator().manual_seed(0), torch.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.forward(cfg, params, torch.zeros((1, 4), dtype=torch.int32))
+    toks = torch.zeros((1, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="act_specs"):
+        model.forward(cfg, params, toks)
+    mesh = LocalMesh((2,), ("model",), "cpu", timeout=60.0)
+    for logits, _ in mesh.run(lambda c: model.forward(cfg, params, toks,
+                                                      act_specs={"mesh": c})):
+        assert logits.shape == (1, 4, cfg.vocab) and torch.isfinite(logits).all()
