@@ -9,7 +9,9 @@ seed (also through a 4-stage pipeline), shards and reshards it, runs the
 paper's gradient sync over 16 ranks and the train CLI under torchrun, serves
 and trains the MoE moonshot-v1-16b-a3b (also expert-parallel in the model),
 the SSM mamba2-130m and the hybrid recurrentgemma-9b (the last two reach no
-kernel, in JAX or here), the VLM qwen2-vl-7b and the audio whisper-tiny:
+kernel, in JAX or here), the VLM qwen2-vl-7b and the audio whisper-tiny, then
+dry-runs a production cell on fake tensors and holds a dry-run's prediction
+against the step it predicts, and runs the flow simulator's device backend:
 
 1. device and toolchain: card name and power limit, torch and nvcc versions;
 2. build, timed (one nvcc per source, all started together), with ptxas's
@@ -157,10 +159,24 @@ kernel, in JAX or here), the VLM qwen2-vl-7b and the audio whisper-tiny:
    warm-up and three timed calls); and the fp32 gate on the weights of 12
    (4 layers, batch 1 x 2048, no-drop capacity factor) against
    ``moe_mode="tp"``, tp's routing replayed.  Forward only (the probe of 18);
-22. one JSON line on every kernel (launches by path, the MoE, SSM, hybrid,
+22. the dry-run (after 17): ``repro_torch.launch.dryrun``'s cell of
+   llama3.2-3b train_4k on the single pod at full width (fake tensors on the
+   host, rank 0 of 16 x 16, ``sync="auto"`` traced as psum), with the
+   roofline twin's row; then the dry-run's prediction of the step that runs
+   on this card (llama3.2-3b fp32, batch 2 x 2048, remat, the plain
+   attention, one rank) against the step itself: its FLOPs equal to
+   ``FlopCounterMode``'s count on the card, exactly, and its peak within 10 %
+   of ``torch.cuda.max_memory_allocated``; the card's own bf16 GEMM rate and
+   HBM copy bandwidth beside the roofline's data-sheet constants;
+23. the flow simulator's torch backend (``repro_torch.core.flowsim``): the
+   max ECMP link load of uniform all-to-all on the paper's small Hx2Mesh
+   (1,024 accelerators, 64 switches) and on a 6,400-accelerator one, on the
+   card against the NumPy engine on the host within 1e-5, both timed;
+24. one JSON line on every kernel (launches by path, the MoE, SSM, hybrid,
    VLM, audio, pipeline and EP paths included), one each on the sync, MoE,
-   SSM, hybrid, VLM, audio, pipeline, EP-model, sharding and torchrun
-   phases, the card's name and power limit, and last the JSON result line.
+   SSM, hybrid, VLM, audio, pipeline, EP-model, sharding, torchrun, dry-run
+   and flow-simulator phases, the card's name and power limit, and last the
+   JSON result line.
 
 Any failure raises and exits nonzero; without a CUDA device, or without the
 rest of the repository beside it, the script exits nonzero and prints no
@@ -3377,6 +3393,167 @@ def phase_torchrun(smi) -> dict:
             "loss": float(loss[0]), "local_loss": local["loss"]}
 
 
+# ---------------------------------------------------------------------------
+# the dry-run and the flow simulator's device backend (the tenth slice)
+# ---------------------------------------------------------------------------
+
+DRYRUN_ARCH = "llama3.2-3b"
+DRYRUN_PEAK_RTOL = 0.10  # the predicted peak against max_memory_allocated
+GEMM_N = 8192  # the bf16 GEMM that measures the card's tensor-core rate
+COPY_BYTES = 1 << 31  # the device-to-device copy that measures HBM bandwidth
+FLOWSIM_RTOL = 1e-5  # the JAX backend's own tolerance against NumPy (float32)
+# the paper's small Hx2Mesh (2 x 2 boards, 16 x 16: 1,024 accelerators, 64
+# switches), then the largest whose NumPy reference stays well inside 60 s on
+# the host (40 x 40: 6,400 accelerators; 48 x 48 is near 60 s)
+FLOWSIM_MESHES = ((2, 2, 16, 16), (2, 2, 40, 40))
+
+
+def _fake_batch_like(batch: dict):
+    """Fake tensors of ``batch``'s shapes and dtypes (inside FakeTensorMode)."""
+    spec = {k: (tuple(v.shape), v.dtype) for k, v in batch.items()}
+    return lambda: {k: torch.empty(s, dtype=d) for k, (s, d) in spec.items()}
+
+
+def _card_rates() -> dict:
+    """The card's own bf16 GEMM TFLOP/s and HBM copy GB/s (CUDA events)."""
+    a = torch.randn(GEMM_N, GEMM_N, device="cuda", dtype=torch.bfloat16)
+    b = torch.randn(GEMM_N, GEMM_N, device="cuda", dtype=torch.bfloat16)
+    gemm_ms = cuda_ms(lambda: a @ b, reps=20, warmup=3)
+    src = torch.empty(COPY_BYTES, dtype=torch.uint8, device="cuda")
+    dst = torch.empty_like(src)
+    copy_ms = cuda_ms(lambda: dst.copy_(src), reps=20, warmup=3)
+    del a, b, src, dst
+    torch.cuda.empty_cache()
+    return {"gemm_tflops": 2 * GEMM_N ** 3 / (gemm_ms * 1e-3) / 1e12, "gemm_ms": gemm_ms,
+            "copy_gbs": 2 * COPY_BYTES / (copy_ms * 1e-3) / 1e9, "copy_ms": copy_ms}
+
+
+def phase_dryrun(smi) -> dict:
+    """The dry-run on the card's host: the production cell at full width, then the
+    cell of the step that runs on this card, its prediction held to the real step."""
+    sys.path.insert(0, str(ROOT / "benchmarks"))
+    import roofline_torch as roof
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import abstract_params, get_config
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.launch import dryrun
+    from repro_torch.models import get_model
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import steps as st
+
+    # -- the production cell, as `python -m repro_torch.launch.dryrun` traces it
+    rec = dryrun.run_cell(DRYRUN_ARCH, "train_4k", False, st.TrainOptions(sync="auto"))
+    if not rec["ok"]:
+        raise AssertionError(f"dry-run of {DRYRUN_ARCH} train_4k failed: {rec['error']}")
+    log("[dryrun] " + json.dumps(rec))
+    log("[dryrun] roofline twin: " + json.dumps(roof.row(rec)))
+
+    # -- the step that runs on this card: llama3.2-3b fp32, batch 2 x 2048, remat,
+    #    the plain attention (FlopCounterMode sees it), one rank, sync="auto"
+    cfg = get_config(DRYRUN_ARCH)
+    ocfg = opt.AdamWConfig(lr=3e-3, warmup_steps=1, total_steps=2, schedule=cfg.schedule)
+    step_fn = st.make_train_step(cfg, ocfg, st.TrainOptions(remat=True, use_kernel=False))
+    host_batch = {k: torch.from_numpy(v)
+                  for k, v in make_batch(cfg, TRAIN_LEN, TRAIN_BATCH, step=0).items()}
+    params_abs = abstract_params(cfg, dtype=torch.float32)
+    fake_batch = _fake_batch_like(host_batch)
+
+    def make_args():
+        params = dryrun._fake(params_abs)
+        return params, opt.init(params), fake_batch()
+
+    t0 = time.perf_counter()
+    pred = dryrun.trace(make_args, step_fn)
+    trace_s = time.perf_counter() - t0
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    params = get_model(cfg).init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                                        dtype=torch.float32)
+    ostate = opt.init(params)
+    batch = {k: v.cuda() for k, v in host_batch.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    with FlopCounterMode(display=False) as counter:
+        params, ostate, m = step_fn(params, ostate, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    flops = counter.get_total_flops()
+    t0 = time.perf_counter()
+    params, ostate, m = step_fn(params, ostate, batch)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    launches = _counts()
+    loss = float(m["loss"])
+    del params, ostate, batch, m
+    torch.cuda.empty_cache()
+    peak_err = abs(pred["peak_bytes"] - peak) / peak
+    terms = roof.terms(flops, pred["bytes_accessed"], 0)
+    rates = _card_rates()
+    log(f"[dryrun] {cfg.name} fp32 train step, batch {TRAIN_BATCH} x {TRAIN_LEN}, remat, plain "
+        f"attention: predicted on fake tensors in {trace_s:.1f}s: {pred['flops']} FLOPs, peak "
+        f"{pred['peak_bytes']} B ({pred['peak_bytes'] / 2**30:.2f} GiB), {pred['bytes_accessed']} "
+        f"B accessed; on the card: {flops} FLOPs (FlopCounterMode), peak {peak} B "
+        f"({peak / 2**30:.2f} GiB, max_memory_allocated; predicted rel {peak_err:.4f}, tol "
+        f"{DRYRUN_PEAK_RTOL}); step {step_s:.3f}s, loss {loss:.6f} [{smi}]")
+    log(f"[dryrun] roofline twin's terms for this step ({roof.HARDWARE}, bf16 peak): compute "
+        f"{terms['compute']:.4f}s, memory {terms['memory']:.4f}s (unfused bytes) beside the "
+        f"measured {step_s:.3f}s in fp32; the card measured: bf16 GEMM {GEMM_N}^3 "
+        f"{rates['gemm_tflops']:.1f} TFLOP/s (data sheet {roof.PEAK_FLOPS / 1e12:g}), HBM copy "
+        f"{rates['copy_gbs']:.1f} GB/s (data sheet {roof.HBM_BW / 1e9:g}) [{smi}]")
+    if flops != pred["flops"]:
+        raise AssertionError(f"dry-run FLOPs {pred['flops']} != the step's {flops} on the card")
+    if peak_err > DRYRUN_PEAK_RTOL:
+        raise AssertionError(f"dry-run peak {pred['peak_bytes']} B is {peak_err:.3f} from the "
+                             f"card's {peak} B (tol {DRYRUN_PEAK_RTOL})")
+    if any(launches.values()) or not math.isfinite(loss):
+        raise AssertionError(f"the plain step launched kernels {launches} or lost its loss {loss}")
+    return {"cell": rec, "step": {"predicted": pred, "flops": flops, "peak_bytes": peak,
+                                  "peak_rel_err": peak_err, "trace_s": trace_s,
+                                  "step_s": step_s, "terms_s": terms},
+            "card": rates, "datasheet": {"hardware": roof.HARDWARE,
+                                         "peak_flops": roof.PEAK_FLOPS,
+                                         "hbm_bw": roof.HBM_BW, "link_bw": roof.LINK_BW}}
+
+
+def phase_flowsim(smi) -> dict:
+    """The flow simulator's torch backend on the card against its NumPy engine on
+    the host: the max ECMP link load of uniform all-to-all on HxMesh planes."""
+    from repro_torch.core import flowsim as fs
+
+    out = {}
+    for a, b, x, y in FLOWSIM_MESHES:
+        net = fs.build_hxmesh(a, b, x, y)
+        traffic = fs.alltoall_matrix(net)
+        t0 = time.perf_counter()
+        ref = fs.max_link_load(net, traffic)
+        numpy_s = time.perf_counter() - t0
+        torch_s = []
+        for _ in range(2):  # the first call includes the card's warm-up
+            t0 = time.perf_counter()
+            got = fs.max_link_load(net, traffic, backend="torch")
+            torch_s.append(time.perf_counter() - t0)
+        rel = abs(got - ref) / ref
+        tag = f"hx{a}x{b}-{x}x{y}"
+        log(f"[flowsim] {tag}: {net.n_endpoints} accelerators, "
+            f"{net.n_nodes - net.n_endpoints} switches, {len(net.directed_edges()[0])} directed "
+            f"links; all-to-all max link load numpy {ref:.9f} in {numpy_s:.2f}s (host), torch "
+            f"{got:.9f} in {torch_s[0]:.3f}s / {torch_s[1]:.3f}s (cuda, float32); rel "
+            f"{rel:.2e} (tol {FLOWSIM_RTOL}) [{smi}]")
+        if not rel <= FLOWSIM_RTOL:
+            raise AssertionError(f"flowsim {tag}: torch {got} vs numpy {ref} (rel {rel:.2e})")
+        out[tag] = {"endpoints": net.n_endpoints, "nodes": net.n_nodes, "numpy": ref,
+                    "torch": got, "rel": rel, "numpy_s": numpy_s, "torch_s": torch_s}
+    first = out[next(iter(out))]
+    if (first["endpoints"], first["nodes"] - first["endpoints"]) != (1024, 64):
+        raise AssertionError(f"the small Hx2Mesh has {first['endpoints']} accelerators and "
+                             f"{first['nodes'] - first['endpoints']} switches, want 1024 and 64")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3417,6 +3594,8 @@ def main() -> int:
     hybrid = phase_hybrid(smi)
     vlm = phase_vlm(smi)
     audio = phase_audio(smi)
+    dryrun = phase_dryrun(smi)
+    flowsim = phase_flowsim(smi)
 
     paths = {"prefill": prefill, "train_steps": train, "train_driver": driver,
              "train_sync": sync_train["launches"], "prefill_moe": moe_serve["launches"],
@@ -3491,6 +3670,8 @@ def main() -> int:
                                      "prefill": moe_ep_prefill}}))
     log(json.dumps({"sharding": {"device": smi, "arch": PIPE_ARCH, **sharding}}))
     log(json.dumps({"torchrun": {"device": smi, **torchrun}}))
+    log(json.dumps({"dryrun": {"device": smi, **dryrun}}))
+    log(json.dumps({"flowsim": {"device": smi, **flowsim}}))
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(smi)
     print(json.dumps({"ok": True, "device": {

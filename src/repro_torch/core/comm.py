@@ -51,7 +51,12 @@ as ``jax.make_mesh`` lays devices out.  Two transports carry the data:
   ``batch_isend_irecv`` between global ranks, psum ``all_reduce``,
   all_gather ``all_gather_into_tensor`` and all_to_all ``all_to_all_single``.
 
-Both count what they move in ``Mesh.stats``: ppermute and all_to_all bytes
+A third, ``TraceMesh``, moves nothing: it runs the ranks it is asked for in
+the calling thread, and its collectives return placeholders of the right
+shape, dtype and device with no peer.  The dry-run (``launch/dryrun.py``)
+traces one rank of the production mesh through it on fake tensors.
+
+Each counts what it moves in ``Mesh.stats``: ppermute and all_to_all bytes
 and messages by (src, dst) rank pair, and psum, all_gather and all_to_all
 calls.
 """
@@ -484,6 +489,55 @@ class LocalMesh(Mesh):
         i = self.axis_index(rank, axes)
         return self._exchange(rank, x, lambda slots: torch.stack([slots[g][i].to(dev)
                                                                   for g in group]))
+
+
+class TraceMesh(Mesh):
+    """A mesh of named axes with no peers and no threads: the dry-run's mesh.
+
+    ``run(fn, *per_rank_args)`` calls ``fn(Comm(mesh, r), ...)`` in the calling
+    thread for each rank of ``ranks`` (rank 0 by default), in that order, and
+    returns their results, so that dispatch modes entered by the caller (fake
+    tensors, ``FlopCounterMode``) see every op.  The collectives need no peer:
+    each returns a placeholder of the collective's shape and dtype on ``x``'s
+    device, made from ``x`` alone (a copy of it; ``n`` copies stacked for
+    all_gather; zeros for a ppermute that no pair sends to the rank), whose
+    values are not the collective's.  ``stats`` counts, for the ranks run,
+    what a ``LocalMesh`` counts for them; ``calls`` adds, a call, the
+    collective's kind (the HLO op's name), its result bytes and its group size,
+    which the dry-run's wire model reads.
+    """
+
+    def __init__(self, shape, axis_names, ranks=(0,)):
+        super().__init__(shape, axis_names)
+        self.ranks = tuple(ranks)
+        self.calls: list[tuple[int, str, int, int]] = []  # (rank, kind, bytes, group)
+
+    def device(self, rank: int) -> torch.device:
+        return torch.device("cpu")  # the dry-run traces fake CPU tensors
+
+    def run(self, fn, *per_rank_args) -> list:
+        self._check_args(per_rank_args)
+        return [fn(Comm(self, r), *(a[r] for a in per_rank_args)) for r in self.ranks]
+
+    def _record(self, rank, kind, out, group):
+        self.calls.append((rank, kind, out.numel() * out.element_size(), group))
+        return out
+
+    def _ppermute(self, rank, x, src, dst):
+        if dst is not None:
+            self.stats.record_send(rank, dst, x.numel() * x.element_size())
+        out = torch.zeros_like(x) if src is None else x.clone()
+        return self._record(rank, "collective-permute", out, 1)
+
+    def _psum(self, rank, x, axes):
+        return self._record(rank, "all-reduce", x.clone(), self.axis_size(axes))
+
+    def _all_gather(self, rank, x, axes):
+        n = self.axis_size(axes)
+        return self._record(rank, "all-gather", x.expand((n,) + tuple(x.shape)).clone(), n)
+
+    def _all_to_all(self, rank, x, axes):
+        return self._record(rank, "all-to-all", x.clone(), self.axis_size(axes))
 
 
 class DistMesh(Mesh):

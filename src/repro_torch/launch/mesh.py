@@ -29,9 +29,16 @@ def local_devices(device=None) -> list[torch.device]:
     return [dev]
 
 
+def production_layout(multi_pod: bool = False) -> tuple[tuple[int, ...], tuple[str, ...]]:
+    """The production mesh's (shape, axis names), for ``make_production_mesh``
+    and the dry-run's ``TraceMesh``."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
 def make_production_mesh(*, multi_pod: bool = False, device=None):
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    shape, axes = production_layout(multi_pod)
     n = math.prod(shape)
     if device is not None:
         return LocalMesh(shape, axes, resolve_device(device))

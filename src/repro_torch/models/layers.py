@@ -154,9 +154,10 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor, sections, theta: float
     """
     d = x.shape[-1]
     freqs = rope_freqs(d, theta, x.device)  # (d/2,)
-    sec = torch.repeat_interleave(torch.arange(3, device=x.device),
-                                  torch.tensor(sections, device=x.device))  # (d/2,)
-    pos_bands = positions[sec]  # (d/2, B, S)
+    # positions[sec] from the Python ints of ``sections``: no index tensor whose
+    # values set a shape (a host sync on the card; a fake-tensor trace stops there)
+    pos_bands = torch.cat([positions[band][None].expand(int(n), *positions.shape[1:])
+                           for band, n in enumerate(sections)])  # (d/2, B, S)
     angles = pos_bands.permute(1, 2, 0).float() * freqs  # (B,S,d/2)
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]

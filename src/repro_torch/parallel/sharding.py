@@ -166,14 +166,21 @@ def _dp_for(policy: Policy, mesh, batch: int):
     return policy.dp if batch % dp_total == 0 else None
 
 
+def batch_axis(name: str) -> int:
+    """The batch axis of batch leaf ``name``: the second of M-RoPE's (3, B, S)
+    ``positions``, the first of every other leaf."""
+    return 1 if name == "positions" else 0
+
+
 def batch_specs(cfg: ArchConfig, policy: Policy, mesh, batch: int):
     dp = _dp_for(policy, mesh, batch)
-    specs = {"tokens": P(dp, None), "labels": P(dp, None)}
+    ndims = {"tokens": 2, "labels": 2}
     if cfg.rope_type == "mrope":
-        specs["positions"] = P(None, dp, None)
+        ndims["positions"] = 3
     if cfg.enc_layers:
-        specs["encoder_frames"] = P(dp, None, None)
-    return specs
+        ndims["encoder_frames"] = 3
+    return {k: P(*(dp if i == batch_axis(k) else None for i in range(n)))
+            for k, n in ndims.items()}
 
 
 def cache_specs(cfg: ArchConfig, cache_shape, policy: Policy, mesh, batch: int):

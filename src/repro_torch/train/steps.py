@@ -31,6 +31,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import collectives as coll
 from repro_torch.core import compression as comp
 from repro_torch.models import get_model
+from repro_torch.parallel import sharding as shard_lib
 from repro_torch.train import optimizer as opt
 
 
@@ -167,9 +168,8 @@ def make_train_step(cfg: ArchConfig, ocfg: opt.AdamWConfig, options: TrainOption
     once, with the synced gradients, and returns them.  ``act_specs`` goes to
     ``make_loss_fn``.
     """
-    grad_fn = value_and_grad(make_loss_fn(cfg, options, act_specs=act_specs))
-
     if options.sync == "auto":
+        grad_fn = value_and_grad(make_loss_fn(cfg, options, act_specs=act_specs))
 
         def train_step(params, opt_state, batch):
             (_, (loss, aux)), grads = grad_fn(params, batch)
@@ -186,10 +186,13 @@ def make_train_step(cfg: ArchConfig, ocfg: opt.AdamWConfig, options: TrainOption
     dp_total = mesh.axis_size(axes)
 
     def synced_grads(comm, params, batch):
-        """Runs on one rank with its data shard."""
+        """Runs on one rank with its data shard; the forward gets the rank's
+        ``Comm`` as ``act_specs["mesh"]`` (read by ``moe_mode="ep"``)."""
         params = tree_lib.tree_map(lambda t: t.to(comm.device), params)
         batch = {k: v.to(comm.device) for k, v in batch.items()}
-        (_, (loss, aux)), grads = grad_fn(params, batch)
+        rank_grad_fn = value_and_grad(make_loss_fn(cfg, options,
+                                                   act_specs={**(act_specs or {}), "mesh": comm}))
+        (_, (loss, aux)), grads = rank_grad_fn(params, batch)
         if options.compress_k:
 
             def sync_leaf(g):
@@ -221,13 +224,15 @@ def make_train_step(cfg: ArchConfig, ocfg: opt.AdamWConfig, options: TrainOption
 
 
 def _data_shard(batch, index: int, n: int):
-    """Shard ``index`` of ``n`` of every batch leaf along its leading axis."""
+    """Shard ``index`` of ``n`` of every batch leaf along its batch axis, as
+    ``batch_specs`` shards them."""
     out = {}
     for k, v in batch.items():
-        if v.shape[0] % n:
-            raise ValueError(f"batch[{k!r}] has {v.shape[0]} rows for {n} data shards")
-        rows = v.shape[0] // n
-        out[k] = v[index * rows:(index + 1) * rows]
+        dim = shard_lib.batch_axis(k)
+        if v.shape[dim] % n:
+            raise ValueError(f"batch[{k!r}] has {v.shape[dim]} rows for {n} data shards")
+        rows = v.shape[dim] // n
+        out[k] = v.narrow(dim, index * rows, rows)
     return out
 
 

@@ -1,0 +1,26 @@
+"""``run_cell`` is ok for every smoke cell of the VLM and audio families on
+both meshes, and for the SSM's cells on the multi-pod mesh
+(``test_torch_dryrun_cells_a.py`` has the dense, MoE and hybrid families, ``_c.py``
+the SSM on the single pod: its chunk of 8 at 32k tokens makes 4096 chunks a
+layer, each traced)."""
+
+import pytest
+
+pytest.importorskip("torch")
+
+from repro_torch.configs import get_config, list_archs, valid_cells  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.train.steps import TrainOptions  # noqa: E402
+
+CELLS = [(a, s, multi) for a in list_archs() if get_config(a).family in ("vlm", "audio")
+         for s in valid_cells(a) for multi in (False, True)]
+CELLS += [(a, s, True) for a in list_archs() if get_config(a).family == "ssm"
+          for s in valid_cells(a)]
+
+
+@pytest.mark.parametrize("arch,shape,multi", CELLS)
+def test_run_cell_is_ok(arch, shape, multi):
+    rec = dryrun.run_cell(arch, shape, multi, TrainOptions(), smoke=True)
+    assert rec["ok"], rec.get("traceback")
+    assert rec["flops"] > 0 and rec["peak_bytes_per_rank"] >= rec["step_arg_bytes_per_rank"] > 0
+    assert rec["arg_bytes_per_device"] > 0 and rec["chips"] == (512 if multi else 256)

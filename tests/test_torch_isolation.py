@@ -1,4 +1,5 @@
-"""repro_torch and chip_smoke.py import neither JAX nor anything of repro."""
+"""repro_torch, chip_smoke.py and the torch twins of the benchmarks and examples
+import neither JAX nor anything of repro."""
 
 import ast
 import os
@@ -45,7 +46,9 @@ def _imported_modules(path: Path):
             yield node.module
 
 
-@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"],
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+                         + sorted(REPO.glob("benchmarks/*_torch.py"))
+                         + sorted(REPO.glob("examples/*_torch.py")),
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_source_imports_no_jax_and_no_repro(path):
     for mod in _imported_modules(path):
