@@ -11,7 +11,8 @@ and trains the MoE moonshot-v1-16b-a3b (also expert-parallel in the model),
 the SSM mamba2-130m and the hybrid recurrentgemma-9b (the last two reach no
 kernel, in JAX or here), the VLM qwen2-vl-7b and the audio whisper-tiny, then
 dry-runs a production cell on fake tensors and holds a dry-run's prediction
-against the step it predicts, and runs the flow simulator's device backend:
+against the step it predicts, runs the flow simulator's device backend, and
+serves llama3.2-3b tensor-parallel over 16 rank threads:
 
 1. device and toolchain: card name and power limit, torch and nvcc versions;
 2. build, timed (one nvcc per source, all started together), with ptxas's
@@ -23,15 +24,18 @@ against the step it predicts, and runs the flow simulator's device backend:
    window at head_dim 128), fp32 and bf16, through every kernel that takes
    the case (``flash_attention.variant`` picks tf32 for fp32, sm90 for bf16
    at head_dim >= 16 and simt for bf16 at 8; simt takes every case too, for
-   the record), each line naming the kernel that ran; the tf32 kernel's
+   the record; and a rank's share of llama3.2-3b's tensor-parallel prefill,
+   1 row x 2 kv heads and their 6 q heads), each line naming the kernel that
+   ran; the tf32 kernel's
    split of K and V against its plain version, bit for bit; at the
    llama3.2-3b prefill shape the bf16 kernels are timed in turns (sm90,
    simt, SDPA) beside the plain version and the bound, with achieved
    TFLOP/s, and again at head_dim 64 (the minicpm-2b widths) and at the
-   moonshot-v1-16b-a3b, qwen2-vl-7b and whisper-tiny prefill shapes; in fp32
-   the same at the training shape (batch 2; tf32, simt, SDPA, three rounds)
-   and at the prefill shape (one round) of llama3.2-3b, moonshot-v1-16b-a3b,
-   qwen2-vl-7b and whisper-tiny,
+   moonshot-v1-16b-a3b, qwen2-vl-7b and whisper-tiny prefill shapes and at
+   the tensor-parallel rank's share (1, 2048, 6 / 2, 128); in fp32 the same
+   at the training shape (batch 2; tf32, simt, SDPA, three rounds), at the
+   prefill shape (one round) of llama3.2-3b, moonshot-v1-16b-a3b,
+   qwen2-vl-7b and whisper-tiny, and at the rank's share (three rounds),
    each with the 3xTF32 bound and the CUDA-core bound; and at moonshot's
    training shape with q scaled to attention scores ~40 and ~450, each fp32
    kernel against the op in fp64, within the plain version's own error + TOL;
@@ -172,11 +176,29 @@ against the step it predicts, and runs the flow simulator's device backend:
    max ECMP link load of uniform all-to-all on the paper's small Hx2Mesh
    (1,024 accelerators, 64 switches) and on a 6,400-accelerator one, on the
    card against the NumPy engine on the host within 1e-5, both timed;
-24. one JSON line on every kernel (launches by path, the MoE, SSM, hybrid,
-   VLM, audio, pipeline and EP paths included), one each on the sync, MoE,
-   SSM, hybrid, VLM, audio, pipeline, EP-model, sharding, torchrun, dry-run
-   and flow-simulator phases, the card's name and power limit, and last the
-   JSON result line.
+24. tensor parallelism over ``model`` in serving (``phase_tp_serve``, after
+   23): llama3.2-3b at full width and depth, its weights cut into each rank's
+   blocks under ``sanitize_specs(param_specs)`` (``shard_tree``; the whole
+   copy freed), 16 rank threads of cuda:0, each computing from its blocks:
+   the bf16 prefill step on (data, model) = (1, 16), batch 4 x 2048, through
+   sm90 (448 launches a call, 28 a rank; one warm-up, three timed), each
+   rank's bytes against its blocks' under the specs, ``CommStats`` (psum,
+   all_gather and all_to_all calls and input bytes, the all-to-all's sends
+   by rank pair) against closed forms from the shapes, GSPMD's collectives
+   for the same layer (``benchmarks/gspmd_tp_collectives.py``) printed for
+   the record; the bf16 decode loop (16 teacher-forced, 8 greedy: 16 rank
+   threads share one GIL) beside the unsharded one, token agreement
+   reported; then fp32 through tf32: the TP prefill's last logits on (1, 16)
+   and on (2, 8) (FSDP gathers over data) and the decode's prompt steps'
+   logits on (1, 16) against the fp64 run of the same weights and tokens,
+   within max(FP32_TOL, floor) or no further from it than the unsharded fp32
+   step, ``CommStats`` against the closed forms on both.  Forward only (the
+   probe of 18);
+25. one JSON line on every kernel (launches by path, the MoE, SSM, hybrid,
+   VLM, audio, pipeline, EP and TP paths included), one each on the sync,
+   MoE, SSM, hybrid, VLM, audio, pipeline, EP-model, sharding, torchrun,
+   dry-run, flow-simulator and TP phases, the card's name and power limit,
+   and last the JSON result line.
 
 Any failure raises and exits nonzero; without a CUDA device, or without the
 rest of the repository beside it, the script exits nonzero and prints no
@@ -246,13 +268,16 @@ CASES = [
     (2, 200, 200, 14, 2, 64, True, 0),
     (1, 300, 300, 6, 6, 64, True, 0),
     (2, 2048, 2048, 6, 6, 64, True, 0),
+    # a rank's share of llama3.2-3b's prefill under tensor parallelism over 16 ranks
+    # (phase_tp_serve): 1 row x 2 kv heads and their 6 q heads
+    (1, 2048, 2048, 6, 2, 128, True, 0),
 ]
 # the prefill shape of llama3.2-3b at head_dim 128, of minicpm-2b at 64, of
 # moonshot-v1-16b-a3b (MHA, 16 heads of 128), of qwen2-vl-7b (GQA group 7) and of
 # whisper-tiny's decoder (6 heads of 64): (b, s, h, kv, d), causal
 PREFILL_SHAPES = {"d128": (4, 2048, 24, 8, 128), "d64": (4, 2048, 36, 36, 64),
                   "moonshot": (4, 2048, 16, 16, 128), "vlm": (4, 2048, 28, 4, 128),
-                  "audio": (4, 2048, 6, 6, 64)}
+                  "audio": (4, 2048, 6, 6, 64), "tp": (1, 2048, 6, 2, 128)}
 PREFILL_BATCH, PREFILL_LEN = 4, 2048
 # the fp32 shapes, (tag, (b, s, h, kv, d), timing rounds), causal: the training
 # and prefill shapes of llama3.2-3b, then of moonshot-v1-16b-a3b, qwen2-vl-7b and
@@ -264,7 +289,8 @@ FP32_SHAPES = [("train_fp32", (2, 2048, 24, 8, 128), 3),
                ("train_vlm_fp32", (2, 2048, 28, 4, 128), 3),
                ("prefill_vlm_fp32", (4, 2048, 28, 4, 128), 1),
                ("train_audio_fp32", (2, 2048, 6, 6, 64), 3),
-               ("prefill_audio_fp32", (4, 2048, 6, 6, 64), 1)]
+               ("prefill_audio_fp32", (4, 2048, 6, 6, 64), 1),
+               ("prefill_tp_fp32", (1, 2048, 6, 2, 128), 3)]
 # q's scale in the large-score checks (mean row max scores ~40 and ~450), at the
 # training shapes of moonshot-v1-16b-a3b and whisper-tiny
 LARGE_SCORE_Q_SCALES = (12.0, 143.0)
@@ -3554,6 +3580,384 @@ def phase_flowsim(smi) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the eleventh slice: tensor parallelism over model in serving (dense family)
+# ---------------------------------------------------------------------------
+
+TP_ARCH = "llama3.2-3b"
+TP_MESHES = ((1, 16), (2, 8))  # (data, model): the bf16 path and the decode on the first
+TP_AXES = ("data", "model")
+# The TP decode loops: teacher-forced prompt, then greedy steps.  16 rank threads
+# share one GIL, so a TP decode step costs 16 ranks' host work (~1.1 s on the
+# H100's host): the fp32 gate's loop is cut from the serve phase's 128 + 32 to
+# 64 + 8, the bf16 loop (reported, not gated) to 16 + 8.
+TP_PROMPT, TP_DECODE = 64, 8
+TP_PROMPT_BF16 = 16
+# The collectives GSPMD puts in the JAX package's jitted steps for one layer of
+# llama3.2-3b on (data, model) = (1, 16) host devices, B 4 (prefill x 2048), from
+# ``PYTHONPATH=src python benchmarks/gspmd_tp_collectives.py`` (jax 0.9.0 on the
+# CPU, whose backend upcasts bf16 dots: the f32 is not evidence about a TPU).
+GSPMD_LAYER = (
+    "prefill: 3 all-reduce f32[4,2048,3072] over 16 (embed, wo, w_down), 1 all-reduce of "
+    "the scores f32[4,3,2048,2048] over groups of 2 (head_dim split between 2 ranks a kv "
+    "head), all-gathers f32[4,2048,384] and f32[4,2048,3,128] over 2, 4 collective-permutes "
+    "of f32[4,2048,1|3,32], 6 all-to-alls of (1|2, 2048, 1|3, 32|64) pieces over 2; decode: "
+    "2 all-gathers of the whole KV cache f32[4,2048,8,1,128] over 16 ('involuntary full "
+    "rematerialization'), 3 all-reduce f32[4,1,3072], 2 all-to-alls, 3 collective-permutes, "
+    "3 small all-gathers, and the greedy argmax as all-gathers of (max, index) s32/f32[4,16]")
+
+
+def _tp_policy():
+    from repro_torch.parallel import sharding as sh
+
+    return sh.Policy()  # (data, model): FSDP over data, TP over model (llama's default_policy)
+
+
+def _tp_shard(cfg, params, shape) -> tuple:
+    """``params`` cut into each rank's blocks on a (data, model) LocalMesh of cuda:0 under
+    ``sanitize_specs(param_specs)``: (mesh, per-rank block trees, each rank's bytes); each
+    rank's bytes held to its blocks' under the specs (``_named_block``)."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.core.comm import LocalMesh
+    from repro_torch.parallel import sharding as sh
+
+    mesh = LocalMesh(shape, TP_AXES, "cuda")  # 16 ranks on one card: they take turns
+    specs = sh.sanitize_specs(params, sh.param_specs(cfg, params, _tp_policy()), mesh)
+    sharded = sh.shard_tree(params, sh.to_shardings(mesh, specs))
+    blocks = [sh.rank_blocks(sharded, r) for r in range(mesh.size)]
+    rank_bytes = [sum(t.numel() * t.element_size() for t in tree_lib.leaves(b)) for b in blocks]
+    for r in range(mesh.size):
+        want = sum(math.prod(s.stop - s.start for s in _named_block(mesh, r, spec, x.shape))
+                   * x.element_size() for (_, x), spec in
+                   zip(_named_leaves(params), tree_lib.leaves(specs)))
+        if rank_bytes[r] != want:
+            raise AssertionError(f"[tp-serve] rank {r} holds {rank_bytes[r]:,} B, its blocks "
+                                 f"under the specs {want:,}")
+    return mesh, blocks, rank_bytes
+
+
+def _tp_rows(mesh, tokens, comm):
+    rows = tokens.shape[0] // mesh.shape["data"]
+    i = comm.axis_index("data")
+    return tokens[i * rows:(i + 1) * rows]
+
+
+def _tp_prefill(cfg, mesh, blocks, tokens, use_kernel=True) -> tuple:
+    """The TP prefill step on every rank: (the last position's logits in batch
+    order, seconds, the largest difference between ranks along model)."""
+    from repro_torch.train import steps as st
+
+    policy = _tp_policy()
+
+    def fn(comm, p):
+        act = {"mesh": comm, "policy": policy}
+        return st.make_prefill_step(cfg, st.TrainOptions(use_kernel=use_kernel),
+                                    act_specs=act)(p, {"tokens": _tp_rows(mesh, tokens, comm)})
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = mesh.run(fn, blocks)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n = mesh.shape["model"]
+    spread = max(float((outs[r].float() - outs[r - r % n].float()).abs().max())
+                 for r in range(mesh.size))
+    return torch.cat([outs[r] for r in range(0, mesh.size, n)]), secs, spread
+
+
+def _tp_decode(cfg, mesh, blocks, prompts, steps: int) -> tuple:
+    """Teacher-force ``prompts`` through ``decode_step`` on every rank, then ``steps``
+    greedy tokens through ``make_decode_step``: (the prompt steps' logits (B, P, V) in
+    batch order, the greedy tokens (B, steps), seconds a step).  ``mesh`` None: the
+    unsharded model on ``blocks`` (the whole weights)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.train import steps as st
+
+    policy = _tp_policy()
+    p_len = prompts.shape[1]
+
+    def fn(comm, p):
+        act = None if comm is None else {"mesh": comm, "policy": policy}
+        toks = prompts if comm is None else _tp_rows(mesh, prompts, comm)
+        keep = comm is None or comm.axis_index("model") == 0
+        cache = T.init_cache(cfg, toks.shape[0], p_len + steps, dtype=p["embed"].dtype,
+                             device="cuda", act_specs=act)
+        logits = []
+        with torch.no_grad():
+            for t in range(p_len):
+                lg, cache = T.decode_step(cfg, p, cache, toks[:, t:t + 1], act_specs=act)
+                if keep:
+                    logits.append(lg.float())
+        serve = st.make_decode_step(cfg, act_specs=act)
+        tok = torch.argmax(lg[:, -1], dim=-1).to(torch.int32)[:, None]
+        out = [tok]
+        for _ in range(steps - 1):
+            tok, cache = serve(p, cache, tok)
+            out.append(tok)
+        return (torch.cat(logits, 1) if keep else None), torch.cat(out, 1)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if mesh is None:
+        outs = [fn(None, blocks)]
+        heads = [0]
+    else:
+        outs = mesh.run(fn, blocks)
+        heads = range(0, mesh.size, mesh.shape["model"])
+    torch.cuda.synchronize()
+    secs = (time.perf_counter() - t0) / (p_len + steps - 1)
+    return (torch.cat([outs[r][0] for r in heads]), torch.cat([outs[r][1] for r in heads]),
+            secs)
+
+
+def _tp_fp64(cfg, params, tokens, prompts) -> tuple:
+    """The exact answers the fp32 gates measure from: the prefill's last logits and
+    the decode's prompt steps' logits of the unsharded model in fp64 (plain
+    attention), on ``params`` cast to fp64."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as T
+
+    p64 = tree_lib.tree_map(lambda t: t.double(), params)
+    with torch.no_grad():
+        hidden = T.forward(cfg, p64, tokens, return_hidden=True)[0]
+        last = (hidden[:, -1:] @ layers.unembed(p64)).float()
+        del hidden
+        cache = T.init_cache(cfg, prompts.shape[0], prompts.shape[1], dtype=torch.float64,
+                             device="cuda")
+        steps = []
+        for t in range(prompts.shape[1]):
+            lg, cache = T.decode_step(cfg, p64, cache, prompts[:, t:t + 1])
+            steps.append(lg.float())
+    del p64, cache
+    torch.cuda.empty_cache()
+    return last, torch.cat(steps, 1)
+
+
+def _tp_closed_forms(cfg, mesh, batch: int, seq: int, dtype) -> dict:
+    """What one rank of the TP prefill moves, from the shapes: calls and input bytes
+    by collective, and the all-to-all bytes it sends to each rank of its group."""
+    from repro_torch.parallel import sharding as sh
+
+    dp, n = mesh.shape["data"], mesh.shape["model"]
+    rows, d, hd, n_l = batch // dp, cfg.d_model, cfg.kq_head_dim, cfg.n_layers
+    elt = torch.tensor([], dtype=dtype).element_size()
+    act = rows * seq * d
+    psum = {"calls": 1, "bytes": act * elt}  # the embed
+    # wo and w_down a layer: a reduce-scatter of the fp32 partial (an all-to-all
+    # over model) and an all-gather of the sums, rounded to the model's dtype
+    rs = {"calls": 2 * n_l, "bytes": 2 * n_l * act * 4}
+    ag = {"calls": 2 * n_l, "bytes": 2 * n_l * act // n * elt}
+    # FSDP: every (L, ., .) weight, the embed and the unembed, a block over data
+    layer = (d * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd + cfg.n_heads * hd * d
+             + 3 * d * cfg.d_ff)
+    fsdp_calls = (7 * n_l + 2) if dp > 1 else 0
+    fsdp_bytes = (n_l * layer + 2 * cfg.vocab * d) * elt // (dp * n) if dp > 1 else 0
+    gather = {"calls": fsdp_calls + 1 + ag["calls"],
+              "bytes": fsdp_bytes + rows * cfg.vocab // n * elt + ag["bytes"]}
+    hs = sh.head_split(rows, cfg.n_kv_heads, n)
+    if hs is None:
+        raise AssertionError(f"[tp-serve] {rows} rows x {cfg.n_kv_heads} kv heads over {n}: "
+                             "the chip's meshes take the pair route")
+    qo = rows * seq * cfg.n_heads * hd // n * elt  # q in, and the output back
+    kv = rows * seq * cfg.n_kv_heads * hd // n * elt
+    a2a = {"calls": 2 * n_l + rs["calls"],  # q, k, v in one; o; the row sums
+           "bytes": n_l * (2 * qo + 2 * kv) + rs["bytes"]}
+    pair = n_l * (2 * qo + 2 * kv) // hs.groups  # to each other rank of the group
+    return {"psum": psum, "all_gather": gather, "all_to_all": a2a, "pair_bytes": pair,
+            "sum_bytes": rs["bytes"] // n, "model": n, "groups": hs.groups,
+            "split": (hs.rows, hs.kv_heads)}
+
+
+def _tp_stats_check(tag, mesh, want) -> dict:
+    """``mesh.stats`` of one TP prefill against ``_tp_closed_forms``, every rank alike."""
+    st, size = mesh.stats, mesh.size
+    got = {kind: {"calls": getattr(st, f"{kind}_calls") // size,
+                  "bytes": st.payload[kind] // size}
+           for kind in ("psum", "all_gather", "all_to_all")}
+    for kind in got:
+        if got[kind] != want[kind] or getattr(st, f"{kind}_calls") % size:
+            raise AssertionError(f"[{tag}] {kind}: {got[kind]} a rank, want {want[kind]}")
+    g, n = want["groups"], want["model"]  # ranks along model are consecutive
+    pairs = {(a, b): want["pair_bytes"] * (a // g == b // g) + want["sum_bytes"]
+             for a in range(size) for b in range(size) if a != b and a // n == b // n}
+    if dict(st.bytes) != pairs:
+        raise AssertionError(f"[{tag}] all_to_all sends {dict(st.bytes)}, want "
+                             f"{want['pair_bytes']} to each other rank of a group of {g} and "
+                             f"{want['sum_bytes']} to each other rank along model")
+    return {**got, "sent_a_rank": (g - 1) * want["pair_bytes"], "group": g,
+            "sum_sent_a_rank": (n - 1) * want["sum_bytes"], "split_rows_kv": want["split"]}
+
+
+def phase_tp_serve(smi) -> dict:
+    """llama3.2-3b at full width and depth served tensor-parallel over ``model`` on 16
+    rank threads of cuda:0 (``parallel/tensor_parallel.py``), each rank computing
+    from its blocks alone:
+
+    * bf16 on (data, model) = (1, 16): the prefill step (B 4 x 2048) through the sm90
+      kernel, 448 launches a call (28 a rank), one warm-up and three timed calls;
+      CommStats against the closed forms; the decode loop (TP_PROMPT_BF16
+      teacher-forced, TP_DECODE greedy) beside the unsharded one, token agreement
+      reported;
+    * fp32 through the tf32 kernel, on (1, 16) and on (2, 8) (whose FSDP gathers over
+      data run): the TP prefill's last logits, and on (1, 16) the TP decode's
+      TP_PROMPT prompt steps' logits, against the fp64 run of the same weights and
+      tokens, within max(FP32_TOL, floor), the floor the plain chunked path against
+      plain dense.  The unsharded fp32 steps (``make_prefill_step`` through the
+      tf32 kernel; the decode loop) are held to the fp64 run too and reported:
+      at this init they are ~1e-3 from it themselves (their long fp32 dot
+      products), so TP is reported beside them, not gated on them.  The greedy
+      tokens' agreement is reported.
+
+    Forward only: the ranks' backwards would share the card's one autograd thread."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_batch
+
+    cfg = get_config(TP_ARCH)
+    out = {"gspmd_layer": GSPMD_LAYER}
+    tokens = torch.from_numpy(make_batch(cfg, PREFILL_LEN, PREFILL_BATCH)["tokens"]).cuda()
+    prompts = tokens[:, :TP_PROMPT].contiguous()
+    prompts16 = tokens[:, :TP_PROMPT_BF16].contiguous()
+    n_l = cfg.n_layers
+
+    # -- bf16 on (1, 16) ------------------------------------------------------
+    params, meta = _load_model(cfg, "tp-serve", torch.bfloat16)
+    ref16, _ = _prefill(cfg, params, tokens, use_kernel=True)
+    ref16 = ref16.clone()
+    dref16, tref16, dsec_ref16 = _tp_decode(cfg, None, params, prompts16, TP_DECODE)
+    log(f"[tp-serve] the unsharded bf16 prefill and decode ({dsec_ref16 * 1e3:.1f} ms a step) "
+        "done; cutting the weights into 16 ranks' blocks")
+    mesh, blocks, rank_bytes = _tp_shard(cfg, params, TP_MESHES[0])
+    del params
+    torch.cuda.empty_cache()
+    ranks = mesh.size
+    secs, launches = [], None
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(4):
+        mesh.stats.reset()
+        _reset_counts()
+        logits, t, spread = _tp_prefill(cfg, mesh, blocks, tokens)
+        launches = _expect_launches("[tp-serve] bf16 TP prefill", sm90=ranks * n_l)
+        secs.append(t)
+        log(f"[tp-serve] bf16 TP prefill call {i}: {t:.3f}s")
+        if i == 0:
+            stats = _tp_stats_check("tp-serve bf16", mesh,
+                                    _tp_closed_forms(cfg, mesh, PREFILL_BATCH, PREFILL_LEN,
+                                                     torch.bfloat16))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if logits.shape != (PREFILL_BATCH, 1, cfg.vocab) or not torch.isfinite(logits).all():
+        raise AssertionError(f"[tp-serve] bf16 TP logits {tuple(logits.shape)} not finite or "
+                             "misshapen")
+    bf16_err = rel_l2(logits.float(), ref16.float())
+    bf16_agree = float((logits.argmax(-1) == ref16.argmax(-1)).float().mean())
+    median = statistics.median(secs[1:])
+    dtp16, ttp16, dsec_tp16 = _tp_decode(cfg, mesh, blocks, prompts16, TP_DECODE)
+    dec16_err = rel_l2(dtp16, dref16)
+    agree16 = float((ttp16 == tref16).float().mean())
+    ntok = PREFILL_BATCH * PREFILL_LEN
+    log(f"[tp-serve] {cfg.name} bf16, {n_l} layers, {ranks} rank threads of cuda:0 on "
+        f"(data, model) = {TP_MESHES[0]}, batch {PREFILL_BATCH} x {PREFILL_LEN}: TP prefill "
+        f"{median:.3f}s median of 3 after a warm-up ({', '.join(f'{t:.3f}' for t in secs)} s; "
+        f"{ntok / median:.0f} tok/s; no speed claim: 16 ranks share one card), peak "
+        f"{peak:.2f} GiB; launches a call {launches} ({n_l} a rank); each rank's "
+        f"parameters {rank_bytes[0]:,} B (min {min(rank_bytes):,}, max {max(rank_bytes):,}, "
+        f"all {sum(rank_bytes):,}), its blocks' under param_specs; ranks along model within "
+        f"{spread:.3e}; vs the unsharded prefill rel_l2 {bf16_err:.3e}, argmax agreement "
+        f"{bf16_agree:.2f} (bf16, reported) [{smi}]")
+    log(f"[tp-serve] CommStats a rank, one bf16 prefill, equal to the closed forms: psum "
+        f"{stats['psum']['calls']} calls / {stats['psum']['bytes']:,} B in (the embed), "
+        f"all_gather {stats['all_gather']['calls']} / {stats['all_gather']['bytes']:,} B (the "
+        f"logits; the {2 * n_l} row sums' bf16 sums), all_to_all "
+        f"{stats['all_to_all']['calls']} / {stats['all_to_all']['bytes']:,} B in (q, k, v and o: "
+        f"{stats['sent_a_rank']:,} B sent to the {stats['group'] - 1} other ranks of its "
+        f"group, a rank attending {stats['split_rows_kv'][0]} row x {stats['split_rows_kv'][1]} "
+        f"kv heads; the row sums' fp32 reduce-scatters: {stats['sum_sent_a_rank']:,} B sent "
+        f"to the other ranks along model) [{smi}]")
+    log(f"[tp-serve] GSPMD's collectives for one layer of the JAX step, for the record: "
+        f"{GSPMD_LAYER}")
+    log(f"[tp-serve] bf16 decode ({TP_PROMPT_BF16} teacher-forced, {TP_DECODE} greedy, batch "
+        f"{PREFILL_BATCH}): TP {dsec_tp16 * 1e3:.1f} ms a step, unsharded "
+        f"{dsec_ref16 * 1e3:.1f} ms; prompt logits rel_l2 {dec16_err:.3e}, greedy token "
+        f"agreement {agree16:.3f} (bf16, reported) [{smi}]")
+    out["bf16"] = {"mesh": TP_MESHES[0], "s": median, "s_runs": secs, "peak_gib": peak,
+                   "launches": launches, "rank_param_bytes": rank_bytes, "stats": stats,
+                   "rank_spread": spread, "rel_l2_vs_unsharded": bf16_err,
+                   "argmax_agree": bf16_agree, "decode_ms_tp": dsec_tp16 * 1e3,
+                   "decode_ms_unsharded": dsec_ref16 * 1e3, "decode_rel_l2": dec16_err,
+                   "token_agree": agree16, **meta}
+    del blocks, mesh, ref16, dref16, dtp16, logits
+    torch.cuda.empty_cache()
+
+    # -- fp32 gates on (1, 16) and (2, 8) ---------------------------------------
+    params, meta32 = _load_model(cfg, "tp-serve", torch.float32)
+    ex, dex = _tp_fp64(cfg, params, tokens, prompts)
+
+    def last(c, use_kernel):
+        logits, _ = _prefill(c, params, tokens, use_kernel=use_kernel)
+        return logits.clone()
+
+    ref = last(cfg, True)
+    floor = rel_l2(last(dataclasses.replace(cfg, attn_chunk=FLOOR_CHUNK), False),
+                   last(cfg, False))
+    dref, tref, dsec_ref = _tp_decode(cfg, None, params, prompts, TP_DECODE)
+    bound = max(FP32_TOL, floor)
+    ref_err, dref_err = rel_l2(ref, ex), rel_l2(dref, dex)
+    log(f"[tp-serve] {cfg.name} fp32, batch {PREFILL_BATCH} x {PREFILL_LEN}: the unsharded "
+        f"prefill (tf32 kernel) is {ref_err:.3e} (rel_l2) from the fp64 run of the same weights "
+        f"and tokens, its decode's {TP_PROMPT} prompt steps {dref_err:.3e} (reported); floor "
+        f"(plain chunked {FLOOR_CHUNK} vs plain dense) {floor:.3e}, TP's bound max({FP32_TOL}, "
+        f"floor) = {bound:.3e} [{smi}]")
+    out["fp32"] = {"floor": floor, "bound": bound, "unsharded_vs_fp64": ref_err,
+                   "unsharded_decode_vs_fp64": dref_err, **meta32}
+    for shape in TP_MESHES:
+        mesh, blocks, rank_bytes = _tp_shard(cfg, params, shape)
+        mesh.stats.reset()
+        _reset_counts()
+        logits, t, spread = _tp_prefill(cfg, mesh, blocks, tokens)
+        launches = _expect_launches(f"[tp-serve] fp32 TP prefill on {shape}",
+                                    tf32=mesh.size * n_l)
+        stats = _tp_stats_check(f"tp-serve fp32 {shape}", mesh, _tp_closed_forms(
+            cfg, mesh, PREFILL_BATCH, PREFILL_LEN, torch.float32))
+        err, vs_ref = rel_l2(logits, ex), rel_l2(logits, ref)
+        rec = {"vs_fp64": err, "vs_unsharded": vs_ref, "s": t, "launches": launches,
+               "stats": stats, "rank_param_bytes": rank_bytes, "rank_spread": spread,
+               "argmax_agree": float((logits.argmax(-1) == ref.argmax(-1)).float().mean())}
+        line = (f"[tp-serve] {cfg.name} fp32 on (data, model) = {shape}, batch {PREFILL_BATCH} x "
+                f"{PREFILL_LEN}, through tf32: TP prefill last logits vs the fp64 run rel_l2 "
+                f"{err:.3e} (tol max({FP32_TOL}, floor) = {bound:.3e}; the unsharded prefill's "
+                f"{ref_err:.3e}), vs the unsharded prefill {vs_ref:.3e}, same argmax "
+                f"{rec['argmax_agree']:.2f}; {t:.3f}s; launches {launches}; rank bytes "
+                f"{rank_bytes[0]:,}; CommStats a rank psum {stats['psum']['calls']} / "
+                f"{stats['psum']['bytes']:,} B, all_gather {stats['all_gather']['calls']} / "
+                f"{stats['all_gather']['bytes']:,} B, all_to_all {stats['all_to_all']['calls']}"
+                f" / {stats['all_to_all']['bytes']:,} B (closed forms)")
+        if not (err <= bound and torch.isfinite(logits).all()):
+            raise AssertionError(f"{line}: over the bound")
+        if shape == TP_MESHES[0]:
+            dtp, ttp, dsec_tp = _tp_decode(cfg, mesh, blocks, prompts, TP_DECODE)
+            derr, dvs_ref = rel_l2(dtp, dex), rel_l2(dtp, dref)
+            rec.update(decode_vs_fp64=derr, decode_vs_unsharded=dvs_ref,
+                       token_agree=float((ttp == tref).float().mean()),
+                       decode_ms_tp=dsec_tp * 1e3, decode_ms_unsharded=dsec_ref * 1e3)
+            line += (f"; decode ({TP_PROMPT} teacher-forced, {TP_DECODE} greedy): prompt "
+                     f"logits vs the fp64 run's rel_l2 {derr:.3e} (tol {bound:.3e}; the "
+                     f"unsharded decode's {dref_err:.3e}), vs the unsharded decode's "
+                     f"{dvs_ref:.3e}, greedy token agreement {rec['token_agree']:.3f} "
+                     f"(reported), TP {dsec_tp * 1e3:.1f} ms a step, unsharded "
+                     f"{dsec_ref * 1e3:.1f} ms")
+            if not (derr <= bound and torch.isfinite(dtp).all()):
+                raise AssertionError(f"{line}: decode over the bound")
+            del dtp
+        log(line + f" [{smi}]")
+        out["fp32"]["x".join(map(str, shape))] = rec
+        del blocks, mesh, logits
+        torch.cuda.empty_cache()
+    del params, ref, dref, ex, dex
+    torch.cuda.empty_cache()
+    out["launches"] = out["bf16"]["launches"]
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3596,11 +4000,13 @@ def main() -> int:
     audio = phase_audio(smi)
     dryrun = phase_dryrun(smi)
     flowsim = phase_flowsim(smi)
+    tp = phase_tp_serve(smi)
 
     paths = {"prefill": prefill, "train_steps": train, "train_driver": driver,
              "train_sync": sync_train["launches"], "prefill_moe": moe_serve["launches"],
              "train_moe": moe_train["launches"], "train_pipeline": pipeline["launches"],
-             "prefill_moe_ep": moe_ep_prefill["launches"]}
+             "prefill_moe_ep": moe_ep_prefill["launches"], "prefill_tp": tp["launches"],
+             **{f"prefill_tp_fp32_{k}": tp["fp32"][k]["launches"] for k in ("1x16", "2x8")}}
     for tag, fam in (("ssm", ssm), ("hybrid", hybrid), ("vlm", vlm), ("audio", audio)):
         paths.update({f"prefill_{tag}": fam["launches"], f"serve_{tag}": fam["serve"]["launches"],
                       f"train_{tag}": fam["train"]["launches"]})
@@ -3672,6 +4078,7 @@ def main() -> int:
     log(json.dumps({"torchrun": {"device": smi, **torchrun}}))
     log(json.dumps({"dryrun": {"device": smi, **dryrun}}))
     log(json.dumps({"flowsim": {"device": smi, **flowsim}}))
+    log(json.dumps({"tp_serve": {"device": smi, "arch": TP_ARCH, **tp}}))
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(smi)
     print(json.dumps({"ok": True, "device": {

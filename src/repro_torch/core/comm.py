@@ -21,10 +21,12 @@ as ``shard_map`` calls its body once per device.  ``comm`` is that rank's
   group, and its backward passes that one value's gradient to each rank's
   input unchanged: the gradient JAX gives ``jax.grad`` of a ``shard_map``
   whose output is a psum (``out_specs=P()``), and not the group's sum of it.
-* ``all_to_all(x, axes)``: ``lax.all_to_all(x, axes, 0, 0, tiled=False)``
-  over the same ranks.  ``x`` has one leading entry a rank of the group;
-  entry i goes to the rank at position i, and entry j of the result is what
-  the rank at position j sent to this one.  Its backward is the same
+* ``all_to_all(x, axes, axis_index_groups=None)``: ``lax.all_to_all(x, axes,
+  0, 0, tiled=False, axis_index_groups=...)`` over the same ranks, or over
+  the ranks of this rank's index group (positions along ``axes``; the groups
+  partition them, all of one size).  ``x`` has one leading entry a rank of
+  the group; entry i goes to the group's i-th rank, and entry j of the
+  result is what its j-th rank sent to this one.  Its backward is the same
   exchange of the gradient, since with the split and concat axes both 0 the
   exchange is its own inverse.
 * ``pvary(x, axes)`` and ``replicated_out(x, axes)`` move nothing forward;
@@ -44,8 +46,9 @@ as ``jax.make_mesh`` lays devices out.  Two transports carry the data:
 
 * ``LocalMesh``: the ranks are threads of one process, each with its own
   ``torch.device`` (all on one GPU, one per GPU, or the CPU).  A transfer is
-  a copy of the sender's tensor onto the receiver's device, between two
-  barriers.
+  a copy of the sender's tensor onto the receiver's device after a barrier;
+  a psum is added up once a group, by its first rank, in group order, and
+  copied to the others after a second barrier.
 * ``DistMesh``: one rank per process of a ``torch.distributed`` process
   group (gloo on CPU tensors, NCCL on GPUs); ppermute is
   ``batch_isend_irecv`` between global ranks, psum ``all_reduce``,
@@ -84,8 +87,9 @@ class CommStats:
     too), and the entries an all_to_all sends to other ranks, by (src, dst)
     global rank pair;
     ``psum_calls``, ``all_gather_calls`` and ``all_to_all_calls`` count one
-    per rank and call (an all_to_all's backward is a call too).  A
-    ``DistMesh`` counts the sends and calls of its own rank only.
+    per rank and call (an all_to_all's backward is a call too), and
+    ``payload`` the bytes of those calls' inputs by kind.  A ``DistMesh``
+    counts the sends and calls of its own rank only.
     """
 
     def __init__(self):
@@ -99,16 +103,19 @@ class CommStats:
             self.psum_calls = 0
             self.all_gather_calls = 0
             self.all_to_all_calls = 0
+            self.payload: Counter = Counter()
 
     def record_send(self, src: int, dst: int, nbytes: int) -> None:
         with self._lock:
             self.bytes[(src, dst)] += nbytes
             self.messages[(src, dst)] += 1
 
-    def record_call(self, kind: str) -> None:
-        """One call of ``kind``: "psum", "all_gather" or "all_to_all"."""
+    def record_call(self, kind: str, nbytes: int = 0) -> None:
+        """One call of ``kind`` ("psum", "all_gather" or "all_to_all") on an input
+        of ``nbytes``."""
         with self._lock:
             setattr(self, f"{kind}_calls", getattr(self, f"{kind}_calls") + 1)
+            self.payload[kind] += nbytes
 
 
 class Mesh:
@@ -126,6 +133,7 @@ class Mesh:
         self.stats = CommStats()
         self._peers: dict = {}
         self._peers_lock = threading.Lock()
+        self._groups: dict = {}  # group()'s answers, by (rank, axes, index_groups)
 
     # -- layout ------------------------------------------------------------
 
@@ -153,10 +161,21 @@ class Mesh:
             idx = idx * self.shape[a] + c[a]
         return idx
 
-    def group(self, rank: int, axes: Axes) -> list[int]:
+    def group(self, rank: int, axes: Axes, index_groups=None) -> list[int]:
         """The ranks that share every coordinate of ``rank`` off ``axes``, in the
-        order of their position along ``axes``."""
+        order of their position along ``axes``; with ``index_groups`` (JAX's
+        ``axis_index_groups``: a partition of those positions) only the ranks of
+        the part that holds ``rank``'s position, in that part's order."""
         axes = _as_tuple(axes)
+        key = (rank, axes, index_groups)
+        members = self._groups.get(key)
+        if members is None:
+            members = self._group(rank, axes, index_groups)
+            with self._peers_lock:
+                self._groups[key] = members
+        return list(members)
+
+    def _group(self, rank, axes, index_groups):
         self._check_axes(axes)
         base = self.coords(rank)
         members = []
@@ -165,17 +184,28 @@ class Mesh:
             for a in reversed(axes):
                 pos, c[a] = divmod(pos, self.shape[a])
             members.append(self.rank_of(c))
-        return members
+        if index_groups is None:
+            return members
+        self._check_index_groups(axes, index_groups)
+        pos = self.axis_index(rank, axes)
+        return [members[i] for i in next(g for g in index_groups if pos in g)]
 
-    def groups(self, axes: Axes) -> list[list[int]]:
+    def groups(self, axes: Axes, index_groups=None) -> list[list[int]]:
         """The partition of all ranks into the groups of ``group``."""
         seen, out = set(), []
         for r in range(self.size):
             if r not in seen:
-                g = self.group(r, axes)
+                g = self.group(r, axes, index_groups)
                 seen.update(g)
                 out.append(g)
         return out
+
+    def _check_index_groups(self, axes, index_groups) -> None:
+        n = self.axis_size(axes)
+        flat = sorted(i for g in index_groups for i in g)
+        if flat != list(range(n)) or len({len(g) for g in index_groups}) != 1:
+            raise ValueError(f"axis_index_groups {index_groups} do not split the {n} "
+                             f"positions along {axes} into groups of one size")
 
     def peers(self, rank: int, axes: Axes, perm: Sequence[tuple[int, int]]):
         """(src, dst) global ranks of ``rank`` in a ppermute over ``axes``; None
@@ -229,7 +259,7 @@ class Mesh:
     def _all_gather(self, rank, x, axes):
         raise NotImplementedError
 
-    def _all_to_all(self, rank, x, axes):
+    def _all_to_all(self, rank, x, axes, index_groups=None):
         raise NotImplementedError
 
     def _check_args(self, per_rank_args) -> None:
@@ -267,7 +297,7 @@ class Comm:
         return self._sum(x, _as_tuple(axes))
 
     def _sum(self, x, axes):
-        self.mesh.stats.record_call("psum")
+        self.mesh.stats.record_call("psum", x.numel() * x.element_size())
         return self.mesh._psum(self.rank, x.contiguous(), axes)
 
     def pvary(self, x: torch.Tensor, axes: Axes) -> torch.Tensor:
@@ -291,29 +321,37 @@ class Comm:
         return x
 
     def all_gather(self, x: torch.Tensor, axes: Axes) -> torch.Tensor:
-        self.mesh.stats.record_call("all_gather")
+        self.mesh.stats.record_call("all_gather", x.numel() * x.element_size())
         return self.mesh._all_gather(self.rank, x.contiguous(), _as_tuple(axes))
 
-    def all_to_all(self, x: torch.Tensor, axes: Axes) -> torch.Tensor:
-        """Entry i of ``x`` (leading size: the ranks along ``axes``) to the rank
-        at position i; entry j of the result from the rank at position j.
-        Differentiable: the backward runs the same exchange on the gradient, so
-        every rank of the group must run its backward too."""
+    def all_to_all(self, x: torch.Tensor, axes: Axes, axis_index_groups=None) -> torch.Tensor:
+        """Entry i of ``x`` (leading size: the ranks of the group) to the group's
+        i-th rank; entry j of the result from its j-th rank.  The group is the
+        ranks along ``axes``, or with ``axis_index_groups`` (a partition of the
+        positions along ``axes`` into parts of one size, as JAX's) the part
+        that holds this rank.  Differentiable: the backward runs the same
+        exchange on the gradient, so every rank of the group must run its
+        backward too."""
         axes = _as_tuple(axes)
-        n = self.mesh.axis_size(axes)
+        if axis_index_groups is not None:
+            axis_index_groups = tuple(tuple(int(i) for i in g) for g in axis_index_groups)
+        n = len(self.mesh.group(self.rank, axes, axis_index_groups))
         if x.dim() == 0 or x.shape[0] != n:
             raise ValueError(f"all_to_all over {axes} needs a leading axis of {n}, got "
                              f"{tuple(x.shape)}")
-        return _AllToAll.apply(x, self, axes)
+        if _tracks_grad(x):
+            return _AllToAll.apply(x, self, axes, axis_index_groups)
+        return self._exchange_all(x, axes, axis_index_groups)
 
-    def _exchange_all(self, x: torch.Tensor, axes: tuple[str, ...]) -> torch.Tensor:
-        self.mesh.stats.record_call("all_to_all")
-        group = self.mesh.group(self.rank, axes)
+    def _exchange_all(self, x: torch.Tensor, axes: tuple[str, ...],
+                      index_groups=None) -> torch.Tensor:
+        self.mesh.stats.record_call("all_to_all", x.numel() * x.element_size())
+        group = self.mesh.group(self.rank, axes, index_groups)
         nbytes = x[0].numel() * x.element_size()
         for g in group:
             if g != self.rank:
                 self.mesh.stats.record_send(self.rank, g, nbytes)
-        return self.mesh._all_to_all(self.rank, x.contiguous(), axes)
+        return self.mesh._all_to_all(self.rank, x.contiguous(), axes, index_groups)
 
 
 def _tracks_grad(x: torch.Tensor) -> bool:
@@ -378,13 +416,13 @@ class _AllToAll(torch.autograd.Function):
     of the gradient (split and concat axes 0: its own inverse)."""
 
     @staticmethod
-    def forward(ctx, x, comm, axes):
-        ctx.comm, ctx.axes = comm, axes
-        return comm._exchange_all(x, axes)
+    def forward(ctx, x, comm, axes, index_groups):
+        ctx.comm, ctx.axes, ctx.index_groups = comm, axes, index_groups
+        return comm._exchange_all(x, axes, index_groups)
 
     @staticmethod
     def backward(ctx, grad):
-        return ctx.comm._exchange_all(grad, ctx.axes), None, None
+        return ctx.comm._exchange_all(grad, ctx.axes, ctx.index_groups), None, None, None
 
 
 class LocalMesh(Mesh):
@@ -396,11 +434,20 @@ class LocalMesh(Mesh):
     copies what it needs onto its own device (``.to(device, copy=True)``).
     The slots alternate between two sets from one collective to the next, so
     a slot is posted again only after the next collective's barrier, which no
-    rank passes before every rank has read: one barrier a collective, not two.
+    rank passes before every rank has read: one barrier a collective (a psum
+    takes two: one to post the parts, one to share their sum), not two.
     If one rank raises, the barrier is broken so that every other rank raises
     too, and ``run`` raises the first rank's own exception.  ``timeout``
     (seconds) bounds each wait, so ranks that disagree on the collectives they
     call fail rather than hang.
+
+    Where several ranks share one GPU, the rank threads take turns: one runs at
+    a time, from a collective to the next (a lock passed at each barrier).  The
+    results are the same; the ranks' host work no longer overlaps, and on a
+    shared GPU their host work is all there is to overlap and holds the GIL
+    anyway: without turns, 16 threads contend for the GIL at every op each of
+    them dispatches.  Only the rank threads take turns: a collective that an
+    autograd thread runs (a backward) waits at the barrier without a turn.
     """
 
     def __init__(self, shape, axis_names, devices, timeout: float = 300.0):
@@ -414,9 +461,30 @@ class LocalMesh(Mesh):
         self._slots: list = [[None] * self.size, [None] * self.size]
         self._calls = [0] * self.size  # collectives each rank has called in this run
         self._barrier: threading.Barrier | None = None
+        self._baton = threading.Lock() if _takes_turns(self.devices) else None
+        self._turn = threading.local()  # .held: this thread holds the baton
 
     def device(self, rank: int) -> torch.device:
         return self.devices[rank]
+
+    def _take(self) -> None:
+        """With turns, wait for this rank thread's turn.  No turn within ``timeout``
+        means the ranks are stuck, as a barrier's timeout does: the barrier is
+        broken and this rank raises ``BrokenBarrierError``."""
+        if self._baton is None:
+            return
+        if not self._baton.acquire(timeout=self.timeout):
+            self._barrier.abort()
+            raise threading.BrokenBarrierError(f"LocalMesh: no turn within {self.timeout} s")
+        self._turn.held = True
+
+    def _give(self) -> bool:
+        """Give up this thread's turn; whether it held one."""
+        if self._baton is None or not getattr(self._turn, "held", False):
+            return False
+        self._turn.held = False
+        self._baton.release()
+        return True
 
     def run(self, fn, *per_rank_args) -> list:
         self._check_args(per_rank_args)
@@ -426,7 +494,11 @@ class LocalMesh(Mesh):
 
         def body(rank):
             try:
-                results[rank] = fn(Comm(self, rank), *(a[rank] for a in per_rank_args))
+                self._take()
+                try:
+                    results[rank] = fn(Comm(self, rank), *(a[rank] for a in per_rank_args))
+                finally:
+                    self._give()
             except BaseException as e:  # re-raised by run, in the caller's thread
                 errors[rank] = e
                 barrier.abort()
@@ -453,7 +525,12 @@ class LocalMesh(Mesh):
         slots = self._slots[self._calls[rank] % 2]
         self._calls[rank] += 1
         slots[rank] = x
-        self._barrier.wait()
+        turn = self._give()
+        try:
+            self._barrier.wait()
+        finally:
+            if turn:
+                self._take()
         return read(slots)
 
     def _ppermute(self, rank, x, src, dst):
@@ -464,31 +541,59 @@ class LocalMesh(Mesh):
         def read(slots):
             if src is None:
                 return torch.zeros_like(x)
-            return slots[src].to(dev, copy=True)
+            return _copy(slots[src], dev)
 
         return self._exchange(rank, x, read)
 
     def _psum(self, rank, x, axes):
+        """The group's first rank adds the parts in group order, and every other rank
+        takes a copy of its sum: the same bits on every rank, one sum a group
+        (two barriers)."""
         dev, group = self.devices[rank], self.group(rank, axes)
+        lead = group[0]
 
-        def read(slots):  # the same order on every rank, so every rank holds the same sum
-            out = slots[group[0]].to(dev, copy=True)
+        def total(slots):
+            if rank != lead:
+                return None
+            out = _copy(slots[lead], dev)
             for g in group[1:]:
-                out += slots[g].to(dev)
+                out += _on(slots[g], dev)
             return out
 
-        return self._exchange(rank, x, read)
+        out = self._exchange(rank, x, total)
+        shared = self._exchange(rank, out, lambda slots: slots[lead])
+        return out if rank == lead else _copy(shared, dev)
 
     def _all_gather(self, rank, x, axes):
         dev, group = self.devices[rank], self.group(rank, axes)
-        return self._exchange(rank, x, lambda slots: torch.stack([slots[g].to(dev)
+        return self._exchange(rank, x, lambda slots: torch.stack([_on(slots[g], dev)
                                                                   for g in group]))
 
-    def _all_to_all(self, rank, x, axes):
-        dev, group = self.devices[rank], self.group(rank, axes)
-        i = self.axis_index(rank, axes)
-        return self._exchange(rank, x, lambda slots: torch.stack([slots[g][i].to(dev)
+    def _all_to_all(self, rank, x, axes, index_groups=None):
+        dev, group = self.devices[rank], self.group(rank, axes, index_groups)
+        i = group.index(rank)
+        return self._exchange(rank, x, lambda slots: torch.stack([_on(slots[g][i], dev)
                                                                   for g in group]))
+
+
+def _takes_turns(devices: Sequence[torch.device]) -> bool:
+    """Whether rank threads on ``devices`` take turns: several share one GPU."""
+    gpus = [(d.type, d.index or 0) for d in devices if d.type != "cpu"]
+    return len(set(gpus)) < len(gpus)
+
+
+def _on(t: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """``t`` on ``dev``: itself where it is there already (no dispatch, which on
+    rank threads is a turn of the GIL), else a copy there."""
+    if t.device.type == dev.type and (dev.index is None or t.device.index == dev.index):
+        return t
+    return t.to(dev)
+
+
+def _copy(t: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """A copy of ``t`` on ``dev``."""
+    out = _on(t, dev)
+    return out.clone() if out is t else out
 
 
 class TraceMesh(Mesh):
@@ -536,8 +641,9 @@ class TraceMesh(Mesh):
         n = self.axis_size(axes)
         return self._record(rank, "all-gather", x.expand((n,) + tuple(x.shape)).clone(), n)
 
-    def _all_to_all(self, rank, x, axes):
-        return self._record(rank, "all-to-all", x.clone(), self.axis_size(axes))
+    def _all_to_all(self, rank, x, axes, index_groups=None):
+        return self._record(rank, "all-to-all", x.clone(),
+                            len(self.group(rank, axes, index_groups)))
 
 
 class DistMesh(Mesh):
@@ -574,19 +680,20 @@ class DistMesh(Mesh):
         self._check_args(per_rank_args)
         return [fn(Comm(self, self.rank), *(a[self.rank] for a in per_rank_args))]
 
-    def _process_group(self, axes):
+    def _process_group(self, axes, index_groups=None):
         """The process group of this rank's group over ``axes`` (None: the world).
 
-        The first call for ``axes`` creates the subgroup of every group of the
-        partition, on every rank, in one order.
+        The first call for ``(axes, index_groups)`` creates the subgroup of every
+        group of the partition, on every rank, in one order.
         """
-        if self.axis_size(axes) == self.size:
+        if index_groups is None and self.axis_size(axes) == self.size:
             return None
-        if axes not in self._subgroups:
-            parts = self.groups(axes)
+        key = (axes, index_groups)
+        if key not in self._subgroups:
+            parts = self.groups(axes, index_groups)
             _, pgs = self._dist.new_subgroups_by_enumeration(parts)
-            self._subgroups[axes] = {frozenset(g): pg for g, pg in zip(parts, pgs)}
-        return self._subgroups[axes][frozenset(self.group(self.rank, axes))]
+            self._subgroups[key] = {frozenset(g): pg for g, pg in zip(parts, pgs)}
+        return self._subgroups[key][frozenset(self.group(self.rank, axes, index_groups))]
 
     def _ppermute(self, rank, x, src, dst):
         dist = self._dist
@@ -619,11 +726,11 @@ class DistMesh(Mesh):
         order = sorted(group)
         return out[[order.index(g) for g in group]] if order != group else out
 
-    def _all_to_all(self, rank, x, axes):
-        group = self.group(rank, axes)
+    def _all_to_all(self, rank, x, axes, index_groups=None):
+        group = self.group(rank, axes, index_groups)
         order = sorted(group)  # the process group's order of its ranks
         if order != group:  # entry j of the exchange goes to order[j]
             x = x[[group.index(g) for g in order]].contiguous()
         out = torch.empty_like(x)
-        self._dist.all_to_all_single(out, x, group=self._process_group(axes))
+        self._dist.all_to_all_single(out, x, group=self._process_group(axes, index_groups))
         return out[[order.index(g) for g in group]] if order != group else out

@@ -16,9 +16,14 @@ For each cell this script:
      write, the rank's peak of live storages, and the collectives it calls
      with their bytes on the wire, into a JSON report.
 
-The port has no GSPMD: its sharding is a storage layout, and every rank runs
-the whole model on its data shard, as JAX's sync modes do.  So the FLOPs and
-collectives are the port's own, not XLA's for the 2D FSDP × TP layout.
+The port has no GSPMD.  In the dense family's prefill and decode cells under a
+``tp=True`` policy, rank 0 runs the tensor-parallel step
+(``parallel/tensor_parallel.py``) on its blocks under ``param_specs``: FSDP
+gathers over ``data`` a layer at a time, Megatron's column and row products
+over ``model``, attention on whole heads (the pair or the gather route), the
+logits of the last position.  Every other cell (training, the other families,
+``tp=False`` policies) runs the whole model on the rank's data shard, as JAX's
+sync modes do.  The FLOPs and collectives are the port's own, not XLA's.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all --shape all \\
@@ -37,13 +42,14 @@ import traceback
 import weakref
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 from torch.utils import _pytree as pytree
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch import tree as tree_lib
 from repro_torch.configs import (SHAPES, abstract_cache, abstract_params, get_config,
                                  input_specs, list_archs, valid_cells)
-from repro_torch.core.comm import TraceMesh
+from repro_torch.core.comm import Comm, TraceMesh
 from repro_torch.launch.mesh import production_layout
 from repro_torch.models import get_model
 from repro_torch.parallel import sharding as shard_lib
@@ -138,7 +144,6 @@ def trace(make_args, step, untracked=lambda: (), baseline: int = 0) -> dict:
     unfused, views excepted: an upper bound, where XLA counts after fusion) and
     ``peak_bytes`` (the live storages at their highest, the inputs included).
     """
-    from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.utils.flop_counter import FlopCounterMode
 
     with FakeTensorMode():
@@ -170,13 +175,8 @@ def _nbytes(tree) -> int:
 
 
 def _blocks(mesh, specs, tree):
-    """Meta tensors of rank 0's blocks of the leaves of ``tree`` under ``specs``."""
-    leaves, structure = tree_lib.flatten(tree)
-    out = []
-    for spec, t in zip(tree_lib.leaves(specs), leaves, strict=True):
-        sl = shard_lib.NamedSharding(mesh, spec).block(0, t.shape)
-        out.append(torch.empty([s.stop - s.start for s in sl], dtype=t.dtype, device="meta"))
-    return tree_lib.unflatten(structure, out)
+    """Rank 0's blocks of the meta tensors of ``tree`` under ``specs`` (meta views)."""
+    return shard_lib.block_views(tree, specs, mesh, 0)
 
 
 @dataclasses.dataclass
@@ -206,9 +206,11 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool, options, smoke=False
                vocab_pad: int = 0) -> Cell:
     """The cell's ``TraceMesh``, its at-rest bytes and rank 0's step.
 
-    Rank 0 runs the whole model on its block of the batch under
-    ``batch_specs``: the global batch over the data axes, or all of it where
-    they do not divide it (JAX replicates it then)."""
+    Rank 0 takes its block of the batch under ``batch_specs``: the global batch
+    over the data axes, or all of it where they do not divide it (JAX
+    replicates it then).  A dense prefill or decode cell under a ``tp=True``
+    policy runs the tensor-parallel step on rank 0's blocks; every other cell
+    the whole model."""
     cfg = cfg_override if cfg_override is not None else get_config(arch, smoke=smoke)
     if moe_mode != "tp" and cfg.family == "moe":
         cfg = dataclasses.replace(cfg, moe_mode=moe_mode)
@@ -256,6 +258,10 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool, options, smoke=False
     def with_mesh(comm):
         return {**act_specs, "mesh": comm}
 
+    if cfg.family == "dense" and policy.tp:
+        return _tp_serving_cell(cfg, shape, mesh, policy, opts, params_abs, pspecs,
+                                block_abs, param_bytes, {**act_specs, "policy": policy})
+
     if shape.kind == "prefill":
 
         def prefill(params, batch):
@@ -289,6 +295,38 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool, options, smoke=False
                 param_bytes + _nbytes(_blocks(mesh, cspecs, cache_abs)) + _nbytes(block_abs),
                 _nbytes(params_abs) + _nbytes(rank_cache) + _nbytes(block_abs),
                 make_args, decode)
+
+
+def _tp_serving_cell(cfg, shape, mesh, policy, opts, params_abs, pspecs, block_abs,
+                     param_bytes, act_specs) -> Cell:
+    """Rank 0's tensor-parallel prefill or decode step on its blocks: the rank holds
+    its blocks, its rows of the batch and (decode) its own cache."""
+    blocks_abs = _blocks(mesh, pspecs, params_abs)
+    comm = Comm(mesh, 0)
+    act = {**act_specs, "mesh": comm}
+    rows = block_abs["tokens"].shape[0]
+    if shape.kind == "prefill":
+        step = steps_lib.make_prefill_step(cfg, opts, act_specs=act)
+        return Cell(mesh, rows, param_bytes + _nbytes(block_abs), param_bytes + _nbytes(block_abs),
+                    lambda: (_fake(blocks_abs), _fake(block_abs)), step)
+    # decode: the cache's blocks at rest under cache_specs; the rank's step holds
+    # its own cache (its rows and kv heads: tensor_parallel), of the same bytes
+    # under the pair route
+    cache_abs = abstract_cache(cfg, shape.global_batch, shape.seq_len)
+    cspecs = shard_lib.cache_specs(cfg, cache_abs, policy, mesh, shape.global_batch)
+    serve = steps_lib.make_decode_step(cfg, act_specs=act)
+    model = get_model(cfg)
+
+    def make_cache():
+        return model.init_cache(cfg, rows, shape.seq_len, dtype=torch.bfloat16, device="cpu",
+                                act_specs=act)
+
+    with FakeTensorMode():  # ``len`` an int32, as abstract_cache counts it
+        rank_cache = _nbytes({k: v for k, v in make_cache().items() if k != "len"}) + 4
+    return Cell(mesh, rows,
+                param_bytes + _nbytes(_blocks(mesh, cspecs, cache_abs)) + _nbytes(block_abs),
+                param_bytes + rank_cache + _nbytes(block_abs),
+                lambda: (_fake(blocks_abs), make_cache(), _fake(block_abs["tokens"])), serve)
 
 
 def _trace_cell(cell: Cell) -> dict:

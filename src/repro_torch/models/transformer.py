@@ -18,6 +18,13 @@ expert-parallel mode (``moe_mode="ep"``) runs ``forward`` once a rank of a
 precomputed frames (B, enc_seq, d), and a cross-attention in every decoder
 layer whose decode cache ``xk``/``xv`` is zeros, as in JAX.  The SSM and
 hybrid families have modules of their own (``mamba2``, ``recurrentgemma``).
+
+The dense family also serves tensor-parallel: given the rank's ``Comm`` as
+``act_specs["mesh"]`` and a ``Policy`` with ``tp=True`` as
+``act_specs["policy"]``, ``forward``, ``init_cache`` and ``decode_step`` run one
+rank's share on its blocks of the parameters (``parallel/tensor_parallel.py``),
+through the same ``_attn_block`` and ``_mlp_block``, where JAX's jitted steps
+leave the split to GSPMD.
 """
 
 from __future__ import annotations
@@ -26,9 +33,11 @@ import torch
 import torch.utils.checkpoint
 from torch import nn
 
+from repro_torch import tree as tree_lib
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
+from repro_torch.parallel import tensor_parallel as tp_lib
 
 # ---------------------------------------------------------------------------
 # parameter init
@@ -148,16 +157,22 @@ def _apply_pos(cfg, q, k, positions):
 
 
 def _attn_block(cfg: ArchConfig, p, x, positions, causal, window, kv_seq=None,
-                use_kernel=False):
+                use_kernel=False, tp=None):
     """p holds per-layer (unstacked) attention params.  With ``kv_seq`` (the
-    encoder's output) k and v come from it and nothing is rotated."""
+    encoder's output) k and v come from it and nothing is rotated.  With ``tp``
+    (the rank's ``tensor_parallel.TensorParallel``) p holds the rank's columns
+    and rows: q, k and v move to the whole heads of the rank's share before
+    RoPE, and the output back to its columns before ``wo`` and the sum."""
     b, s, d = x.shape
     hd = cfg.kq_head_dim
     h, kv = cfg.n_heads, cfg.n_kv_heads
     src = x if kv_seq is None else kv_seq
-    q = (x @ p["wq"]).reshape(b, s, h, hd)
-    k = (src @ p["wk"]).reshape(b, src.shape[1], kv, hd)
-    v = (src @ p["wv"]).reshape(b, src.shape[1], kv, hd)
+    if tp is None:
+        q = (x @ p["wq"]).reshape(b, s, h, hd)
+        k = (src @ p["wk"]).reshape(b, src.shape[1], kv, hd)
+        v = (src @ p["wv"]).reshape(b, src.shape[1], kv, hd)
+    else:
+        q, k, v, positions = tp.heads(x @ p["wq"], src @ p["wk"], src @ p["wv"], positions)
     if kv_seq is None:
         q, k = _apply_pos(cfg, q, k, positions)
     o = L.attention(
@@ -165,10 +180,14 @@ def _attn_block(cfg: ArchConfig, p, x, positions, causal, window, kv_seq=None,
         chunk_threshold=cfg.attn_chunk * 2, chunk=cfg.attn_chunk,
         use_kernel=use_kernel,
     )
+    if tp is not None:
+        return tp.sum(tp.columns(o, b) @ p["wo"])
     return o.reshape(b, s, h * hd) @ p["wo"]
 
 
-def _mlp_block(cfg: ArchConfig, p, x):
+def _mlp_block(cfg: ArchConfig, p, x, tp=None):
+    if tp is not None:
+        return tp.mlp(p, x)
     if cfg.act == "swiglu":
         return L.swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
     return L.gelu_mlp(x, p["w_up"], p["b_up"], p["w_down"], p["b_down"])
@@ -237,7 +256,17 @@ def forward(
     ``"experts"`` anchors constrain layouts only, and with no layout here they
     are accepted and change no number; ``"mesh"`` is read for
     ``moe_mode="ep"`` (``_moe_ep``).
+
+    Tensor parallelism (``parallel/tensor_parallel.py``; serving, dense family):
+    with ``act_specs["policy"]`` a ``Policy`` with ``tp=True`` and
+    ``act_specs["mesh"]`` the rank's ``Comm`` (inside ``Mesh.run``), ``params``
+    are the rank's blocks under ``sanitize_specs(param_specs(...))`` and
+    ``tokens`` its rows under ``batch_specs``; the logits come back for the last
+    position only, (B, 1, V), the whole vocab on every rank along ``model``.
     """
+    tp = tp_lib.context(cfg, act_specs)
+    if tp is not None:
+        return _forward_tp(cfg, tp, params, tokens, positions, use_kernel, return_hidden)
     if positions is None:
         positions = _positions_default(tokens)
         if cfg.rope_type == "mrope":
@@ -267,12 +296,31 @@ def forward(
     return logits, aux
 
 
+def _forward_tp(cfg: ArchConfig, tp, params, tokens, positions, use_kernel, return_hidden):
+    """``forward`` on the rank's blocks (``tensor_parallel``): the last position's
+    logits, or the final-norm hidden states with ``return_hidden``."""
+    if any(t.requires_grad for t in tree_lib.leaves(params)) and torch.is_grad_enabled():
+        raise ValueError(f"{cfg.name}: tensor parallelism serves only (Comm.all_gather has no "
+                         "backward); FSDP and TP in training are ROADMAP item 13")
+    tp.check(params)
+    x = tp.embed(params, tokens)
+    x, aux = forward_layers(cfg, params["layers"], x, positions, remat=False,
+                            use_kernel=use_kernel, tp=tp)
+    if return_hidden:
+        return L.apply_norm(x, params["final_norm"], cfg.norm_type), aux / cfg.n_layers
+    x = L.apply_norm(x[:, -1:], params["final_norm"], cfg.norm_type)
+    return tp.logits(params, x, mask=True), aux / cfg.n_layers
+
+
 def forward_layers(cfg: ArchConfig, layers, x, positions=None, enc_out=None, remat=True,
-                   use_kernel=False, act_specs=None):
+                   use_kernel=False, act_specs=None, tp=None):
     """The decoder layers of a stack (the leading axis of every leaf of ``layers``;
     all of the model's, or a pipeline stage's) over hidden states x (B, S, d) ->
     (x, the MoE loss summed over these layers).  ``forward`` without the embed,
-    final norm and unembed; the arguments are ``forward``'s."""
+    final norm and unembed; the arguments are ``forward``'s.  With ``tp`` (or a
+    tensor-parallel ``act_specs``) ``layers`` holds the rank's blocks, and each
+    layer's are all-gathered over ``data`` as it runs."""
+    tp = tp or tp_lib.context(cfg, act_specs)
     if positions is None:
         positions = _positions_default(x)
         if cfg.rope_type == "mrope":
@@ -280,9 +328,11 @@ def forward_layers(cfg: ArchConfig, layers, x, positions=None, enc_out=None, rem
     checkpointed = remat and torch.is_grad_enabled()
 
     def layer_fn(h, aux, lp, enc):
+        if tp is not None:
+            lp = tp.layer(lp)
         a = L.apply_norm(h, lp["attn_norm"], cfg.norm_type)
         h = h + _attn_block(cfg, lp, a, positions, causal=True, window=0,
-                            use_kernel=use_kernel)
+                            use_kernel=use_kernel, tp=tp)
         if enc is not None:
             xa = L.apply_norm(h, lp["xattn_norm"], cfg.norm_type)
             xp = {k[1:]: v for k, v in lp.items() if k.startswith("x") and k != "xattn_norm"}
@@ -292,7 +342,7 @@ def forward_layers(cfg: ArchConfig, layers, x, positions=None, enc_out=None, rem
             y, a_loss = _moe_block(cfg, lp["moe"], m, act_specs)
             aux = aux + a_loss
         else:
-            y = _mlp_block(cfg, lp, m)
+            y = _mlp_block(cfg, lp, m, tp)
         return h + y, aux
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -333,12 +383,17 @@ def _encoder_forward(cfg: ArchConfig, enc, frames, checkpointed: bool):
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
-               device=None):
+               device=None, act_specs=None):
     """Zero K/V caches (L, B, max_len, KV, hd) and ``len`` 0; for the audio
     family also the cross-attention's ``xk``/``xv`` (L, B, enc_seq, KV, hd),
-    which stay zero, as in JAX (``decode_step``)."""
+    which stay zero, as in JAX (``decode_step``).  With a tensor-parallel
+    ``act_specs`` (``forward``) the rank's cache of its ``batch`` rows: under the
+    pair route (L, rows, max_len, kv heads, hd) of its share, else every kv head
+    (``tensor_parallel``)."""
     hd = cfg.kq_head_dim
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, hd)
+    tp = tp_lib.context(cfg, act_specs)
+    rows, kv = (batch, cfg.n_kv_heads) if tp is None else tp.cache_heads(batch)
+    shape = (cfg.n_layers, rows, max_len, kv, hd)
     cache = {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
@@ -351,7 +406,7 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
     return cache
 
 
-def decode_step(cfg: ArchConfig, params, cache, tokens, positions=None):
+def decode_step(cfg: ArchConfig, params, cache, tokens, positions=None, act_specs=None):
     """One-token decode: tokens (B, 1) -> (logits (B,1,V), cache).
 
     Unlike the JAX version, which returns a new cache, this writes the new
@@ -368,7 +423,14 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, positions=None):
     The audio family's cross-attention reads ``cache["xk"]``/``cache["xv"]``,
     which nothing fills (neither here nor in JAX): its softmax over zero
     scores averages zero values, so each layer adds ``0 @ xwo``.
+
+    With a tensor-parallel ``act_specs`` (``forward``) ``params`` are the rank's
+    blocks, ``tokens`` its rows and ``cache`` its ``init_cache``; the logits are
+    the whole vocab's on every rank along ``model``.
     """
+    tp = tp_lib.context(cfg, act_specs)
+    if tp is not None:
+        tp.check(params)
     b = tokens.shape[0]
     hd = cfg.kq_head_dim
     h_, kv = cfg.n_heads, cfg.n_kv_heads
@@ -378,20 +440,29 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, positions=None):
         shape = (3, b, 1) if cfg.rope_type == "mrope" else (b, 1)
         positions = torch.full(shape, pos, dtype=torch.int32, device=tokens.device)
     window = cfg.local_window if cfg.family == "vlm" else 0
-    x = params["embed"][tokens.long()]
+    x = params["embed"][tokens.long()] if tp is None else tp.embed(params, tokens)
     if cfg.rope_type == "learned":
         x = x + params["pos_embed"][min(pos, params["pos_embed"].shape[0] - 1)]
     for i, lp in enumerate(L.unstack(params["layers"], cfg.n_layers)):
+        if tp is not None:
+            lp = tp.layer(lp)
         a = L.apply_norm(x, lp["attn_norm"], cfg.norm_type)
-        q = (a @ lp["wq"]).reshape(b, 1, h_, hd)
-        k = (a @ lp["wk"]).reshape(b, 1, kv, hd)
-        v = (a @ lp["wv"]).reshape(b, 1, kv, hd)
-        q, k = _apply_pos(cfg, q, k, positions)
+        if tp is None:
+            q = (a @ lp["wq"]).reshape(b, 1, h_, hd)
+            k = (a @ lp["wk"]).reshape(b, 1, kv, hd)
+            v = (a @ lp["wv"]).reshape(b, 1, kv, hd)
+            rows = positions
+        else:
+            q, k, v, rows = tp.heads(a @ lp["wq"], a @ lp["wk"], a @ lp["wv"], positions)
+        q, k = _apply_pos(cfg, q, k, rows)
         kc, vc = cache["k"][i], cache["v"][i]
         kc[:, slot:slot + 1] = k
         vc[:, slot:slot + 1] = v
         o = L.attention_decode(q, kc, vc, pos + 1, window=window)
-        x = x + o.reshape(b, 1, h_ * hd) @ lp["wo"]
+        if tp is None:
+            x = x + o.reshape(b, 1, h_ * hd) @ lp["wo"]
+        else:
+            x = x + tp.sum(tp.columns(o, b) @ lp["wo"])
         if cfg.enc_layers:
             xa = L.apply_norm(x, lp["xattn_norm"], cfg.norm_type)
             qx = (xa @ lp["xwq"]).reshape(b, 1, h_, hd)
@@ -401,10 +472,10 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, positions=None):
         if cfg.family == "moe":
             y, _ = moe_lib.moe_apply(m, lp["moe"], cfg.top_k, cfg.capacity_factor)
         else:
-            y = _mlp_block(cfg, lp, m)
+            y = _mlp_block(cfg, lp, m, tp)
         x = x + y
     x = L.apply_norm(x, params["final_norm"], cfg.norm_type)
-    logits = x @ L.unembed(params)
+    logits = x @ L.unembed(params) if tp is None else tp.logits(params, x, mask=False)
     cache["len"] = pos + 1
     return logits, cache
 

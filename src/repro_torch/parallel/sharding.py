@@ -293,6 +293,58 @@ class Sharded:
         return out
 
 
+def rank_blocks(sharded, rank: int):
+    """Rank ``rank``'s blocks of a tree of ``Sharded`` (``shard_tree``'s output): the
+    tree a rank's tensor-parallel step takes (``parallel/tensor_parallel.py``)."""
+    return tree_lib.tree_map(lambda s: s.blocks[rank], sharded)
+
+
+def block_views(tree, specs, mesh, rank: int):
+    """Views of rank ``rank``'s blocks of the global tensors of ``tree`` under
+    ``specs`` (meta tensors too): what ``rank_blocks`` holds, without copies."""
+    leaves, structure = tree_lib.flatten(tree)
+    return tree_lib.unflatten(structure, [
+        x[NamedSharding(mesh, s).block(rank, x.shape)]
+        for x, s in zip(leaves, tree_lib.leaves(specs), strict=True)])
+
+
+@dataclasses.dataclass(frozen=True)
+class HeadSplit:
+    """A rank's share of the attention under tensor parallelism: ``rows`` rows of
+    the batch by ``kv_heads`` kv heads (with their GQA groups of q heads).  The
+    ``model`` positions hold the kv blocks in turn, ``groups`` consecutive
+    positions each (``groups`` = the batch's row blocks): position i takes kv
+    block ``i // groups`` and row block ``i % groups``."""
+
+    rows: int
+    kv_heads: int
+    groups: int
+
+    def index_groups(self, n: int):
+        """The ``axis_index_groups`` of the exchange between the rank's columns
+        and its heads: the ``groups`` positions that share a kv block (None
+        when one group holds every position)."""
+        if self.groups == n:
+            return None
+        return tuple(tuple(range(k, k + self.groups)) for k in range(0, n, self.groups))
+
+
+def head_split(batch: int, n_kv: int, n: int) -> HeadSplit | None:
+    """The pair split of ``batch`` rows x ``n_kv`` kv heads over ``n`` ranks along
+    ``model``, or None (the gather route): the split needs ``batch * n_kv / n``
+    (row, kv head) pairs a rank, laid out as a rectangle of rows x kv heads that
+    tiles the batch and the heads.  Of the rectangles, the one with the most kv
+    heads (and so the fewest rows) is taken."""
+    pairs, rem = divmod(batch * n_kv, n)
+    if rem or not pairs:
+        return None
+    for kv in range(min(pairs, n_kv), 0, -1):
+        rows, r = divmod(pairs, kv)
+        if not r and n_kv % kv == 0 and batch % rows == 0:
+            return HeadSplit(rows, kv, batch // rows)
+    return None
+
+
 def to_shardings(mesh, specs):
     """A ``NamedSharding`` over ``mesh`` for every spec of the tree."""
     return tree_lib.tree_map(lambda s: NamedSharding(mesh, s), specs)

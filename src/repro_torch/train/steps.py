@@ -32,6 +32,7 @@ from repro_torch.core import collectives as coll
 from repro_torch.core import compression as comp
 from repro_torch.models import get_model
 from repro_torch.parallel import sharding as shard_lib
+from repro_torch.parallel import tensor_parallel as tp_lib
 from repro_torch.train import optimizer as opt
 
 
@@ -82,6 +83,7 @@ def make_loss_fn(cfg: ArchConfig, options: TrainOptions, act_specs=None):
     ``moe_mode="ep"`` (``models/transformer.py::forward``).
     """
     model = get_model(cfg)
+    tp_lib.context(cfg, act_specs)  # raises for a family without the path
 
     def loss_fn(params, batch):
         extras = model_extras(batch)
@@ -243,8 +245,17 @@ def _data_shard(batch, index: int, n: int):
 
 def make_prefill_step(cfg: ArchConfig, options: TrainOptions, act_specs=None):
     """prefill_step(params, batch) -> logits of the last position, (B, 1, V).
-    ``act_specs`` goes to the model's ``forward``, as in ``make_loss_fn``."""
+    ``act_specs`` goes to the model's ``forward``, as in ``make_loss_fn``.
+
+    Tensor parallelism (dense family): with ``act_specs["policy"]`` a ``Policy``
+    with ``tp=True`` and ``act_specs["mesh"]`` the rank's ``Comm``, the step runs
+    on one rank inside ``Mesh.run``: ``params`` its blocks under
+    ``sanitize_specs(param_specs(...))`` (``sharding.rank_blocks``), ``batch``
+    its rows under ``batch_specs``, and the logits are its rows', the whole
+    vocab (``parallel/tensor_parallel.py``).  Another family raises.
+    """
     model = get_model(cfg)
+    tp_lib.context(cfg, act_specs)  # raises for a family without the path
 
     @torch.no_grad()
     def prefill_step(params, batch):
@@ -258,13 +269,18 @@ def make_prefill_step(cfg: ArchConfig, options: TrainOptions, act_specs=None):
     return prefill_step
 
 
-def make_decode_step(cfg: ArchConfig):
-    """serve_step(params, cache, tokens (B, 1)) -> (next tokens (B, 1) int32, cache)."""
+def make_decode_step(cfg: ArchConfig, act_specs=None):
+    """serve_step(params, cache, tokens (B, 1)) -> (next tokens (B, 1) int32, cache).
+
+    ``act_specs`` is read for tensor parallelism only, as ``make_prefill_step``
+    reads it: then ``cache`` is the rank's (``init_cache`` with the same
+    ``act_specs``), and every rank along ``model`` returns the same tokens."""
     model = get_model(cfg)
+    extra = {"act_specs": act_specs} if tp_lib.context(cfg, act_specs) is not None else {}
 
     @torch.no_grad()
     def serve_step(params, cache, tokens):
-        logits, cache = model.decode_step(cfg, params, cache, tokens)
+        logits, cache = model.decode_step(cfg, params, cache, tokens, **extra)
         next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         return next_tok[:, None], cache
 
