@@ -12,7 +12,7 @@ the SSM mamba2-130m and the hybrid recurrentgemma-9b (the last two reach no
 kernel, in JAX or here), the VLM qwen2-vl-7b and the audio whisper-tiny, then
 dry-runs a production cell on fake tensors and holds a dry-run's prediction
 against the step it predicts, runs the flow simulator's device backend, and
-serves llama3.2-3b tensor-parallel over 16 rank threads:
+serves and trains llama3.2-3b tensor-parallel over 16 rank threads:
 
 1. device and toolchain: card name and power limit, torch and nvcc versions;
 2. build, timed (one nvcc per source, all started together), with ptxas's
@@ -25,17 +25,19 @@ serves llama3.2-3b tensor-parallel over 16 rank threads:
    the case (``flash_attention.variant`` picks tf32 for fp32, sm90 for bf16
    at head_dim >= 16 and simt for bf16 at 8; simt takes every case too, for
    the record; and a rank's share of llama3.2-3b's tensor-parallel prefill,
-   1 row x 2 kv heads and their 6 q heads), each line naming the kernel that
-   ran; the tf32 kernel's
+   1 row x 2 kv heads and their 6 q heads, and of its tensor-parallel
+   training step, 1 row x 1 kv head and its 3 q heads), each line naming the
+   kernel that ran; the tf32 kernel's
    split of K and V against its plain version, bit for bit; at the
    llama3.2-3b prefill shape the bf16 kernels are timed in turns (sm90,
    simt, SDPA) beside the plain version and the bound, with achieved
    TFLOP/s, and again at head_dim 64 (the minicpm-2b widths) and at the
    moonshot-v1-16b-a3b, qwen2-vl-7b and whisper-tiny prefill shapes and at
-   the tensor-parallel rank's share (1, 2048, 6 / 2, 128); in fp32 the same
+   the tensor-parallel ranks' shares (1, 2048, 6 / 2, 128) and (1, 2048, 3 /
+   1, 128); in fp32 the same
    at the training shape (batch 2; tf32, simt, SDPA, three rounds), at the
    prefill shape (one round) of llama3.2-3b, moonshot-v1-16b-a3b,
-   qwen2-vl-7b and whisper-tiny, and at the rank's share (three rounds),
+   qwen2-vl-7b and whisper-tiny, and at the ranks' shares (three rounds),
    each with the 3xTF32 bound and the CUDA-core bound; and at moonshot's
    training shape with q scaled to attention scores ~40 and ~450, each fp32
    kernel against the op in fp64, within the plain version's own error + TOL;
@@ -165,7 +167,7 @@ serves llama3.2-3b tensor-parallel over 16 rank threads:
    ``moe_mode="tp"``, tp's routing replayed.  Forward only (the probe of 18);
 22. the dry-run (after 17): ``repro_torch.launch.dryrun``'s cell of
    llama3.2-3b train_4k on the single pod at full width (fake tensors on the
-   host, rank 0 of 16 x 16, ``sync="auto"`` traced as psum), with the
+   host, rank 0 of 16 x 16 running the tensor-parallel train step), with the
    roofline twin's row; then the dry-run's prediction of the step that runs
    on this card (llama3.2-3b fp32, batch 2 x 2048, remat, the plain
    attention, one rank) against the step itself: its FLOPs equal to
@@ -194,11 +196,23 @@ serves llama3.2-3b tensor-parallel over 16 rank threads:
    within max(FP32_TOL, floor) or no further from it than the unsharded fp32
    step, ``CommStats`` against the closed forms on both.  Forward only (the
    probe of 18);
-25. one JSON line on every kernel (launches by path, the MoE, SSM, hybrid,
+25. FSDP and tensor parallelism in training (``phase_tp_train``, after 24):
+   llama3.2-3b in fp32 at 4 of its 28 layers (the 28-layer init's scale),
+   batch 2 x 2048, one AdamW step on 16 rank threads of cuda:0, each on its
+   blocks of the weights and moments, through ``make_train_step`` and its
+   cut route (``make_tp_value_and_grad``: every collective's autograd
+   function is made to raise) and the tf32 kernel, 128 launches a step: on
+   (data, model) = (1, 16), (2, 8) and (2, 8) with ``sync="ring"``, the
+   loss, ``grad_norm``, every leaf's clipped gradient and the updated
+   parameters against the unsharded model in fp64, the ring run against
+   the auto run too, ``CommStats`` against closed forms; then llama3.2-3b
+   whole on (2, 8), one step (896 launches), its seconds and peak memory,
+   its loss against the unsharded step's of 8;
+26. one JSON line on every kernel (launches by path, the MoE, SSM, hybrid,
    VLM, audio, pipeline, EP and TP paths included), one each on the sync,
    MoE, SSM, hybrid, VLM, audio, pipeline, EP-model, sharding, torchrun,
-   dry-run, flow-simulator and TP phases, the card's name and power limit,
-   and last the JSON result line.
+   dry-run, flow-simulator, TP-serving and TP-training phases, the card's
+   name and power limit, and last the JSON result line.
 
 Any failure raises and exits nonzero; without a CUDA device, or without the
 rest of the repository beside it, the script exits nonzero and prints no
@@ -271,13 +285,17 @@ CASES = [
     # a rank's share of llama3.2-3b's prefill under tensor parallelism over 16 ranks
     # (phase_tp_serve): 1 row x 2 kv heads and their 6 q heads
     (1, 2048, 2048, 6, 2, 128, True, 0),
+    # a rank's share of llama3.2-3b's training step under tensor parallelism
+    # (phase_tp_train): 1 row x 1 kv head and its 3 q heads, on (1, 16) and (2, 8)
+    (1, 2048, 2048, 3, 1, 128, True, 0),
 ]
 # the prefill shape of llama3.2-3b at head_dim 128, of minicpm-2b at 64, of
 # moonshot-v1-16b-a3b (MHA, 16 heads of 128), of qwen2-vl-7b (GQA group 7) and of
 # whisper-tiny's decoder (6 heads of 64): (b, s, h, kv, d), causal
 PREFILL_SHAPES = {"d128": (4, 2048, 24, 8, 128), "d64": (4, 2048, 36, 36, 64),
                   "moonshot": (4, 2048, 16, 16, 128), "vlm": (4, 2048, 28, 4, 128),
-                  "audio": (4, 2048, 6, 6, 64), "tp": (1, 2048, 6, 2, 128)}
+                  "audio": (4, 2048, 6, 6, 64), "tp": (1, 2048, 6, 2, 128),
+                  "tp_train": (1, 2048, 3, 1, 128)}
 PREFILL_BATCH, PREFILL_LEN = 4, 2048
 # the fp32 shapes, (tag, (b, s, h, kv, d), timing rounds), causal: the training
 # and prefill shapes of llama3.2-3b, then of moonshot-v1-16b-a3b, qwen2-vl-7b and
@@ -290,7 +308,8 @@ FP32_SHAPES = [("train_fp32", (2, 2048, 24, 8, 128), 3),
                ("prefill_vlm_fp32", (4, 2048, 28, 4, 128), 1),
                ("train_audio_fp32", (2, 2048, 6, 6, 64), 3),
                ("prefill_audio_fp32", (4, 2048, 6, 6, 64), 1),
-               ("prefill_tp_fp32", (1, 2048, 6, 2, 128), 3)]
+               ("prefill_tp_fp32", (1, 2048, 6, 2, 128), 3),
+               ("train_tp_fp32", (1, 2048, 3, 1, 128), 3)]
 # q's scale in the large-score checks (mean row max scores ~40 and ~450), at the
 # training shapes of moonshot-v1-16b-a3b and whisper-tiny
 LARGE_SCORE_Q_SCALES = (12.0, 143.0)
@@ -1012,8 +1031,10 @@ def _loss_and_grads(cfg, params, batch, use_kernel: bool):
             "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
 
 
-def phase_train(cfg, smi) -> dict:
-    """Full-width fp32 training: the kernel-vs-plain gate, then timed AdamW steps."""
+def phase_train(cfg, smi) -> tuple[dict, dict]:
+    """Full-width fp32 training: the kernel-vs-plain gate, then timed AdamW steps.
+    Returns the steps' launch counts and the gate's losses (kernel, plain) of the
+    init's weights on the first batch."""
     from repro_torch.data.pipeline import make_batch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import get_model
@@ -1117,7 +1138,7 @@ def phase_train(cfg, smi) -> dict:
     _profile("one train step", lambda: step_fn(params, ostate, batches[0]))
     del params, ostate, batches, batch, m
     torch.cuda.empty_cache()
-    return launches
+    return launches, {"kernel": k["loss"], "plain": p["loss"]}
 
 
 def _profile(label: str, fn, top: int = 10) -> None:
@@ -2622,15 +2643,16 @@ def _prefill_gate(cfg, params, tokens, extras, tag: str) -> dict:
             "launches": launches}
 
 
-def _train_gate(cfg, params, batch, tag: str, around=None) -> dict:
-    """fp32 loss and gradients (remat) through the kernel against the plain path:
-    the loss, the gradient norm and each leaf within max(tol, floor), the floor
-    being the plain chunked path's distance from plain dense; and the loss, the
-    gradient norm, each leaf and the whole gradient (its relative L2 distance) no
-    further from a run with the flash op in fp64 than the plain path is (within
-    max(tol, plain's)).  ``around(name)``, where given, is the context each path
-    runs in (the MoE gate's replayed routing).  The kernel launches twice a layer
-    (forward and remat recompute), all tf32."""
+def _reference_runs(cfg, params, batch, around=None) -> tuple[dict, dict]:
+    """The training gates' four fp32 runs of ``cfg``'s loss and gradients (remat)
+    on ``params`` and ``batch``: through the kernel, the plain path chunked at
+    FLOOR_CHUNK, the kernel with the flash op computed in fp64, and the plain
+    dense path; ``around(name)``, where given, is the context each runs in (the
+    MoE gate's replayed routing).  Returns the runs (loss, global norm, launches,
+    seconds, peak) and the gradients by leaf name of every run but the plain one
+    on the host; the plain run's stay on the card, under its ``"grads"``.  The
+    kernel launches twice a layer (forward and remat recompute), all tf32; the
+    other runs, never."""
     from unittest import mock
 
     from repro_torch.kernels import flash_attention as fa
@@ -2650,6 +2672,24 @@ def _train_gate(cfg, params, batch, tag: str, around=None) -> dict:
         if name != "plain":  # keep on the host, free the card
             host[name] = {n: g.cpu() for n, g in _named_leaves(runs[name].pop("grads"))}
             torch.cuda.empty_cache()
+    k = runs["kernel"]
+    if k["launches"] != k["tf32"] or k["launches"] != 2 * cfg.n_layers or any(
+            runs[name]["launches"] for name in ("chunked", "fp64", "plain")):
+        raise AssertionError(f"{cfg.name} loss and gradient launched the flash kernel "
+                             f"{k['launches']} times ({k['tf32']} tf32) with it and "
+                             f"{[runs[n]['launches'] for n in ('chunked', 'fp64', 'plain')]} "
+                             f"without; want {2 * cfg.n_layers} tf32 and 0")
+    return runs, host
+
+
+def _train_gate(cfg, params, batch, tag: str, around=None) -> dict:
+    """fp32 loss and gradients (remat) through the kernel against the plain path
+    (``_reference_runs``): the loss, the gradient norm and each leaf within
+    max(tol, floor), the floor being the plain chunked path's distance from plain
+    dense; and the loss, the gradient norm, each leaf and the whole gradient (its
+    relative L2 distance) no further from a run with the flash op in fp64 than the
+    plain path is (within max(tol, plain's))."""
+    runs, host = _reference_runs(cfg, params, batch, around)
     k, c, p, x = runs["kernel"], runs["chunked"], runs["plain"], runs["fp64"]
     leaf_err, leaf_floor, kernel_fp64, plain_fp64, chunked_fp64 = {}, {}, {}, {}, {}
     sq = dict.fromkeys(("kernel", "plain", "fp64"), 0.0)  # squared distances from fp64, |g64|²
@@ -2692,12 +2732,6 @@ def _train_gate(cfg, params, batch, tag: str, around=None) -> dict:
             f"(chunked) {leaf_floor[n]:.2e}, tol max({GRAD_RTOL}, floor); against the fp64 "
             f"op: kernel {kernel_fp64[n]:.2e}, plain {plain_fp64[n]:.2e} (tol max({GRAD_RTOL}, "
             f"plain's)), chunked {chunked_fp64[n]:.2e}")
-    if k["launches"] != k["tf32"] or k["launches"] != 2 * cfg.n_layers or c["launches"] or \
-            p["launches"] or x["launches"]:
-        raise AssertionError(f"{cfg.name} loss and gradient launched the flash kernel "
-                             f"{k['launches']} times ({k['tf32']} tf32) with it and "
-                             f"{c['launches']}, {p['launches']} without; want "
-                             f"{2 * cfg.n_layers} tf32 and 0")
     fp64_ok = all(rel["kernel_fp64"][m] <= max(tol, rel["plain_fp64"][m]) for m, tol in (
         ("loss", LOSS_RTOL), ("norm", GRAD_RTOL), ("grad_rel_l2", GRAD_RTOL)))
     if bad or not (rel["kernel"]["loss"] <= max(LOSS_RTOL, rel["floor"]["loss"])
@@ -3744,8 +3778,8 @@ def _tp_closed_forms(cfg, mesh, batch: int, seq: int, dtype) -> dict:
     elt = torch.tensor([], dtype=dtype).element_size()
     act = rows * seq * d
     psum = {"calls": 1, "bytes": act * elt}  # the embed
-    # wo and w_down a layer: a reduce-scatter of the fp32 partial (an all-to-all
-    # over model) and an all-gather of the sums, rounded to the model's dtype
+    # wo and w_down a layer: a reduce-scatter of the fp32 partial over model and
+    # an all-gather of the sums, rounded to the model's dtype
     rs = {"calls": 2 * n_l, "bytes": 2 * n_l * act * 4}
     ag = {"calls": 2 * n_l, "bytes": 2 * n_l * act // n * elt}
     # FSDP: every (L, ., .) weight, the embed and the unembed, a block over data
@@ -3761,10 +3795,10 @@ def _tp_closed_forms(cfg, mesh, batch: int, seq: int, dtype) -> dict:
                              "the chip's meshes take the pair route")
     qo = rows * seq * cfg.n_heads * hd // n * elt  # q in, and the output back
     kv = rows * seq * cfg.n_kv_heads * hd // n * elt
-    a2a = {"calls": 2 * n_l + rs["calls"],  # q, k, v in one; o; the row sums
-           "bytes": n_l * (2 * qo + 2 * kv) + rs["bytes"]}
+    a2a = {"calls": 2 * n_l, "bytes": n_l * (2 * qo + 2 * kv)}  # q, k, v in one; o
     pair = n_l * (2 * qo + 2 * kv) // hs.groups  # to each other rank of the group
-    return {"psum": psum, "all_gather": gather, "all_to_all": a2a, "pair_bytes": pair,
+    return {"psum": psum, "all_gather": gather, "all_to_all": a2a, "reduce_scatter": rs,
+            "pair_bytes": pair,
             "sum_bytes": rs["bytes"] // n, "model": n, "groups": hs.groups,
             "split": (hs.rows, hs.kv_heads)}
 
@@ -3774,7 +3808,7 @@ def _tp_stats_check(tag, mesh, want) -> dict:
     st, size = mesh.stats, mesh.size
     got = {kind: {"calls": getattr(st, f"{kind}_calls") // size,
                   "bytes": st.payload[kind] // size}
-           for kind in ("psum", "all_gather", "all_to_all")}
+           for kind in ("psum", "all_gather", "all_to_all", "reduce_scatter")}
     for kind in got:
         if got[kind] != want[kind] or getattr(st, f"{kind}_calls") % size:
             raise AssertionError(f"[{tag}] {kind}: {got[kind]} a rank, want {want[kind]}")
@@ -3871,8 +3905,9 @@ def phase_tp_serve(smi) -> dict:
         f"{stats['all_to_all']['calls']} / {stats['all_to_all']['bytes']:,} B in (q, k, v and o: "
         f"{stats['sent_a_rank']:,} B sent to the {stats['group'] - 1} other ranks of its "
         f"group, a rank attending {stats['split_rows_kv'][0]} row x {stats['split_rows_kv'][1]} "
-        f"kv heads; the row sums' fp32 reduce-scatters: {stats['sum_sent_a_rank']:,} B sent "
-        f"to the other ranks along model) [{smi}]")
+        f"kv heads), reduce_scatter {stats['reduce_scatter']['calls']} / "
+        f"{stats['reduce_scatter']['bytes']:,} B in (the row sums' fp32 partials: "
+        f"{stats['sum_sent_a_rank']:,} B sent to the other ranks along model) [{smi}]")
     log(f"[tp-serve] GSPMD's collectives for one layer of the JAX step, for the record: "
         f"{GSPMD_LAYER}")
     log(f"[tp-serve] bf16 decode ({TP_PROMPT_BF16} teacher-forced, {TP_DECODE} greedy, batch "
@@ -3930,7 +3965,9 @@ def phase_tp_serve(smi) -> dict:
                 f"{rank_bytes[0]:,}; CommStats a rank psum {stats['psum']['calls']} / "
                 f"{stats['psum']['bytes']:,} B, all_gather {stats['all_gather']['calls']} / "
                 f"{stats['all_gather']['bytes']:,} B, all_to_all {stats['all_to_all']['calls']}"
-                f" / {stats['all_to_all']['bytes']:,} B (closed forms)")
+                f" / {stats['all_to_all']['bytes']:,} B, reduce_scatter "
+                f"{stats['reduce_scatter']['calls']} / {stats['reduce_scatter']['bytes']:,} B "
+                f"(closed forms)")
         if not (err <= bound and torch.isfinite(logits).all()):
             raise AssertionError(f"{line}: over the bound")
         if shape == TP_MESHES[0]:
@@ -3958,6 +3995,423 @@ def phase_tp_serve(smi) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the twelfth slice: FSDP and tensor parallelism in training (dense family)
+# ---------------------------------------------------------------------------
+
+TP_TRAIN_LAYERS = 4  # the gate's depth, of llama3.2-3b's 28, at the 28-layer init's scale
+# (sync, (data, model)): TP alone; the FSDP gathers and their reduce-scatters; the
+# paper's ring over data on blocks whole over data
+TP_TRAIN_RUNS = (("auto", (1, 16)), ("auto", (2, 8)), ("ring", (2, 8)))
+TP_TRAIN_OCFG = dict(lr=1e-2, warmup_steps=1, total_steps=10)  # the sync gate's
+TP_TRAIN_FULL = (2, 8)  # the full-depth step: 1 row's layer inputs a rank (2 on (1, 16))
+
+
+def _tp_train_closed_forms(cfg, shape, batch: int, seq: int, sync: str) -> dict:
+    """What one rank of a TP train step (``make_tp_value_and_grad``, then AdamW)
+    calls and moves, from the shapes: calls and input bytes by collective, fp32.
+    The forward runs each layer and the embed twice (no-grad, then recomputed
+    under the tape), and the backward runs each cut's transpose once."""
+    from repro_torch.parallel import sharding as sh
+
+    dp, n = shape
+    n_l, d, hd, f, v = cfg.n_layers, cfg.d_model, cfg.kq_head_dim, cfg.d_ff, cfg.vocab
+    rows = batch // dp
+    tok, act = rows * seq, rows * seq * d
+    fsdp = sync == "auto" and dp > 1
+    qkv = tok * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd // n  # q, k, v in one exchange
+    layer = d * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd + cfg.n_heads * hd * d + 3 * d * f
+    top = v * d  # the embed and the unembed, each
+    out = {kind: {"calls": 0, "bytes": 0}
+           for kind in ("psum", "all_gather", "all_to_all", "reduce_scatter")}
+
+    def add(kind, calls, elems):
+        out[kind]["calls"] += calls
+        out[kind]["bytes"] += 4 * elems
+
+    # the row sums, forward and recomputed: a reduce-scatter of the fp32 partial and
+    # an all-gather of the sums, 2 a layer
+    add("reduce_scatter", 4 * n_l, 4 * n_l * act)
+    add("all_gather", 4 * n_l, 4 * n_l * act // n)
+    if fsdp:  # 7 weights a layer and the embed, forward and recomputed; the unembed once
+        add("all_gather", 14 * n_l + 3, (2 * n_l * layer + 3 * top) // (dp * n))
+        add("reduce_scatter", 7 * n_l + 2, (n_l * layer + 2 * top) // n)  # the transposes
+    if sh.head_split(rows, cfg.n_kv_heads, n) is None:  # the gather route
+        add("all_gather", 2 * n_l, 2 * n_l * qkv)
+        add("reduce_scatter", n_l, n_l * n * qkv)
+    else:  # q, k, v in, o back: forward, recomputed and the transposes
+        add("all_to_all", 6 * n_l, 3 * n_l * (qkv + tok * cfg.n_heads * hd // n))
+    add("all_gather", 1, tok)  # the loss's row max
+    # the embed, twice; the loss's exp-sums and label logit; the pvarys'
+    # transposes (the loss's and 2 a layer); the norm's square sums
+    add("psum", 2 + 2 + 1 + 2 * n_l + 1, 2 * act + 2 * tok + act + 2 * n_l * act + 1)
+    if sync == "auto" and dp > 1:  # the loss's mean over data; the norm scales
+        add("psum", 1 + 3, 1 + 2 * n_l * d + d)
+    if sync != "auto":  # the loss and aux over data, after the ring
+        add("psum", 2, 2)
+    blocks = (n_l * layer + 2 * top) // (dp * n if fsdp else n) + (2 * n_l + 1) * d
+    ring = 0 if sync == "auto" else 2 * (dp - 1) * -(-blocks // dp) * 4
+    return {**out, "ppermute_bytes": ring, "rank_param_bytes": 4 * blocks}
+
+
+def _tp_train_stats_check(tag, mesh, want) -> dict:
+    """``mesh.stats`` of one TP train step against ``_tp_train_closed_forms``, every
+    rank alike; under a sync mode also the ring's ppermute bytes, the sends between
+    ranks of two data rows (the step's other sends stay in a rank's model group)."""
+    st, size, n = mesh.stats, mesh.size, mesh.shape["model"]
+    got = {kind: {"calls": getattr(st, f"{kind}_calls") // size,
+                  "bytes": st.payload[kind] // size}
+           for kind in ("psum", "all_gather", "all_to_all", "reduce_scatter")}
+    for kind in got:
+        if got[kind] != want[kind] or getattr(st, f"{kind}_calls") % size:
+            raise AssertionError(f"[{tag}] {kind}: {got[kind]} a rank, want {want[kind]}")
+    if want["ppermute_bytes"]:
+        cross = sum(b for (src, dst), b in st.bytes.items() if src // n != dst // n)
+        if cross != size * want["ppermute_bytes"]:
+            raise AssertionError(f"[{tag}] the ring sent {cross} B, want {size} x "
+                                 f"{want['ppermute_bytes']}")
+        got["ppermute_bytes"] = cross // size
+    return got
+
+
+def _tp_whole(mesh, spec, shape, blocks) -> torch.Tensor:
+    """The global tensor of ``shape`` put together on the card from every rank's block
+    under ``spec``."""
+    from repro_torch.parallel import sharding as sh
+
+    out = torch.empty(shape, dtype=blocks[0].dtype, device="cuda")
+    ns = sh.NamedSharding(mesh, spec)
+    for r, b in enumerate(blocks):
+        out[ns.block(r, shape)] = b
+    return out
+
+
+def _row_chunks(shape, elements: int = 1 << 25) -> list[slice]:
+    """Slices of a tensor of ``shape`` along its first dimension, each of at most
+    ``elements`` (at least one row): the fp64 comparisons' working set."""
+    rows = max(1, elements // max(1, math.prod(shape[1:])))
+    return [slice(i, i + rows) for i in range(0, shape[0], rows)]
+
+
+@contextlib.contextmanager
+def _no_autograd_collectives():
+    """Every collective's ``autograd.Function`` raises while this is open: rank
+    threads on one card share its one autograd engine thread, so a TP train step
+    here must take the cut route (``make_tp_value_and_grad``)."""
+    from unittest import mock
+
+    from repro_torch.core import comm as comm_lib
+    from repro_torch.parallel import tensor_parallel as tp_lib
+
+    def refuse(*_):
+        raise AssertionError("a collective under autograd on rank threads of one card")
+
+    fns = [getattr(comm_lib, n) for n in ("_PSum", "_PVary", "_AllGather", "_ReduceScatter",
+                                          "_AllToAll", "_PPermute")] + [tp_lib._RowSum]
+    with contextlib.ExitStack() as stack:
+        for fn in fns:
+            stack.enter_context(mock.patch.object(fn, "apply", refuse))
+        yield
+
+
+def _tp_train_blocks(cfg, params, shape, sync) -> tuple:
+    """``params`` cut into each rank's blocks on a (data, model) LocalMesh of cuda:0
+    (FSDP over data under ``auto``, whole over it under a sync mode): (mesh, specs,
+    per-rank block trees)."""
+    from repro_torch.core.comm import LocalMesh
+    from repro_torch.parallel import sharding as sh
+
+    mesh = LocalMesh(shape, TP_AXES, "cuda")  # 16 ranks on one card: they take turns
+    policy = _tp_policy() if sync == "auto" else dataclasses.replace(_tp_policy(), fsdp=False)
+    specs = sh.sanitize_specs(params, sh.param_specs(cfg, params, policy), mesh)
+    sharded = sh.shard_tree(params, sh.to_shardings(mesh, specs))
+    return mesh, specs, [sh.rank_blocks(sharded, r) for r in range(mesh.size)]
+
+
+def _tp_train_step(cfg, ocfg, mesh, blocks, batch, sync) -> dict:
+    """One TP train step (AdamW from the init state) of every rank's ``blocks``,
+    through the tf32 kernel, which it takes over (the list is emptied): every
+    rank's updated blocks and first moment, its metrics, the step's seconds and
+    peak memory; the launches and CommStats are left in the counters."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import steps as st
+
+    opts = st.TrainOptions(sync=sync, use_kernel=True, remat=True)
+    per_rank = list(blocks)
+    blocks.clear()
+
+    def fn(comm, p):
+        step = st.make_train_step(cfg, ocfg, opts,
+                                  act_specs={"mesh": comm, "policy": _tp_policy()})
+        rows = {k: _tp_rows(mesh, v, comm) for k, v in batch.items()}
+        p, state, m = step(p, opt.init(p), rows)
+        return p, state.m, {k: float(v) for k, v in m.items()}
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mesh.stats.reset()
+    _reset_counts()
+    t0 = time.perf_counter()
+    with _no_autograd_collectives():
+        outs = mesh.run(fn, per_rank)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    del per_rank
+    if not all(t.is_cuda for t in tree_lib.leaves(outs[0][0])):
+        raise AssertionError("[tp-train] the TP step's blocks left the card")
+    metrics = [o[2] for o in outs]
+    if any(m != metrics[0] for m in metrics):
+        raise AssertionError(f"[tp-train] the ranks' metrics differ: {metrics}")
+    return {"outs": outs, "metrics": metrics[0], "s": secs, "peak": peak}
+
+
+def phase_tp_train(smi, train_loss: dict) -> dict:
+    """llama3.2-3b at full width trained tensor-parallel over ``model`` (FSDP over
+    ``data``) on 16 rank threads of cuda:0, each rank on its blocks of the weights and
+    AdamW moments and its rows, through ``make_train_step`` (``make_tp_value_and_grad``:
+    no collective under autograd, which this phase enforces) and the tf32 kernel:
+
+    * the gate, at TP_TRAIN_LAYERS of 28 layers at the 28-layer init's scale, fp32, B
+      2 x 2048, remat, one AdamW step from the init state: on (data, model) = (1, 16),
+      on (2, 8) (the FSDP gathers and their reduce-scatters) and on (2, 8) with
+      ``sync="ring"``; against the unsharded model in fp64 on the same weights and
+      tokens (plain attention): the loss, ``grad_norm`` and every leaf's clipped
+      gradient (the first moment over 1 - b1, put together from the blocks) within
+      max(FP32_TOL, floor), the floor being the fp32 error of a path that shares
+      no code of TP's and no kernel: the plain chunked step's (``_reference_runs``)
+      own distance from the fp64 model; and the updated parameters within
+      SYNC_STEP_TOL plus lr·|u(g) - u(g64)| (AdamW's first update, the sync gate's
+      term).  The ring run is held to the (2, 8) auto run, two fp32 paths, within
+      max(FP32_TOL, floor), the floor being the plain chunked path's distance from
+      plain dense (as ``phase_train`` measures it).  The other fp32 runs' own
+      distances from fp64 (plain dense, the unsharded step through the tf32 kernel,
+      as TP, and the same with the flash op in fp64) are printed beside, not gated.
+      2 tf32 launches a layer a rank (the forward and the recompute): 128 a step;
+      ``CommStats`` against ``_tp_train_closed_forms``;
+    * llama3.2-3b whole (28 layers) on TP_TRAIN_FULL: one step, its seconds, peak
+      memory and 896 launches; its loss against ``phase_train``'s on the same init
+      and tokens (within LOSS_RTOL)."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.models import get_model
+    from repro_torch.train import optimizer as opt
+
+    full = get_config(TP_ARCH)
+    cfg = dataclasses.replace(full, n_layers=TP_TRAIN_LAYERS)
+    ocfg = opt.AdamWConfig(**TP_TRAIN_OCFG, schedule=full.schedule)
+    lr = float(opt.schedule_lr(ocfg, torch.tensor(1)))
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in make_batch(full, TRAIN_LEN, TRAIN_BATCH).items()}
+    params, meta = _load_model(cfg, "tp-train", torch.float32)
+    _rescale_stacks(params["layers"], TP_TRAIN_LAYERS, full.n_layers)
+    names = [n for n, _ in _named_leaves(params)]
+    out = {"layers": TP_TRAIN_LAYERS, "batch": [TRAIN_BATCH, TRAIN_LEN], **meta, "runs": {}}
+    t_phase = time.perf_counter()
+
+    def first_update(g):  # u(g) of AdamW's first step: m^ = g, sqrt(v^) = |g|
+        return g / (g.abs() + ocfg.eps)
+
+    # -- the unsharded references: the model in fp64 (plain attention); then
+    #    _reference_runs' four fp32 runs (the gate's floor: the plain chunked one)
+    p64 = tree_lib.tree_map(lambda t: t.double(), params)
+    ref = _loss_and_grads(cfg, p64, batch, use_kernel=False)
+    del p64
+    g64 = dict(_named_leaves(ref.pop("grads")))
+    norm64 = math.sqrt(sum(float((g ** 2).sum()) for g in g64.values()))
+    scale64 = min(1.0, ocfg.clip_norm / norm64)
+    # the clipped fp64 gradient and the fp64 update, kept on the host (the ring
+    # run's blocks are whole over data: twice the auto runs' on the card)
+    p1_64 = {}
+    for n, p in _named_leaves(params):
+        g64[n] = g64[n] * scale64
+        p1_64[n] = (p.double() - lr * (first_update(g64[n]) + ocfg.weight_decay
+                                       * p.double())).cpu()
+        g64[n] = g64[n].cpu()
+    torch.cuda.empty_cache()
+    runs, host = _reference_runs(cfg, params, batch)
+    host["plain"] = {n: g.cpu() for n, g in _named_leaves(runs["plain"].pop("grads"))}
+    torch.cuda.empty_cache()
+    vs64 = {}  # each run's distances from the fp64 model
+    for name, r in runs.items():
+        scale = min(1.0, ocfg.clip_norm / r["norm"])
+        vs64[name] = {"loss": abs(r["loss"] - ref["loss"]) / abs(ref["loss"]),
+                      "norm": abs(r["norm"] - norm64) / norm64,
+                      "leaves": {n: rel_l2(g.cuda().double() * scale, g64[n].cuda())
+                                 for n, g in host[name].items()}}
+    # the floor of two fp32 paths (plain chunked against plain dense, as
+    # phase_train measures it), for the ring run against the auto run
+    plain, chunked, kern = runs["plain"], runs["chunked"], runs["kernel"]
+    floor = {"loss": abs(chunked["loss"] - plain["loss"]) / abs(plain["loss"]),
+             "norm": abs(chunked["norm"] - plain["norm"]) / plain["norm"],
+             "leaves": {n: rel_l2(g.cuda(), host["plain"][n].cuda())
+                        for n, g in host["chunked"].items()}}
+    del host
+    torch.cuda.empty_cache()
+    bound_fp32 = {"loss": max(FP32_TOL, floor["loss"]), "norm": max(FP32_TOL, floor["norm"]),
+                  "leaves": {n: max(FP32_TOL, f) for n, f in floor["leaves"].items()}}
+    # against fp64: the fp32 floor of a path that shares no code of TP's and no
+    # kernel, the plain chunked path's own distance from fp64
+    bound = {"loss": max(FP32_TOL, vs64["chunked"]["loss"]),
+             "norm": max(FP32_TOL, vs64["chunked"]["norm"]),
+             "leaves": {n: max(FP32_TOL, f) for n, f in vs64["chunked"]["leaves"].items()}}
+    kern_vs = {"loss": vs64["kernel"]["loss"], "norm": vs64["kernel"]["norm"],
+               "leaf_max": max(vs64["kernel"]["leaves"].values())}
+    plain_vs = vs64["plain"]
+    log(f"[tp-train] {cfg.name} at {cfg.n_layers} of {full.n_layers} layers (the "
+        f"{full.n_layers}-layer init's scale), fp32, batch {TRAIN_BATCH} x {TRAIN_LEN}, remat: "
+        f"fp64 loss {ref['loss']:.7f}, grad norm {norm64:.6e}; against it (loss, norm, leaves "
+        f"up to; rel_l2 of the clipped gradient): "
+        + "; ".join(f"{label} {vs64[name]['loss']:.2e}, {vs64[name]['norm']:.2e}, "
+                    f"{max(vs64[name]['leaves'].values()):.2e}"
+                    for name, label in (("chunked", "the plain chunked fp32 step (the gate's "
+                                         "floor)"),
+                                        ("plain", "plain dense fp32 (reported)"),
+                                        ("kernel", "the unsharded tf32 step (reported)"),
+                                        ("fp64", "it with the flash op in fp64 (reported)")))
+        + f"; floor of two fp32 paths (plain chunked {FLOOR_CHUNK} vs plain dense): loss "
+        f"{floor['loss']:.2e}, norm {floor['norm']:.2e}, leaves up to "
+        f"{max(floor['leaves'].values()):.2e}; {kern['s']:.2f}s, peak {kern['peak_gib']:.1f} GiB "
+        f"[{smi}]")
+    out["fp64"] = {"loss": ref["loss"], "grad_norm": norm64, "s": ref["s"],
+                   "peak_gib": ref["peak_gib"]}
+    out["unsharded_fp32"] = {"loss": kern["loss"], "grad_norm": kern["norm"],
+                             "vs_fp64": kern_vs, "leaf_vs_fp64": vs64["kernel"]["leaves"],
+                             "s": kern["s"], "peak_gib": kern["peak_gib"]}
+    out["floor"] = floor
+    out["chunked_fp32_vs_fp64"] = vs64["chunked"]
+    out["plain_fp32_vs_fp64"] = plain_vs
+    out["fp64_op_vs_fp64"] = vs64["fp64"]
+
+    # -- the TP steps
+    auto = None
+    for sync, shape in TP_TRAIN_RUNS:
+        tag = f"{sync}_{shape[0]}x{shape[1]}"
+        label = f"[tp-train] {cfg.name} {sync} on (data, model) = {shape}"
+        mesh, specs, blocks = _tp_train_blocks(cfg, params, shape, sync)
+        run = _tp_train_step(cfg, ocfg, mesh, blocks, batch, sync)
+        outs, m = run["outs"], run["metrics"]
+        launches = _expect_launches(label, tf32=mesh.size * 2 * cfg.n_layers)
+        want = _tp_train_closed_forms(cfg, shape, TRAIN_BATCH, TRAIN_LEN, sync)
+        stats = _tp_train_stats_check(f"tp-train {tag}", mesh, want)
+        spec_of = dict(zip(names, tree_lib.leaves(specs)))
+        leaf_err, leaf_vs_auto, excess, worst = {}, {}, -1.0, 0.0
+        new_auto = {}
+        for i, (n, p0) in enumerate(_named_leaves(params)):
+            gt = _tp_whole(mesh, spec_of[n], p0.shape, [tree_lib.leaves(o[1])[i] for o in outs])
+            pt = _tp_whole(mesh, spec_of[n], p0.shape, [tree_lib.leaves(o[0])[i] for o in outs])
+            gt /= 1 - ocfg.b1  # the clipped gradient the step applied
+            sq = dict.fromkeys(("fp64", "fp64_ref", "auto", "auto_ref"), 0.0)
+            for sl in _row_chunks(p0.shape):  # fp64 on the card, a chunk of rows at a time
+                g, p = gt[sl].double(), pt[sl].double()
+                refs = [("fp64", g64[n][sl].cuda(), p1_64[n][sl].cuda())]
+                if auto is not None:  # the ring run against the auto run on its mesh
+                    refs.append(("auto", auto[n][0][sl].cuda().double(),
+                                 auto[n][1][sl].cuda().double()))
+                for key, g_ref, p_ref in refs:
+                    sq[key] += float(((g - g_ref) ** 2).sum())
+                    sq[key + "_ref"] += float((g_ref ** 2).sum())
+                    d = (p - p_ref).abs()
+                    if key == "fp64":
+                        worst = max(worst, float(d.max()))
+                    d -= SYNC_STEP_TOL["rtol"] * p_ref.abs() + SYNC_STEP_TOL["atol"]
+                    d -= lr * (first_update(g) - first_update(g_ref)).abs()
+                    excess = max(excess, float(d.max()))
+                    del g_ref, p_ref, d
+                del g, p, refs
+            leaf_err[n] = math.sqrt(sq["fp64"] / sq["fp64_ref"])
+            if auto is not None:
+                leaf_vs_auto[n] = math.sqrt(sq["auto"] / sq["auto_ref"])
+            elif sync == "auto" and shape == (2, 8):
+                new_auto[n] = (gt.cpu(), pt.cpu())
+            del gt, pt
+        secs, peak = run["s"], run["peak"]
+        del outs, run
+        torch.cuda.empty_cache()
+        loss_err = abs(m["loss"] - ref["loss"]) / abs(ref["loss"])
+        norm_err = abs(m["grad_norm"] - norm64) / norm64
+        bad = [n for n, e in leaf_err.items() if e > bound["leaves"][n]]
+        bad += [n for n, e in leaf_vs_auto.items() if e > bound_fp32["leaves"][n]]
+        # reported: the leaves past max(FP32_TOL, the floor of two fp32 paths)
+        past_fixed = [n for n, e in leaf_err.items() if e > bound_fp32["leaves"][n]]
+        rec = {"past_floor_of_two_paths": past_fixed,
+               "loss": m["loss"], "grad_norm": m["grad_norm"], "loss_vs_fp64": loss_err,
+               "norm_vs_fp64": norm_err, "leaf_vs_fp64": leaf_err,
+               "leaf_vs_auto_2x8": leaf_vs_auto or None, "param_max_abs_diff": worst,
+               "param_excess": excess, "s": secs, "peak_bytes": peak,
+               "launches": launches, "stats": stats}
+        line = (f"{label}, {TRAIN_BATCH} x {TRAIN_LEN}, one AdamW step through tf32: loss "
+                f"{m['loss']:.7f} vs fp64 {loss_err:.2e} (tol {bound['loss']:.2e}; unsharded "
+                f"fp32 {kern_vs['loss']:.2e}), grad_norm {m['grad_norm']:.6e} vs fp64 "
+                f"{norm_err:.2e} (tol {bound['norm']:.2e}; unsharded {kern_vs['norm']:.2e}); "
+                f"clipped gradient leaves vs fp64 up to {max(leaf_err.values()):.2e} "
+                f"({max(leaf_err, key=leaf_err.get)}; tol max({FP32_TOL}, the plain chunked "
+                f"fp32 step's); unsharded up to {kern_vs['leaf_max']:.2e})"
+                + (f", vs the auto run up to {max(leaf_vs_auto.values()):.2e}"
+                   if leaf_vs_auto else "")
+                + f"; leaves past max({FP32_TOL}, the floor of two fp32 paths) (reported): "
+                f"{past_fixed or 'none'}"
+                + f"; params max |diff| {worst:.3e}, within rtol {SYNC_STEP_TOL['rtol']} atol "
+                f"{SYNC_STEP_TOL['atol']} + lr*|du| (excess {excess:.3e}); step {secs:.2f}s, "
+                f"peak {peak / 2**30:.2f} GiB; launches {launches}; CommStats a rank "
+                f"{json.dumps(stats)} (closed forms)")
+        log(line + f" [{smi}]")
+        for n in names:
+            log(f"[tp-train] {tag} leaf {n:24s} clipped gradient vs fp64 rel_l2 "
+                f"{leaf_err[n]:.2e} (tol {bound['leaves'][n]:.2e}: max({FP32_TOL}, the plain "
+                f"chunked fp32 step's {vs64['chunked']['leaves'][n]:.2e}); reported: the floor "
+                f"of two fp32 paths {floor['leaves'][n]:.2e}, plain dense fp32 "
+                f"{plain_vs['leaves'][n]:.2e}, the unsharded tf32 step "
+                f"{vs64['kernel']['leaves'][n]:.2e}"
+                + (f"; vs auto (2, 8) {leaf_vs_auto[n]:.2e} (tol "
+                   f"{bound_fp32['leaves'][n]:.2e})" if leaf_vs_auto else ""))
+        if bad or excess > 0 or loss_err > bound["loss"] or norm_err > bound["norm"] \
+                or not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])):
+            raise AssertionError(f"{line}: over the bound ({bad})")
+        if new_auto:
+            auto, new_auto = new_auto, None
+        out["runs"][tag] = rec
+    del auto, g64, p1_64, params
+    torch.cuda.empty_cache()
+    out["gate_s"] = time.perf_counter() - t_phase
+
+    # -- llama3.2-3b whole on TP_TRAIN_FULL, the init and tokens of phase_train
+    t0 = time.perf_counter()
+    params = get_model(full).init_params(full, torch.Generator("cuda").manual_seed(0),
+                                         dtype=torch.float32)
+    mesh, _, blocks = _tp_train_blocks(full, params, TP_TRAIN_FULL, "auto")
+    del params  # the ranks' blocks alone stay on the card
+    run = _tp_train_step(full, ocfg, mesh, blocks, batch, "auto")
+    launches = _expect_launches("[tp-train] full depth", tf32=mesh.size * 2 * full.n_layers)
+    want = _tp_train_closed_forms(full, TP_TRAIN_FULL, TRAIN_BATCH, TRAIN_LEN, "auto")
+    stats = _tp_train_stats_check("tp-train full", mesh, want)
+    m = run["metrics"]
+    loss_err = abs(m["loss"] - train_loss["kernel"]) / abs(train_loss["kernel"])
+    rec = {"loss": m["loss"], "phase_train_loss": train_loss["kernel"], "loss_rel": loss_err,
+           "grad_norm": m["grad_norm"], "s": run["s"], "peak_bytes": run["peak"],
+           "launches": launches, "stats": stats, "rank_param_bytes": want["rank_param_bytes"]}
+    line = (f"[tp-train] {full.name} whole ({full.n_layers} layers), fp32, on (data, model) = "
+            f"{TP_TRAIN_FULL}, batch {TRAIN_BATCH} x {TRAIN_LEN}, one AdamW step: {run['s']:.2f}s "
+            f"(16 rank threads on one card: no speed claim), peak {run['peak'] / 2**30:.2f} GiB "
+            f"({run['peak'] / 1e9:.2f} GB, max_memory_allocated); loss {m['loss']:.7f} against "
+            f"phase_train's {train_loss['kernel']:.7f} (unsharded, tf32, the same init and "
+            f"tokens): rel {loss_err:.2e} (tol {LOSS_RTOL}); grad_norm {m['grad_norm']:.6e}; "
+            f"launches {launches}; CommStats a rank {json.dumps(stats)} (closed forms)")
+    log(line + f" [{smi}]")
+    del run
+    torch.cuda.empty_cache()
+    if loss_err > LOSS_RTOL or not math.isfinite(m["grad_norm"]):
+        raise AssertionError(f"{line}: over the bound")
+    out["runs"]["full_2x8"] = rec
+    out["s"] = time.perf_counter() - t_phase
+    log(f"[tp-train] phase {out['s']:.1f}s (the gate {out['gate_s']:.1f}s, full depth "
+        f"{time.perf_counter() - t0:.1f}s)")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3979,7 +4433,7 @@ def main() -> int:
     phase_serve(cfg, params, params32, smi)
     del params, params32  # 7.2 + 14.4 GB, before training takes the card
     torch.cuda.empty_cache()
-    train = phase_train(cfg, smi)
+    train, train_loss = phase_train(cfg, smi)
     driver = phase_train_driver()
     pipeline = phase_pipeline(smi)
     sharding = phase_sharding(smi)
@@ -4001,12 +4455,14 @@ def main() -> int:
     dryrun = phase_dryrun(smi)
     flowsim = phase_flowsim(smi)
     tp = phase_tp_serve(smi)
+    tp_train = phase_tp_train(smi, train_loss)
 
     paths = {"prefill": prefill, "train_steps": train, "train_driver": driver,
              "train_sync": sync_train["launches"], "prefill_moe": moe_serve["launches"],
              "train_moe": moe_train["launches"], "train_pipeline": pipeline["launches"],
              "prefill_moe_ep": moe_ep_prefill["launches"], "prefill_tp": tp["launches"],
-             **{f"prefill_tp_fp32_{k}": tp["fp32"][k]["launches"] for k in ("1x16", "2x8")}}
+             **{f"prefill_tp_fp32_{k}": tp["fp32"][k]["launches"] for k in ("1x16", "2x8")},
+             **{f"train_tp_{k}": run["launches"] for k, run in tp_train["runs"].items()}}
     for tag, fam in (("ssm", ssm), ("hybrid", hybrid), ("vlm", vlm), ("audio", audio)):
         paths.update({f"prefill_{tag}": fam["launches"], f"serve_{tag}": fam["serve"]["launches"],
                       f"train_{tag}": fam["train"]["launches"]})
@@ -4079,6 +4535,7 @@ def main() -> int:
     log(json.dumps({"dryrun": {"device": smi, **dryrun}}))
     log(json.dumps({"flowsim": {"device": smi, **flowsim}}))
     log(json.dumps({"tp_serve": {"device": smi, "arch": TP_ARCH, **tp}}))
+    log(json.dumps({"tp_train": {"device": smi, "arch": TP_ARCH, **tp_train}}))
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -21,6 +21,16 @@ as ``shard_map`` calls its body once per device.  ``comm`` is that rank's
   group, and its backward passes that one value's gradient to each rank's
   input unchanged: the gradient JAX gives ``jax.grad`` of a ``shard_map``
   whose output is a psum (``out_specs=P()``), and not the group's sum of it.
+  ``all_gather``'s backward is JAX's transpose: the ``reduce_scatter`` of
+  the gradient.
+* ``reduce_scatter(x, axes)``: ``lax.psum_scatter(x, axes,
+  scatter_dimension=0, tiled=False)``.  ``x`` has one leading entry a rank of
+  the group; the group's i-th rank gets the sum of every rank's entry i,
+  added in group order in float32 (float64 stays float64) and rounded to
+  ``x``'s dtype once.  It is built on every transport as an all-to-all and
+  that ordered sum, so ``LocalMesh``, gloo and NCCL give the same bits, and
+  each rank sends a ring reduce-scatter's bytes, (g - 1)/g of ``x``.  Its
+  backward is JAX's transpose: the ``all_gather`` of the gradient.
 * ``all_to_all(x, axes, axis_index_groups=None)``: ``lax.all_to_all(x, axes,
   0, 0, tiled=False, axis_index_groups=...)`` over the same ranks, or over
   the ranks of this rank's index group (positions along ``axes``; the groups
@@ -59,9 +69,9 @@ the calling thread, and its collectives return placeholders of the right
 shape, dtype and device with no peer.  The dry-run (``launch/dryrun.py``)
 traces one rank of the production mesh through it on fake tensors.
 
-Each counts what it moves in ``Mesh.stats``: ppermute and all_to_all bytes
-and messages by (src, dst) rank pair, and psum, all_gather and all_to_all
-calls.
+Each counts what it moves in ``Mesh.stats``: ppermute, all_to_all and
+reduce_scatter bytes and messages by (src, dst) rank pair, and psum,
+all_gather, all_to_all and reduce_scatter calls.
 """
 
 from __future__ import annotations
@@ -84,12 +94,13 @@ class CommStats:
     """What a mesh's transport moved since the last ``reset``.
 
     ``bytes`` and ``messages`` count ppermute sends (those of its backward
-    too), and the entries an all_to_all sends to other ranks, by (src, dst)
-    global rank pair;
-    ``psum_calls``, ``all_gather_calls`` and ``all_to_all_calls`` count one
-    per rank and call (an all_to_all's backward is a call too), and
-    ``payload`` the bytes of those calls' inputs by kind.  A ``DistMesh``
-    counts the sends and calls of its own rank only.
+    too), and the entries an all_to_all or a reduce_scatter sends to other
+    ranks, by (src, dst) global rank pair;
+    ``psum_calls``, ``all_gather_calls``, ``all_to_all_calls`` and
+    ``reduce_scatter_calls`` count one per rank and call (a backward that runs
+    a collective is a call of that collective's kind), and ``payload`` the
+    bytes of those calls' inputs by kind.  A ``DistMesh`` counts the sends
+    and calls of its own rank only.
     """
 
     def __init__(self):
@@ -103,6 +114,7 @@ class CommStats:
             self.psum_calls = 0
             self.all_gather_calls = 0
             self.all_to_all_calls = 0
+            self.reduce_scatter_calls = 0
             self.payload: Counter = Counter()
 
     def record_send(self, src: int, dst: int, nbytes: int) -> None:
@@ -111,8 +123,8 @@ class CommStats:
             self.messages[(src, dst)] += 1
 
     def record_call(self, kind: str, nbytes: int = 0) -> None:
-        """One call of ``kind`` ("psum", "all_gather" or "all_to_all") on an input
-        of ``nbytes``."""
+        """One call of ``kind`` ("psum", "all_gather", "all_to_all" or
+        "reduce_scatter") on an input of ``nbytes``."""
         with self._lock:
             setattr(self, f"{kind}_calls", getattr(self, f"{kind}_calls") + 1)
             self.payload[kind] += nbytes
@@ -262,6 +274,10 @@ class Mesh:
     def _all_to_all(self, rank, x, axes, index_groups=None):
         raise NotImplementedError
 
+    def _reduce_scatter(self, rank, x, axes):
+        """The all-to-all of ``x``'s entries, then their sum in group order."""
+        return ordered_sum(self._all_to_all(rank, x, axes)).to(x.dtype)
+
     def _check_args(self, per_rank_args) -> None:
         for a in per_rank_args:
             if len(a) != self.size:
@@ -321,8 +337,33 @@ class Comm:
         return x
 
     def all_gather(self, x: torch.Tensor, axes: Axes) -> torch.Tensor:
+        if _tracks_grad(x):
+            return _AllGather.apply(x, self, _as_tuple(axes))
+        return self._gather(x, _as_tuple(axes))
+
+    def _gather(self, x, axes):
         self.mesh.stats.record_call("all_gather", x.numel() * x.element_size())
-        return self.mesh._all_gather(self.rank, x.contiguous(), _as_tuple(axes))
+        return self.mesh._all_gather(self.rank, x.contiguous(), axes)
+
+    def reduce_scatter(self, x: torch.Tensor, axes: Axes) -> torch.Tensor:
+        """Entry i of the group's sum of ``x`` (leading size: the ranks of the
+        group) to the group's i-th rank (the module docstring)."""
+        axes = _as_tuple(axes)
+        n = len(self.mesh.group(self.rank, axes))
+        if x.dim() == 0 or x.shape[0] != n:
+            raise ValueError(f"reduce_scatter over {axes} needs a leading axis of {n}, got "
+                             f"{tuple(x.shape)}")
+        if _tracks_grad(x):
+            return _ReduceScatter.apply(x, self, axes)
+        return self._scatter(x, axes)
+
+    def _scatter(self, x, axes):
+        self.mesh.stats.record_call("reduce_scatter", x.numel() * x.element_size())
+        nbytes = x[0].numel() * x.element_size()
+        for g in self.mesh.group(self.rank, axes):
+            if g != self.rank:
+                self.mesh.stats.record_send(self.rank, g, nbytes)
+        return self.mesh._reduce_scatter(self.rank, x.contiguous(), axes)
 
     def all_to_all(self, x: torch.Tensor, axes: Axes, axis_index_groups=None) -> torch.Tensor:
         """Entry i of ``x`` (leading size: the ranks of the group) to the group's
@@ -409,6 +450,34 @@ class _ScaleGrad(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return grad * ctx.scale, None
+
+
+class _AllGather(torch.autograd.Function):
+    """``Comm.all_gather`` under autograd: the backward is the reduce_scatter of
+    the gradient (JAX's transpose)."""
+
+    @staticmethod
+    def forward(ctx, x, comm, axes):
+        ctx.comm, ctx.axes = comm, axes
+        return comm._gather(x, axes)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.comm._scatter(grad, ctx.axes), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """``Comm.reduce_scatter`` under autograd: the backward is the all_gather of
+    the gradient (JAX's transpose)."""
+
+    @staticmethod
+    def forward(ctx, x, comm, axes):
+        ctx.comm, ctx.axes = comm, axes
+        return comm._scatter(x, axes)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.comm._gather(grad, ctx.axes), None, None
 
 
 class _AllToAll(torch.autograd.Function):
@@ -576,6 +645,28 @@ class LocalMesh(Mesh):
                                                                   for g in group]))
 
 
+def pieces(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``x`` flat in float32 (float64 stays float64), zero-padded to ``n`` equal
+    pieces: (n, -1), the input of a ``reduce_scatter`` that sums ``x`` over a
+    group of ``n``."""
+    flat = x.reshape(-1)
+    if flat.dtype not in (torch.float32, torch.float64):
+        flat = flat.float()
+    if flat.numel() % n:
+        flat = torch.nn.functional.pad(flat, (0, -flat.numel() % n))
+    return flat.reshape(n, -1)
+
+
+def ordered_sum(parts: torch.Tensor) -> torch.Tensor:
+    """The sum of ``parts`` over its first axis, in that order, in float32
+    (float64 stays float64)."""
+    total = parts[0].to(torch.float64 if parts.dtype == torch.float64 else torch.float32,
+                        copy=True)
+    for part in parts[1:]:
+        total += part
+    return total
+
+
 def _takes_turns(devices: Sequence[torch.device]) -> bool:
     """Whether rank threads on ``devices`` take turns: several share one GPU."""
     gpus = [(d.type, d.index or 0) for d in devices if d.type != "cpu"]
@@ -605,7 +696,8 @@ class TraceMesh(Mesh):
     tensors, ``FlopCounterMode``) see every op.  The collectives need no peer:
     each returns a placeholder of the collective's shape and dtype on ``x``'s
     device, made from ``x`` alone (a copy of it; ``n`` copies stacked for
-    all_gather; zeros for a ppermute that no pair sends to the rank), whose
+    all_gather; its first entry for reduce_scatter; zeros for a ppermute that
+    no pair sends to the rank), whose
     values are not the collective's.  ``stats`` counts, for the ranks run,
     what a ``LocalMesh`` counts for them; ``calls`` adds, a call, the
     collective's kind (the HLO op's name), its result bytes and its group size,
@@ -644,6 +736,9 @@ class TraceMesh(Mesh):
     def _all_to_all(self, rank, x, axes, index_groups=None):
         return self._record(rank, "all-to-all", x.clone(),
                             len(self.group(rank, axes, index_groups)))
+
+    def _reduce_scatter(self, rank, x, axes):
+        return self._record(rank, "reduce-scatter", x[0].clone(), self.axis_size(axes))
 
 
 class DistMesh(Mesh):

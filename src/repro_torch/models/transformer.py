@@ -19,12 +19,13 @@ precomputed frames (B, enc_seq, d), and a cross-attention in every decoder
 layer whose decode cache ``xk``/``xv`` is zeros, as in JAX.  The SSM and
 hybrid families have modules of their own (``mamba2``, ``recurrentgemma``).
 
-The dense family also serves tensor-parallel: given the rank's ``Comm`` as
+The dense family also runs tensor-parallel: given the rank's ``Comm`` as
 ``act_specs["mesh"]`` and a ``Policy`` with ``tp=True`` as
 ``act_specs["policy"]``, ``forward``, ``init_cache`` and ``decode_step`` run one
 rank's share on its blocks of the parameters (``parallel/tensor_parallel.py``),
-through the same ``_attn_block`` and ``_mlp_block``, where JAX's jitted steps
-leave the split to GSPMD.
+through the same ``decoder_layer``, ``_attn_block`` and ``_mlp_block``, where
+JAX's jitted steps leave the split to GSPMD; under autograd too (training,
+``train/steps.py``).
 """
 
 from __future__ import annotations
@@ -33,7 +34,6 @@ import torch
 import torch.utils.checkpoint
 from torch import nn
 
-from repro_torch import tree as tree_lib
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
@@ -171,8 +171,9 @@ def _attn_block(cfg: ArchConfig, p, x, positions, causal, window, kv_seq=None,
         q = (x @ p["wq"]).reshape(b, s, h, hd)
         k = (src @ p["wk"]).reshape(b, src.shape[1], kv, hd)
         v = (src @ p["wv"]).reshape(b, src.shape[1], kv, hd)
-    else:
-        q, k, v, positions = tp.heads(x @ p["wq"], src @ p["wk"], src @ p["wv"], positions)
+    else:  # x is replicated over model; the rank's columns give a part of d(x)
+        x = tp.pvary(x)
+        q, k, v, positions = tp.heads(x @ p["wq"], x @ p["wk"], x @ p["wv"], positions)
     if kv_seq is None:
         q, k = _apply_pos(cfg, q, k, positions)
     o = L.attention(
@@ -257,16 +258,21 @@ def forward(
     are accepted and change no number; ``"mesh"`` is read for
     ``moe_mode="ep"`` (``_moe_ep``).
 
-    Tensor parallelism (``parallel/tensor_parallel.py``; serving, dense family):
-    with ``act_specs["policy"]`` a ``Policy`` with ``tp=True`` and
+    Tensor parallelism (``parallel/tensor_parallel.py``; dense family): with
+    ``act_specs["policy"]`` a ``Policy`` with ``tp=True`` and
     ``act_specs["mesh"]`` the rank's ``Comm`` (inside ``Mesh.run``), ``params``
     are the rank's blocks under ``sanitize_specs(param_specs(...))`` and
     ``tokens`` its rows under ``batch_specs``; the logits come back for the last
-    position only, (B, 1, V), the whole vocab on every rank along ``model``.
+    position only, (B, 1, V), the whole vocab on every rank along ``model``;
+    with ``return_hidden`` the final-norm hidden states of every position, which
+    ``TensorParallel.loss`` takes.  ``remat`` acts as above, the recomputed layer
+    running its collectives again (``train/steps.py: make_tp_value_and_grad`` is
+    the route that keeps every collective out of autograd).
     """
     tp = tp_lib.context(cfg, act_specs)
     if tp is not None:
-        return _forward_tp(cfg, tp, params, tokens, positions, use_kernel, return_hidden)
+        return _forward_tp(cfg, tp, params, tokens, positions, remat, use_kernel,
+                           return_hidden)
     if positions is None:
         positions = _positions_default(tokens)
         if cfg.rope_type == "mrope":
@@ -296,15 +302,13 @@ def forward(
     return logits, aux
 
 
-def _forward_tp(cfg: ArchConfig, tp, params, tokens, positions, use_kernel, return_hidden):
+def _forward_tp(cfg: ArchConfig, tp, params, tokens, positions, remat, use_kernel,
+                return_hidden):
     """``forward`` on the rank's blocks (``tensor_parallel``): the last position's
     logits, or the final-norm hidden states with ``return_hidden``."""
-    if any(t.requires_grad for t in tree_lib.leaves(params)) and torch.is_grad_enabled():
-        raise ValueError(f"{cfg.name}: tensor parallelism serves only (Comm.all_gather has no "
-                         "backward); FSDP and TP in training are ROADMAP item 13")
     tp.check(params)
     x = tp.embed(params, tokens)
-    x, aux = forward_layers(cfg, params["layers"], x, positions, remat=False,
+    x, aux = forward_layers(cfg, params["layers"], x, positions, remat=remat,
                             use_kernel=use_kernel, tp=tp)
     if return_hidden:
         return L.apply_norm(x, params["final_norm"], cfg.norm_type), aux / cfg.n_layers
@@ -328,22 +332,7 @@ def forward_layers(cfg: ArchConfig, layers, x, positions=None, enc_out=None, rem
     checkpointed = remat and torch.is_grad_enabled()
 
     def layer_fn(h, aux, lp, enc):
-        if tp is not None:
-            lp = tp.layer(lp)
-        a = L.apply_norm(h, lp["attn_norm"], cfg.norm_type)
-        h = h + _attn_block(cfg, lp, a, positions, causal=True, window=0,
-                            use_kernel=use_kernel, tp=tp)
-        if enc is not None:
-            xa = L.apply_norm(h, lp["xattn_norm"], cfg.norm_type)
-            xp = {k[1:]: v for k, v in lp.items() if k.startswith("x") and k != "xattn_norm"}
-            h = h + _attn_block(cfg, xp, xa, positions, causal=False, window=0, kv_seq=enc)
-        m = L.apply_norm(h, lp["mlp_norm"], cfg.norm_type)
-        if cfg.family == "moe":
-            y, a_loss = _moe_block(cfg, lp["moe"], m, act_specs)
-            aux = aux + a_loss
-        else:
-            y = _mlp_block(cfg, lp, m, tp)
-        return h + y, aux
+        return decoder_layer(cfg, lp, h, aux, positions, enc, use_kernel, act_specs, tp)
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     n = layers["attn_norm"]["scale"].shape[0]
@@ -354,6 +343,29 @@ def forward_layers(cfg: ArchConfig, layers, x, positions=None, enc_out=None, rem
         else:
             x, aux = layer_fn(x, aux, lp, enc_out)
     return x, aux
+
+
+def decoder_layer(cfg: ArchConfig, lp, h, aux, positions, enc=None, use_kernel=False,
+                  act_specs=None, tp=None):
+    """One decoder layer of ``forward_layers`` on its (unstacked) weights ``lp``:
+    (h, aux) -> (h, aux plus the layer's MoE loss).  With ``tp`` ``lp`` holds
+    the rank's blocks, all-gathered over ``data`` here."""
+    if tp is not None:
+        lp = tp.layer(lp)
+    a = L.apply_norm(h, lp["attn_norm"], cfg.norm_type)
+    h = h + _attn_block(cfg, lp, a, positions, causal=True, window=0,
+                        use_kernel=use_kernel, tp=tp)
+    if enc is not None:
+        xa = L.apply_norm(h, lp["xattn_norm"], cfg.norm_type)
+        xp = {k[1:]: v for k, v in lp.items() if k.startswith("x") and k != "xattn_norm"}
+        h = h + _attn_block(cfg, xp, xa, positions, causal=False, window=0, kv_seq=enc)
+    m = L.apply_norm(h, lp["mlp_norm"], cfg.norm_type)
+    if cfg.family == "moe":
+        y, a_loss = _moe_block(cfg, lp["moe"], m, act_specs)
+        aux = aux + a_loss
+    else:
+        y = _mlp_block(cfg, lp, m, tp)
+    return h + y, aux
 
 
 def _encoder_forward(cfg: ArchConfig, enc, frames, checkpointed: bool):

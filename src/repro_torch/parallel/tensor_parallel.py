@@ -1,12 +1,13 @@
-"""Tensor parallelism over ``model`` and FSDP over ``data`` in serving (dense family).
+"""Tensor parallelism over ``model`` and FSDP over ``data`` (dense family).
 
-The JAX package has no counterpart module: it jits its prefill and decode steps
-with ``in_shardings`` from ``param_specs`` (``repro/launch/dryrun.py``), and GSPMD
-splits the compute.  Here each rank of a ``core.comm`` mesh runs the step on its
-own blocks of the parameters, under ``sanitize_specs(param_specs(...))``, and
-reaches the other ranks through its ``Comm``.  ``models/transformer.py`` takes
-this path when ``act_specs`` holds the rank's ``Comm`` as ``"mesh"`` and a
-``Policy`` with ``tp=True`` as ``"policy"``.  A layer runs as Megatron's:
+The JAX package has no counterpart module: it jits its train, prefill and decode
+steps with ``in_shardings`` from ``param_specs`` (``repro/launch/dryrun.py``),
+and GSPMD splits the compute.  Here each rank of a ``core.comm`` mesh runs the
+step on its own blocks of the parameters, under
+``sanitize_specs(param_specs(...))``, and reaches the other ranks through its
+``Comm``.  ``models/transformer.py`` and ``train/steps.py`` take this path when
+``act_specs`` holds the rank's ``Comm`` as ``"mesh"`` and a ``Policy`` with
+``tp=True`` as ``"policy"``.  A layer runs as Megatron's:
 
 * FSDP: a leaf whose spec splits a dimension over ``data`` is all-gathered
   along it when its layer runs (``Comm.all_gather``), one layer at a time, as
@@ -33,21 +34,22 @@ this path when ``act_specs`` holds the rank's ``Comm`` as ``"mesh"`` and a
     every rank (so ``model``-fold the attention work), and the rank's own
     columns kept.
 * ``wo``, ``w_down`` row-parallel: the rank's rows, then a sum over ``model``
-  built as a ring all-reduce is, from a reduce-scatter and an all-gather: the
-  flat partial cut into ``model`` pieces, piece i to the i-th rank
-  (``Comm.all_to_all``), each rank adding the pieces it got in group order,
-  and the sums all-gathered.  That moves a ring all-reduce's bytes and gives
-  the same bits on every transport (``Comm.psum`` adds in the transport's
-  own order: NCCL's and gloo's all-reduce are not ``LocalMesh``'s).  Each
-  rank's partial comes out of its matmul in the model's dtype; the sum runs
-  in float32 and rounds to the model's dtype once, before the all-gather (in
-  bfloat16 that is one rounding where a sum in bf16 would add 15 over 16
-  ranks).
-* the logits, vocab-parallel where the spec splits the vocab: the rank's
-  columns of the last position only (the prefill step reads no other), the
-  padded tail masked by global index in the prefill (not in decode, as in the
-  reference), then all-gathered over ``model`` so that the greedy argmax sees
-  the whole vocab with ``jnp.argmax``'s tie rule.
+  built as a ring all-reduce is: a ``Comm.reduce_scatter`` of the flat
+  partial (an all-to-all and a sum in group order in float32), then an
+  all-gather of the sums.  That moves a ring all-reduce's bytes and gives the
+  same bits on every transport (``Comm.psum`` adds in the transport's own
+  order: NCCL's and gloo's all-reduce are not ``LocalMesh``'s).  The sum
+  rounds to the model's dtype once, before the all-gather (in bfloat16 that
+  is one rounding where a sum in bf16 would add 15 over 16 ranks).
+* the logits, vocab-parallel where the spec splits the vocab: in serving the
+  rank's columns of the last position only (the prefill step reads no other),
+  the padded tail masked by global index in the prefill (not in decode, as in
+  the reference), then all-gathered over ``model`` so that the greedy argmax
+  sees the whole vocab with ``jnp.argmax``'s tie rule.  In training no rank
+  holds (B, S, V) logits: the cross-entropy is vocab-parallel (``loss``): the
+  row max all-gathered over ``model``, the exp-sums and the label's logit
+  (from the rank whose columns hold it) ``psum``'d, the padded tail masked by
+  global index; JAX's one-hot form gives GSPMD the same reductions.
 
 Decode keeps a cache of the rank's rows and kv heads only: under the pair route
 (L, rows, S, kv_heads, hd), the bytes of ``cache_specs``' block, laid out by
@@ -55,9 +57,39 @@ Decode keeps a cache of the rank's rows and kv heads only: under the pair route
 divide ``model``; under the gather route (L, B_local, S, KV, hd), ``model``
 times those bytes.
 
-Serving only: ``Comm.all_gather`` has no backward, so a forward under autograd
-raises (FSDP and TP in training are ROADMAP item 13); a family other than dense
-given a ``tp=True`` policy raises too (ROADMAP item 14).
+Training.  Each exchange has the backward that matches how its output is used
+(Megatron's *f* and *g*; a wrong one is off by a factor of ``model`` or
+``data``):
+
+* the FSDP all-gather over ``data``: the reduce-scatter of the gradient over
+  ``data`` (each data rank applies the whole weight to its own rows);
+* the normed input of the column products and of the vocab-parallel unembed:
+  ``Comm.pvary`` over ``model``, the identity whose backward psums the ranks'
+  parts of d(input);
+* the row sum: the identity backward (``_RowSum``), as ``Comm.psum``'s: its
+  output is replicated over ``model``, and the all-gather's transpose there
+  would multiply the gradient by ``model``;
+* the pair route's all-to-alls: the same exchange (their own inverse); the
+  gather route's all-gather over ``model``: the reduce-scatter over ``model``;
+* the vocab-parallel embed's and the loss's psums: the gradient passes.
+
+Each rank seeds its loss, its rows' mean, with 1 / (the data axes' size)
+under ``sync="auto"`` (``train/steps.py``).  The leaves whole over a data axis
+(the norm scales, a dimension ``sanitize_specs`` left whole) get their
+gradients summed over it after the backward (``sum_over_data``), as GSPMD's
+all-reduce does; not over ``model``: every model rank already holds their
+whole gradient.  The gradient's global norm psums each leaf group's square sum
+over the axes that split it (``global_norm``).
+
+There are two routes to the gradient.  Under autograd the collectives above
+are ``autograd.Function``s; that needs an autograd engine thread a rank: the
+CPU, or one process a rank.  Rank threads that share one GPU share its one
+engine thread, so ``train/steps.py: make_tp_value_and_grad`` keeps every
+collective out of autograd: under a ``Tape`` each collective is a cut (its
+input detached, its output a fresh leaf), and the tape carries each cut's
+gradient across with the plain collective of its transpose.
+
+A family other than dense given a ``tp=True`` policy raises (ROADMAP item 14).
 """
 
 from __future__ import annotations
@@ -70,6 +102,7 @@ import torch
 from repro_torch import tree as tree_lib
 from repro_torch.configs import abstract_params
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import comm as comm_lib
 from repro_torch.core.comm import Comm
 from repro_torch.models import layers as L
 from repro_torch.parallel import sharding as shard_lib
@@ -100,11 +133,13 @@ def context(cfg: ArchConfig, act_specs) -> TensorParallel | None:
 
 class _Leaf:
     """One leaf's part of a ``_Plan``: the block shape a rank holds, the
-    (dimension, axes) pairs its FSDP all-gathers run over, and whether each
-    dimension is split over ``model``."""
+    (dimension, axes) pairs its FSDP all-gathers run over, whether each
+    dimension is split over ``model``, and ``axes``: every mesh axis of more
+    than one rank that splits the leaf, in the mesh's order."""
 
-    def __init__(self, name, block, gathers, split):
+    def __init__(self, name, block, gathers, split, axes):
         self.name, self.block, self.gathers, self.split = name, block, gathers, split
+        self.axes = axes
 
 
 class _Plan:
@@ -120,19 +155,21 @@ class _Plan:
         self.model = policy.model_axis
 
         def leaf(name, meta, spec, lead=0):
-            dims, gathers, split = [], [], []
+            dims, gathers, split, used = [], [], [], set()
             for dim, n in enumerate(meta.shape[lead:]):
                 axes = _axes(spec[dim + lead] if dim + lead < len(spec) else None)
                 parts = math.prod(mesh.shape[a] for a in axes)
                 dims.append(n // parts)
                 split.append(self.model in axes)
+                used.update(axes)
                 other = tuple(a for a in axes if a != self.model)
                 if other and len(other) != len(axes):
                     raise ValueError(f"{name}: {spec} splits a dimension over {self.model!r} "
                                      "and other axes, not a layout of param_specs")
                 if other and math.prod(mesh.shape[a] for a in other) > 1:
                     gathers.append((dim, other))
-            return _Leaf(name, tuple(dims), tuple(gathers), tuple(split))
+            split_by = tuple(a for a in mesh.shape if a in used and mesh.shape[a] > 1)
+            return _Leaf(name, tuple(dims), tuple(gathers), tuple(split), split_by)
 
         self.top = {k: leaf(k, params[k], specs[k]) for k in ("embed", "unembed")
                     if k in params}
@@ -176,14 +213,54 @@ def _axes(entry) -> tuple[str, ...]:
 
 class TensorParallel:
     """One rank's tensor-parallel view of ``cfg`` on its ``Comm``: its blocks'
-    plan, and the collectives of the module docstring."""
+    plan, and the collectives of the module docstring.  While ``tape`` holds a
+    ``Tape`` and autograd is on, every collective is a cut of that tape."""
 
     def __init__(self, cfg: ArchConfig, comm: Comm, policy: shard_lib.Policy):
-        self.cfg, self.comm = cfg, comm
+        self.cfg, self.comm, self.policy = cfg, comm, policy
         self.plan = _plan(cfg, policy, comm.mesh)
         self.axis = policy.model_axis
         self.n = comm.axis_size(self.axis)
         self.index = comm.axis_index(self.axis)
+        self.data_axes = tuple(policy.data_axes)
+        missing = [a for a in self.data_axes if a not in comm.mesh.shape]
+        if missing:
+            raise ValueError(f"{cfg.name}: the mesh {comm.mesh.axis_names} has no data axes "
+                             f"{missing}")
+        self.tape: Tape | None = None
+
+    # -- the collectives: plain, under autograd, or cuts of the tape ------------
+
+    def _taped(self) -> bool:
+        return self.tape is not None and torch.is_grad_enabled()
+
+    def gather(self, x: torch.Tensor, axes) -> torch.Tensor:
+        """``Comm.all_gather``; its transpose is the reduce-scatter."""
+        if self._taped():
+            return self.tape.cut(x, lambda t: self.comm.all_gather(t, axes),
+                                 lambda g: self.comm.reduce_scatter(g, axes))
+        return self.comm.all_gather(x, axes)
+
+    def psum(self, x: torch.Tensor, axes) -> torch.Tensor:
+        """``Comm.psum`` of a replicated output; the gradient passes."""
+        if self._taped():
+            return self.tape.cut(x, lambda t: self.comm.psum(t, axes), _identity)
+        return self.comm.psum(x, axes)
+
+    def pvary(self, x: torch.Tensor) -> torch.Tensor:
+        """``x``, replicated over ``model``, as the input of the rank's columns: the
+        identity, whose transpose psums the ranks' parts of the gradient."""
+        if self._taped():
+            return self.tape.cut(x, _identity, lambda g: self.comm.psum(g, self.axis))
+        return self.comm.pvary(x, self.axis)
+
+    def exchange(self, x: torch.Tensor, index_groups) -> torch.Tensor:
+        """``Comm.all_to_all`` over ``model``: its own transpose."""
+        if self._taped():
+            return self.tape.cut(
+                x, lambda t: self.comm.all_to_all(t, self.axis, index_groups),
+                lambda g: self.comm.all_to_all(g, self.axis, index_groups))
+        return self.comm.all_to_all(x, self.axis, index_groups)
 
     # -- blocks and FSDP ---------------------------------------------------
 
@@ -196,7 +273,7 @@ class TensorParallel:
         """``block`` with every dimension that its spec splits over axes other than
         ``model`` all-gathered over them (FSDP)."""
         for dim, axes in leaf.gathers:
-            parts = self.comm.all_gather(block, axes)  # (k, *block), in position order
+            parts = self.gather(block, axes)  # (k, *block), in position order
             shape = list(block.shape)
             shape[dim] *= parts.shape[0]
             block = parts.movedim(0, dim).reshape(shape)
@@ -211,7 +288,7 @@ class TensorParallel:
         _check(self.cfg, leaf, t)
         return self.full(t, leaf)
 
-    # -- embedding and logits ----------------------------------------------
+    # -- embedding, logits and the loss ------------------------------------
 
     def embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
         """The vocab-parallel lookup of ``tokens``: (B, S, d), the same on every rank
@@ -226,45 +303,84 @@ class TensorParallel:
         hit = (local >= 0) & (local < rows)
         x = table[local.clamp(0, rows - 1)]
         x = torch.where(hit[..., None], x, torch.zeros((), dtype=x.dtype, device=x.device))
-        return self.comm.psum(x, self.axis)
+        return self.psum(x, self.axis)
+
+    def _unembed(self, params) -> tuple[torch.Tensor, bool]:
+        """The (d, columns) unembedding of the rank, FSDP undone, and whether its
+        columns are a part of the vocab (split over ``model``)."""
+        if "unembed" in params:
+            leaf = self.plan.top["unembed"]
+            return self.full(params["unembed"], leaf), leaf.split[1]
+        leaf = self.plan.top["embed"]  # tied: the embedding's rows are the vocab
+        return self.full(params["embed"], leaf).T, leaf.split[0]
+
+    def _mask_tail(self, logits: torch.Tensor, split: bool) -> torch.Tensor:
+        """The padded vocab's tail (global index >= vocab) at -1e30."""
+        width = logits.shape[-1]
+        if width * (self.n if split else 1) == self.cfg.vocab:
+            return logits
+        lo = self.index * width if split else 0
+        keep = torch.arange(lo, lo + width, device=logits.device) < self.cfg.vocab
+        return torch.where(keep, logits, torch.tensor(-1e30, dtype=logits.dtype,
+                                                      device=logits.device))
 
     def logits(self, params, x: torch.Tensor, mask: bool) -> torch.Tensor:
         """Logits (B, 1, V) of the hidden states ``x`` (B, 1, d): the rank's vocab
         columns, the padded tail masked by global index when ``mask``, gathered
         over ``model``."""
-        if "unembed" in params:
-            leaf = self.plan.top["unembed"]
-            w, split = self.full(params["unembed"], leaf), leaf.split[1]
-        else:  # tied: the embedding's rows are the vocab
-            leaf = self.plan.top["embed"]
-            w, split = self.full(params["embed"], leaf).T, leaf.split[0]
+        w, split = self._unembed(params)
         logits = x @ w
-        width = logits.shape[-1]
-        lo = self.index * width if split else 0
-        if mask and width * (self.n if split else 1) != self.cfg.vocab:
-            keep = torch.arange(lo, lo + width, device=logits.device) < self.cfg.vocab
-            logits = torch.where(keep, logits, torch.tensor(-1e30, dtype=logits.dtype,
-                                                            device=logits.device))
+        if mask:
+            logits = self._mask_tail(logits, split)
         if not split:
             return logits
-        parts = self.comm.all_gather(logits, self.axis)  # (n, B, 1, V/n)
+        parts = self.gather(logits, self.axis)  # (n, B, 1, V/n)
         return parts.movedim(0, -2).reshape(*logits.shape[:-1], -1)
+
+    def loss(self, params, hidden: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        """The mean cross-entropy of the rank's rows (float32), the same on every
+        rank along ``model``, from the final-norm hidden states (rows, S, d): on
+        the rank's vocab columns where the spec splits the vocab (the module
+        docstring), else on every column."""
+        w, split = self._unembed(params)
+        if split:
+            hidden = self.pvary(hidden)
+        logits = self._mask_tail(hidden @ w, split).float()
+        labels = labels.long()
+        if not split:
+            lse = torch.logsumexp(logits, dim=-1)
+            return torch.mean(lse - torch.gather(logits, -1, labels[..., None])[..., 0])
+        width = logits.shape[-1]
+        with torch.no_grad():  # the max only steadies the exponent
+            top = self.comm.all_gather(logits.amax(-1), self.axis).amax(0)
+        sums = self.psum(torch.sum(torch.exp(logits - top[..., None]), -1), self.axis)
+        local = labels - self.index * width
+        hit = (local >= 0) & (local < width)
+        own = torch.gather(logits, -1, local.clamp(0, width - 1)[..., None])[..., 0]
+        label = self.psum(torch.where(hit, own, torch.zeros((), device=own.device)), self.axis)
+        return torch.mean(top + torch.log(sums) - label)
 
     # -- column and row products -------------------------------------------
 
     def sum(self, partial: torch.Tensor) -> torch.Tensor:
         """The row-parallel sum over ``model`` (module docstring): a reduce-scatter
         of the flat partial in float32 and group order, rounded to the partial's
-        dtype once, then all-gathered."""
-        # no local holds the pieces or the exchange's result past its use
-        total = _ordered_sum(self.comm.all_to_all(_pieces(partial, self.n), self.axis))
+        dtype once, then all-gathered; the gradient passes unchanged."""
+        if self._taped():
+            return self.tape.cut(partial, self._row_sum, _identity)
+        if torch.is_grad_enabled() and partial.requires_grad:
+            return _RowSum.apply(partial, self)
+        return self._row_sum(partial)
+
+    def _row_sum(self, partial: torch.Tensor) -> torch.Tensor:
+        total = self.comm.reduce_scatter(comm_lib.pieces(partial, self.n), self.axis)
         whole = self.comm.all_gather(total.to(partial.dtype), self.axis)
         return whole.reshape(-1)[:partial.numel()].reshape(partial.shape)
 
     def mlp(self, lp: dict, x: torch.Tensor) -> torch.Tensor:
         """SwiGLU on the rank's columns of ``w_gate``/``w_up`` and rows of
         ``w_down``, summed over ``model``."""
-        return self.sum(L.swiglu(x, lp["w_gate"], lp["w_up"], lp["w_down"]))
+        return self.sum(L.swiglu(self.pvary(x), lp["w_gate"], lp["w_up"], lp["w_down"]))
 
     # -- attention: the rank's columns <-> whole heads -------------------------
 
@@ -281,12 +397,11 @@ class TensorParallel:
         qkv = torch.cat([q, k, v], -1)
         hs = self.split(b)
         if hs is None:  # gather: every head of every row
-            got = self.comm.all_gather(qkv, self.axis)  # (n, B, S, cols)
+            got = self.gather(qkv, self.axis)  # (n, B, S, cols)
         else:
             # entry r: the rows of row block r, to the group's r-th rank; entry m of
             # the result: the columns of the group's m-th rank, a part of the heads
-            got = self.comm.all_to_all(qkv.reshape(hs.groups, hs.rows, s, -1), self.axis,
-                                       hs.index_groups(self.n))
+            got = self.exchange(qkv.reshape(hs.groups, hs.rows, s, -1), hs.index_groups(self.n))
             r0 = (self.index % hs.groups) * hs.rows
             positions = positions[r0:r0 + hs.rows]
         hd = self.cfg.kq_head_dim
@@ -305,7 +420,7 @@ class TensorParallel:
         if hs is None:  # gather: the rank's own columns of every head's output
             return o.reshape(rows, s, h * hd)[..., self.index * cols:(self.index + 1) * cols]
         parts = o.reshape(rows, s, hs.groups, cols).permute(2, 0, 1, 3).contiguous()
-        got = self.comm.all_to_all(parts, self.axis, hs.index_groups(self.n))
+        got = self.exchange(parts, hs.index_groups(self.n))
         return got.reshape(hs.groups * rows, s, cols)
 
     # -- the decode cache --------------------------------------------------
@@ -315,24 +430,145 @@ class TensorParallel:
         hs = self.split(batch)
         return (batch, self.cfg.n_kv_heads) if hs is None else (hs.rows, hs.kv_heads)
 
+    # -- gradients ---------------------------------------------------------
 
-def _pieces(partial: torch.Tensor, n: int) -> torch.Tensor:
-    """``partial`` flat in float32 (or float64), zero-padded to ``n`` equal pieces:
-    (n, -1)."""
-    flat = partial.reshape(-1)
-    if flat.dtype not in (torch.float32, torch.float64):
-        flat = flat.float()
-    if flat.numel() % n:
-        flat = torch.nn.functional.pad(flat, (0, -flat.numel() % n))
-    return flat.reshape(n, -1)
+    def over_model(self, fn, grads):
+        """``fn`` of each whole leaf, the rank's block of its result: each leaf's
+        block all-gathered over ``model`` along the dimension its spec splits
+        there, and ``fn``'s output cut back to the rank's part (a leaf's FSDP
+        dimensions, if any, stay the rank's).  What a function of the whole
+        gradient, top-k compression, needs of blocks."""
+        leaves, structure = tree_lib.flatten(grads)
+        out = []
+        for leaf, g in zip(self.plan.leaves, leaves, strict=True):
+            dim = leaf.split.index(True) if True in leaf.split else None
+            if dim is None:
+                out.append(fn(g))
+                continue
+            parts = self.comm.all_gather(g, self.axis)  # (n, *block)
+            shape = list(g.shape)
+            shape[dim] *= self.n
+            full = fn(parts.movedim(0, dim).reshape(shape))
+            out.append(full.narrow(dim, self.index * g.shape[dim], g.shape[dim]).contiguous())
+        return tree_lib.unflatten(structure, out)
+
+    def sum_over_data(self, grads):
+        """``grads`` of the rank's blocks (a tree of ``params``' structure) with each
+        leaf summed over the data axes that do not split it (GSPMD's all-reduce of
+        a leaf whole over them); the others came out of their FSDP all-gathers'
+        reduce-scatters summed already."""
+        leaves, structure = tree_lib.flatten(grads)
+        out = []
+        for leaf, g in zip(self.plan.leaves, leaves, strict=True):
+            axes = tuple(a for a in self.data_axes
+                         if a not in leaf.axes and self.comm.axis_size(a) > 1)
+            out.append(self.comm.psum(g, axes) if axes else g)
+        return tree_lib.unflatten(structure, out)
+
+    def global_norm(self, grads) -> torch.Tensor:
+        """The whole gradient's norm from the rank's blocks of it: each group of
+        leaves split by the same axes adds its squares and psums them over those
+        axes (a replicated block counts once), and the groups are added in one
+        order on every rank."""
+        groups: dict = {}
+        for leaf, g in zip(self.plan.leaves, tree_lib.leaves(grads), strict=True):
+            sq = torch.sum(torch.square(g.float()))
+            groups[leaf.axes] = sq if leaf.axes not in groups else groups[leaf.axes] + sq
+        total = None
+        for axes in sorted(groups):
+            part = self.comm.psum(groups[axes], axes) if axes else groups[axes]
+            total = part if total is None else total + part
+        return torch.sqrt(total)
 
 
-def _ordered_sum(parts: torch.Tensor) -> torch.Tensor:
-    """The sum of ``parts`` (n, m) over its first axis, in that order."""
-    total = parts[0].clone()
-    for part in parts[1:]:
-        total += part
-    return total
+class Tape:
+    """The cuts of one segment of the cut route (``train/steps.py:
+    make_tp_value_and_grad``): each collective's input, its output (a fresh leaf
+    that needs a gradient) and the plain collective of its transpose, in the
+    order the forward ran them."""
+
+    def __init__(self):
+        self.cuts: list = []
+
+    def cut(self, x: torch.Tensor, forward, transpose) -> torch.Tensor:
+        """``forward(x)`` (a plain collective, outside autograd) as a new leaf."""
+        with torch.no_grad():
+            out = forward(x.detach()).detach().requires_grad_(True)
+        self.cuts.append((x, out, transpose))
+        return out
+
+    def backward(self, y: torch.Tensor, grad: torch.Tensor) -> None:
+        """Backpropagate ``grad`` from ``y`` into the leaves of its segment, then
+        the cuts in the reverse order of the forward, a batch at a time: the
+        last cut left, with each cut before it that no input of the batch
+        reaches.  By then every use of a batch's outputs has added to their
+        gradients, which the transposes carry to the cuts' inputs; one
+        backward from those inputs follows, so that a graph two cuts share
+        (the loss's logits) is traversed once, its gradients added where
+        autograd adds them.  Every rank runs the same cuts in the same order,
+        so the transposes' collectives match; the gradients add up in the
+        leaves' ``.grad``."""
+        roots, grads = [y], [grad]
+        while True:
+            _backprop(roots, grads)
+            if not self.cuts:
+                return
+            batch = [self.cuts.pop()]
+            while self.cuts and not _reaches([x for x, _, _ in batch], self.cuts[-1][1]):
+                batch.append(self.cuts.pop())
+            roots, grads = [], []
+            for x, out, transpose in batch:
+                roots.append(x)
+                grads.append(transpose(out.grad if out.grad is not None
+                                       else torch.zeros_like(out)))
+
+
+def _reaches(roots, leaf: torch.Tensor) -> bool:
+    """Whether the graph behind any of ``roots`` has ``leaf`` among its leaves."""
+    seen, stack = set(), [r.grad_fn for r in roots if r.grad_fn is not None]
+    while stack:
+        node = stack.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        if getattr(node, "variable", None) is leaf:
+            return True
+        stack.extend(fn for fn, _ in node.next_functions)
+    return False
+
+
+def _backprop(ys, grads) -> None:
+    """Add the gradients ``grads`` of ``ys`` into the leaves behind them: a
+    leaf's own ``.grad``, else through the graph, in one backward (kept:
+    segments share parts of it)."""
+    inner = []
+    for y, g in zip(ys, grads, strict=True):
+        if not y.requires_grad:
+            continue
+        if y.grad_fn is None:
+            y.grad = g.clone() if y.grad is None else y.grad + g
+        else:
+            inner.append((y, g))
+    if inner:
+        torch.autograd.backward([y for y, _ in inner], [g for _, g in inner],
+                                retain_graph=True)
+
+
+def _identity(g: torch.Tensor) -> torch.Tensor:
+    return g
+
+
+class _RowSum(torch.autograd.Function):
+    """``TensorParallel.sum`` under autograd: the exchange forward, the gradient
+    unchanged backward (the output is replicated over ``model``)."""
+
+    @staticmethod
+    def forward(ctx, partial, tp):
+        return tp._row_sum(partial)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
 
 
 def _check(cfg, leaf: _Leaf, t: torch.Tensor) -> None:

@@ -74,12 +74,15 @@ def global_norm(tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, norm_fn=global_norm):
     """(grads scaled to a global norm of at most ``max_norm``, the norm before).
 
     The gradients are scaled in place; the tree returned is the one passed in.
+    ``norm_fn(grads)`` gives the norm: ``global_norm`` of the tree, or, where
+    ``grads`` are a rank's blocks, the whole gradient's
+    (``TensorParallel.global_norm``).
     """
-    norm = global_norm(grads)
+    norm = norm_fn(grads)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     for g in tree_lib.leaves(grads):
         g.mul_(scale.to(g.dtype))
@@ -87,15 +90,16 @@ def clip_by_global_norm(grads, max_norm: float):
 
 
 @torch.no_grad()
-def apply(cfg: AdamWConfig, state: AdamWState, params, grads):
+def apply(cfg: AdamWConfig, state: AdamWState, params, grads, norm_fn=global_norm):
     """One AdamW step -> (params, state, metrics), in place.
 
     ``params``, the moments in ``state`` and ``grads`` (clipped) are updated in
     place, one leaf at a time, and the returned params and state are the ones
     passed in (``state.step`` is a new tensor).  So a step needs no second copy
     of the parameters or moments, only a few leaf-sized temporaries.
+    ``norm_fn`` is ``clip_by_global_norm``'s.
     """
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, norm_fn)
     step = state.step + 1
     lr = schedule_lr(cfg, step)
     fstep = step.float()

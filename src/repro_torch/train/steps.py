@@ -16,6 +16,17 @@ feature):
 * ``compress_k > 0`` with a sync mode: top-k sparsified gradient sync (paper
   Appendix A) over the first data axis, in the reference's stateless form.
 
+Tensor parallelism (dense family; ``parallel/tensor_parallel.py``): with the
+rank's ``Comm`` as ``act_specs["mesh"]`` and a ``tp=True`` ``Policy`` as
+``act_specs["policy"]`` the train step runs on one rank inside ``Mesh.run``,
+on its blocks of the parameters and moments and its rows of the batch, as
+JAX's step jitted with ``in_shardings`` from ``param_specs`` runs under GSPMD:
+``sync="auto"`` splits the compute over ``model`` and the parameters,
+gradients and moments over ``data`` (FSDP); a sync mode is JAX's
+partial-manual step, the blocks split over ``model`` and whole over the data
+axes, the gradients reduced over them by the paper's algorithm.  Its gradient
+route, ``make_tp_value_and_grad``, keeps every collective out of autograd.
+
 The serving steps run without autograd.
 """
 
@@ -31,6 +42,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import collectives as coll
 from repro_torch.core import compression as comp
 from repro_torch.models import get_model
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
 from repro_torch.parallel import sharding as shard_lib
 from repro_torch.parallel import tensor_parallel as tp_lib
 from repro_torch.train import optimizer as opt
@@ -81,9 +94,29 @@ def make_loss_fn(cfg: ArchConfig, options: TrainOptions, act_specs=None):
     ``act_specs`` goes to the model's ``forward``: its layout anchors change no
     number, and its ``"mesh"``, the rank's ``Comm``, carries the MoE family's
     ``moe_mode="ep"`` (``models/transformer.py::forward``).
+
+    Under tensor parallelism (``act_specs``' ``tp=True`` policy, dense family)
+    ``params`` are the rank's blocks and ``batch`` its rows; the loss is the
+    vocab-parallel cross-entropy (``TensorParallel.loss``): under
+    ``sync="auto"`` the whole batch's mean, psum'd over the data axes from each
+    rank's share (its rows' mean / their size: the seed of 1/dp), under a sync
+    mode the rank's rows' mean.  Every collective is differentiable: the
+    autograd route, one autograd engine thread a rank (the CPU, one process a
+    rank).  ``ce_chunk`` raises there (ROADMAP item 14).
     """
     model = get_model(cfg)
-    tp_lib.context(cfg, act_specs)  # raises for a family without the path
+    tp = tp_lib.context(cfg, act_specs)  # raises for a family without the path
+    if tp is not None:
+        _check_tp_options(cfg, options)
+
+        def tp_loss_fn(params, batch):
+            hidden, aux = model.forward(cfg, params, batch["tokens"], remat=options.remat,
+                                        use_kernel=options.use_kernel, act_specs=act_specs,
+                                        return_hidden=True)
+            loss = _tp_loss(tp, options, params, hidden, batch["labels"])
+            return loss + options.moe_aux_weight * aux, (loss, aux)
+
+        return tp_loss_fn
 
     def loss_fn(params, batch):
         extras = model_extras(batch)
@@ -158,6 +191,169 @@ def value_and_grad(loss_fn):
     return f
 
 
+def _check_tp_options(cfg: ArchConfig, options: TrainOptions) -> None:
+    if options.ce_chunk:
+        raise ValueError(f"{cfg.name}: ce_chunk under tensor parallelism is ROADMAP item 14 "
+                         "(the vocab-parallel loss holds a rank's vocab columns only)")
+
+
+def _tp_loss(tp, options: TrainOptions, params, hidden, labels):
+    """The rank's loss: its rows' mean cross-entropy, vocab-parallel; under
+    ``sync="auto"`` psum'd over the data axes from its share of the mean."""
+    loss = tp.loss(params, hidden, labels)
+    dp = tp.comm.axis_size(tp.data_axes)
+    if options.sync == "auto" and dp > 1:
+        loss = tp.psum(loss / dp, tp.data_axes)
+    return loss
+
+
+def make_tp_value_and_grad(cfg: ArchConfig, options: TrainOptions, act_specs):
+    """``value_and_grad(make_loss_fn(cfg, options, act_specs))`` under tensor
+    parallelism, with no collective inside autograd: the route for rank threads
+    that share one GPU (whose backwards would queue on its one autograd engine
+    thread, and wait there for ranks queued behind them), and the one the train
+    step takes on every mesh, so that the CPU checks the code the card runs.
+
+    Returns f(params, batch) -> ((value, (loss, aux)), grads): ``params`` the
+    rank's blocks, ``batch`` its rows, ``grads`` the value's gradient with
+    respect to each block (a tree of the same structure), which is
+    ``value_and_grad``'s on the autograd route.  The steps
+    (``parallel/pipeline.py: make_pipelined_value_and_grad``'s, inside a layer):
+
+    1. the embed and the layers forward under ``no_grad``, keeping each layer's
+       input (what remat keeps);
+    2. the final norm and the loss under a ``Tape``, then its backward: the
+       graph from the loss to its leaves, then each cut in reverse, its
+       output's gradient carried to its input by the plain collective of its
+       transpose (``Tape.backward``);
+    3. the layers in reverse, each recomputed under the tape from its input,
+       with the gradient of its output;
+    4. the embed recomputed the same way, with the gradient of the first
+       layer's input (so that no rank keeps its FSDP-gathered table through
+       the layers).
+
+    With ``LocalMesh``'s turns only one rank's local backward is queued on the
+    device's engine thread at a time.  A layer's weights are leaves of their own
+    (views of the blocks), whose gradients are copied into each stack's.
+    """
+    tp = tp_lib.context(cfg, act_specs)
+    if tp is None:
+        raise ValueError(f"{cfg.name}: make_tp_value_and_grad needs the rank's Comm and a "
+                         "tp=True policy in act_specs")
+    _check_tp_options(cfg, options)
+
+    def f(params, batch):
+        tp.check(params)
+        tokens, labels = batch["tokens"], batch["labels"]
+        top = tree_lib.tree_map(_grad_leaf, {k: v for k, v in params.items() if k != "layers"})
+        stacks = params["layers"]
+        n = stacks["attn_norm"]["scale"].shape[0]
+        positions = T._positions_default(tokens)
+        aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        tape = tp_lib.Tape()
+        try:
+            inputs = []
+            with torch.no_grad():
+                x = tp.embed(top, tokens)
+                for lp in L.unstack(stacks, n):
+                    inputs.append(x)
+                    x, _ = T.decoder_layer(cfg, lp, x, aux, positions,
+                                           use_kernel=options.use_kernel, tp=tp)
+            tp.tape = tape
+            with torch.enable_grad():
+                h = x.requires_grad_(True)
+                loss = _tp_loss(tp, options, top, L.apply_norm(h, top["final_norm"],
+                                                               cfg.norm_type), labels)
+                value = loss + options.moe_aux_weight * aux
+            tape.backward(value, torch.ones_like(value))
+            # the loss's graph goes now, not with ``f``'s locals after the layers
+            grad, value, loss = h.grad, value.detach(), loss.detach()
+            del h
+            layer_grads = tree_lib.tree_map(torch.zeros_like, stacks)
+            for i in reversed(range(n)):
+                lp = tree_lib.tree_map(lambda t, i=i: _grad_leaf(t[i]), stacks)
+                with torch.enable_grad():
+                    x_in = inputs[i].requires_grad_(True)
+                    y, _ = T.decoder_layer(cfg, lp, x_in, aux, positions,
+                                           use_kernel=options.use_kernel, tp=tp)
+                tape.backward(y, grad)
+                grad, inputs[i] = x_in.grad, None
+                for dst, leaf in zip(tree_lib.leaves(layer_grads), tree_lib.leaves(lp),
+                                     strict=True):
+                    if leaf.grad is not None:
+                        dst[i].copy_(leaf.grad)
+                del y, lp, x_in
+            with torch.enable_grad():
+                x0 = tp.embed(top, tokens)
+            tape.backward(x0, grad)
+        finally:
+            tp.tape = None
+        grads = tree_lib.tree_map(
+            lambda t: torch.zeros_like(t) if t.grad is None else t.grad, top)
+        grads["layers"] = layer_grads
+        return (value, (loss, aux)), grads
+
+    return f
+
+
+def _grad_leaf(t: torch.Tensor) -> torch.Tensor:
+    """A leaf that needs a gradient, sharing ``t``'s storage."""
+    return t.detach().requires_grad_(True)
+
+
+def _sync_grads(comm, grads, loss, aux, options: TrainOptions, axes, dp_shape, tp=None):
+    """The gradients, loss and aux of one data shard reduced over the data
+    ``axes``: the paper's allreduce (mean) or top-k compression, as the JAX
+    version's partial-manual step does.  With ``tp`` the gradients are the
+    rank's blocks, and top-k takes each whole leaf's k largest, as JAX's step
+    (``model`` auto) sees the leaf (``TensorParallel.over_model``)."""
+    dp_total = comm.axis_size(axes)
+    if options.compress_k:
+
+        def sync_leaf(g):
+            st = comp.init_state(g)  # stateless variant: residual dropped
+            out, _ = comp.sparse_allreduce(comm, g.float(), st, options.compress_k, axes[0])
+            # as the reference: sparse_allreduce already averaged over axes[0]
+            return (out / dp_total).to(g.dtype)
+
+        grads = (tree_lib.tree_map(sync_leaf, grads) if tp is None
+                 else tp.over_model(sync_leaf, grads))
+    else:
+        grads = coll.allreduce_tree(comm, grads, options.sync, axes,
+                                    dp_shape if len(axes) > 1 else None, mean=True)
+    loss = comm.psum(loss, axes) / dp_total
+    aux = comm.psum(aux, axes) / dp_total
+    return grads, loss, aux
+
+
+def _make_tp_train_step(cfg: ArchConfig, ocfg: opt.AdamWConfig, options: TrainOptions,
+                        act_specs):
+    """``make_train_step`` under tensor parallelism (its docstring)."""
+    policy = act_specs["policy"]
+    if options.sync != "auto":  # the data axes manual: blocks whole over them
+        policy = dataclasses.replace(policy, fsdp=False)
+        act_specs = {**act_specs, "policy": policy}
+    tp = tp_lib.context(cfg, act_specs)
+    comm, axes = tp.comm, tp.data_axes
+    if (options.sync in ("torus", "hamiltonian") and not options.compress_k
+            and len(axes) != 2):
+        raise ValueError(f"sync={options.sync!r} needs two data axes, got {axes}")
+    dp_shape = tuple(comm.mesh.shape[a] for a in axes)
+    grad_fn = make_tp_value_and_grad(cfg, options, act_specs)
+
+    def train_step(params, opt_state, batch):
+        (_, (loss, aux)), grads = grad_fn(params, batch)
+        if options.sync == "auto":
+            grads = tp.sum_over_data(grads)
+        else:
+            grads, loss, aux = _sync_grads(comm, grads, loss, aux, options, axes, dp_shape, tp)
+        params, opt_state, m = opt.apply(ocfg, opt_state, params, grads,
+                                         norm_fn=tp.global_norm)
+        return params, opt_state, {"loss": loss, "aux": aux, **m}
+
+    return train_step
+
+
 def make_train_step(cfg: ArchConfig, ocfg: opt.AdamWConfig, options: TrainOptions,
                     policy=None, mesh=None, act_specs=None):
     """Returns train_step(params, opt_state, batch) -> (params, opt_state, metrics).
@@ -169,7 +365,24 @@ def make_train_step(cfg: ArchConfig, ocfg: opt.AdamWConfig, options: TrainOption
     The step updates ``params`` and the moments in place (``optimizer.apply``),
     once, with the synced gradients, and returns them.  ``act_specs`` goes to
     ``make_loss_fn``.
+
+    Tensor parallelism (dense family): with ``act_specs["policy"]`` a ``Policy``
+    with ``tp=True`` and ``act_specs["mesh"]`` the rank's ``Comm``, the step runs
+    on one rank inside ``Mesh.run`` and reads neither ``policy`` nor ``mesh``:
+    ``params`` are its blocks (``sharding.rank_blocks``), ``opt_state``
+    ``optimizer.init`` of them, ``batch`` its rows under ``batch_specs``.
+    Under ``sync="auto"`` the blocks are those of ``act_specs``' policy (FSDP
+    over ``data``); under a sync mode those of the policy with ``fsdp=False``
+    (split over ``model``, whole over the data axes, JAX's ``in_specs=P()``
+    over its manual data axes), their gradients reduced over the data axes by
+    the mode's algorithm (mean).  The gradients come from
+    ``make_tp_value_and_grad``; the leaves whole over a data axis are summed
+    over it (``TensorParallel.sum_over_data``), and the clipping norm is the
+    whole gradient's (``TensorParallel.global_norm``).  ``grad_norm`` and the
+    loss are the same on every rank.  Another family raises.
     """
+    if tp_lib.context(cfg, act_specs) is not None:
+        return _make_tp_train_step(cfg, ocfg, options, act_specs)
     if options.sync == "auto":
         grad_fn = value_and_grad(make_loss_fn(cfg, options, act_specs=act_specs))
 
@@ -195,22 +408,7 @@ def make_train_step(cfg: ArchConfig, ocfg: opt.AdamWConfig, options: TrainOption
         rank_grad_fn = value_and_grad(make_loss_fn(cfg, options,
                                                    act_specs={**(act_specs or {}), "mesh": comm}))
         (_, (loss, aux)), grads = rank_grad_fn(params, batch)
-        if options.compress_k:
-
-            def sync_leaf(g):
-                st = comp.init_state(g)  # stateless variant: residual dropped
-                out, _ = comp.sparse_allreduce(comm, g.float(), st, options.compress_k,
-                                               axes[0])
-                # as the reference: sparse_allreduce already averaged over axes[0]
-                return (out / dp_total).to(g.dtype)
-
-            grads = tree_lib.tree_map(sync_leaf, grads)
-        else:
-            grads = coll.allreduce_tree(comm, grads, options.sync, axes,
-                                        dp_shape if len(axes) > 1 else None, mean=True)
-        loss = comm.psum(loss, axes) / dp_total
-        aux = comm.psum(aux, axes) / dp_total
-        return grads, loss, aux
+        return _sync_grads(comm, grads, loss, aux, options, axes, dp_shape)
 
     def train_step(params, opt_state, batch):
         shards = [_data_shard(batch, mesh.axis_index(r, axes), dp_total)

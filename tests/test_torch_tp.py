@@ -317,8 +317,8 @@ def test_row_sum_is_the_ordered_float32_sum(shape, dtype):
         for g in group[1:]:
             want = want + parts[g].float()
         assert got.dtype == parts.dtype and torch.equal(got, want.to(parts.dtype)), r
-    assert mesh.stats.psum_calls == 0
-    assert mesh.stats.all_to_all_calls == mesh.stats.all_gather_calls == 8
+    assert mesh.stats.psum_calls == mesh.stats.all_to_all_calls == 0
+    assert mesh.stats.reduce_scatter_calls == mesh.stats.all_gather_calls == 8
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -363,10 +363,14 @@ def test_tp_checks_blocks_and_autograd():
     with pytest.raises(ValueError, match="rank's blocks"):  # whole weights are refused
         mesh.run(lambda c: TT.forward(cfg, params, tokens, act_specs=act(c)))
     specs = _specs(cfg, params, mesh)
-    with pytest.raises(ValueError, match="ROADMAP item 13"):
-        mesh.run(lambda c: TT.forward(cfg, tree_lib.tree_map(
+    # under autograd the forward runs (training: tests/test_torch_tp_train.py) and
+    # gives the serving forward's logits
+    for grad, want in zip(mesh.run(lambda c: TT.forward(cfg, tree_lib.tree_map(
             lambda t: t.clone().requires_grad_(True),
-            sh.block_views(params, specs, mesh, c.rank)), tokens, act_specs=act(c)))
+            sh.block_views(params, specs, mesh, c.rank)), tokens, act_specs=act(c))[0]),
+            mesh.run(lambda c: TT.forward(cfg, sh.block_views(params, specs, mesh, c.rank),
+                                          tokens, act_specs=act(c))[0]), strict=True):
+        assert grad.requires_grad and torch.equal(grad.detach(), want)
     with pytest.raises(ValueError, match="needs the rank's core.comm Comm"):
         TT.forward(cfg, params, tokens, act_specs={"policy": POLICY})
 
@@ -551,14 +555,15 @@ def test_dryrun_cell_traces_the_tp_step(shape, monkeypatch):
     # rank 0: 16 ranks along data and 16 along model; the embed's psum
     assert calls["all-reduce"]["count"] == 1
     # FSDP: 7 weights a layer, embed, unembed; the logits; 2 row sums a layer
-    # (a reduce-scatter as an all-to-all, then an all-gather)
+    # (a reduce-scatter, then an all-gather)
     n_gather = 7 * cfg.n_layers + 2 + 1 + 2 * cfg.n_layers
+    assert calls["reduce-scatter"]["count"] == 2 * cfg.n_layers
     if shape == "prefill_32k":  # 2 rows x 2 kv heads over 16: the gather route
         assert calls["all-gather"]["count"] == n_gather + cfg.n_layers  # q, k, v in one
-        assert calls["all-to-all"]["count"] == 2 * cfg.n_layers
+        assert "all-to-all" not in calls
     else:  # 8 rows x 2 kv heads: 1 pair a rank, groups of 8
         assert calls["all-gather"]["count"] == n_gather
-        assert calls["all-to-all"]["count"] == 4 * cfg.n_layers  # q, k, v in one; o
+        assert calls["all-to-all"]["count"] == 2 * cfg.n_layers  # q, k, v in one; o
     assert rec["peak_bytes"] >= cell.step_arg_bytes_per_rank > 0
     if shape == "decode_32k":  # the rank's cache: the bytes of cache_specs' block
         assert cell.step_arg_bytes_per_rank == cell.arg_bytes_per_device
@@ -591,13 +596,13 @@ def test_trace_mesh_counts_what_local_mesh_counts(kind):
                              sh.block_views(params, specs, trace, 0))
     dryrun.trace(lambda: (dryrun._fake(meta), torch.empty(rows, SEQ, dtype=torch.int32)),
                  lambda b, t: step(Comm(trace, 0), b, t))
-    for name in ("psum_calls", "all_gather_calls", "all_to_all_calls"):
+    for name in ("psum_calls", "all_gather_calls", "all_to_all_calls", "reduce_scatter_calls"):
         assert getattr(local.stats, name) == local.size * getattr(trace.stats, name), name
     assert {k: v for k, v in local.stats.bytes.items() if k[0] == 0} == dict(trace.stats.bytes)
     assert {k: v // local.size for k, v in local.stats.payload.items()} == dict(
         trace.stats.payload)
     # q, k and v in one; o; the 2 row sums' reduce-scatters
-    assert trace.stats.all_to_all_calls == 4 * cfg.n_layers
+    assert trace.stats.all_to_all_calls == trace.stats.reduce_scatter_calls == 2 * cfg.n_layers
 
 
 # ---------------------------------------------------------------------------
