@@ -1,6 +1,7 @@
 """The collectives GSPMD puts in the JAX package's jitted serving steps under
-``param_specs``' 2D layout: llama3.2-3b at full width, one layer, on a mesh of
-(data, model) = (1, 16) host devices.
+``param_specs``' 2D layout: an arch at full width (llama3.2-3b unless ``--arch``
+names another, such as moonshot-v1-16b-a3b for the MoE layer's), one layer, on
+a mesh of (data, model) = (1, 16) host devices.
 
 The prefill step (B 4 x 2048) and the decode step (B 4, a cache of 2048) are
 jitted with ``in_shardings`` as ``repro.launch.dryrun.build_cell`` jits them,
@@ -11,7 +12,7 @@ function with a re-layout of its own; ``chip_smoke.py`` prints these lines
 beside its own collectives.  XLA's CPU backend may upcast bf16 dots to f32, so
 the dtypes are not evidence about a TPU.
 
-  PYTHONPATH=src python benchmarks/gspmd_tp_collectives.py
+  PYTHONPATH=src python benchmarks/gspmd_tp_collectives.py [--arch moonshot-v1-16b-a3b]
 """
 
 from __future__ import annotations
@@ -48,6 +49,7 @@ def collectives(hlo: str) -> list[str]:
 
 
 def main() -> int:
+    import argparse
     import dataclasses
 
     import jax
@@ -60,7 +62,9 @@ def main() -> int:
     from repro.parallel import sharding as sh
     from repro.train import steps
 
-    cfg = dataclasses.replace(get_config("llama3.2-3b"), n_layers=1)
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama3.2-3b")
+    cfg = dataclasses.replace(get_config(ap.parse_args().arch), n_layers=1)
     mesh = compat.make_mesh((1, 16), ("data", "model"))
     policy = sh.default_policy(cfg)
     params = abstract_params(cfg)

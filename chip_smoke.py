@@ -12,7 +12,8 @@ the SSM mamba2-130m and the hybrid recurrentgemma-9b (the last two reach no
 kernel, in JAX or here), the VLM qwen2-vl-7b and the audio whisper-tiny, then
 dry-runs a production cell on fake tensors and holds a dry-run's prediction
 against the step it predicts, runs the flow simulator's device backend, and
-serves and trains llama3.2-3b tensor-parallel over 16 rank threads:
+serves and trains llama3.2-3b tensor-parallel over 16 rank threads, then the
+MoE, VLM and audio families in their sharded layouts:
 
 1. device and toolchain: card name and power limit, torch and nvcc versions;
 2. build, timed (one nvcc per source, all started together), with ptxas's
@@ -26,15 +27,17 @@ serves and trains llama3.2-3b tensor-parallel over 16 rank threads:
    at head_dim >= 16 and simt for bf16 at 8; simt takes every case too, for
    the record; and a rank's share of llama3.2-3b's tensor-parallel prefill,
    1 row x 2 kv heads and their 6 q heads, and of its tensor-parallel
-   training step, 1 row x 1 kv head and its 3 q heads), each line naming the
+   training step, 1 row x 1 kv head and its 3 q heads; the shares of 26:
+   moonshot-v1-16b-a3b's 1 row x 4 and 1 x 2 heads, qwen2-vl-7b's 1 row x 1 kv
+   head and its 7 q heads, whisper-tiny's 8 rows of 512), each line naming the
    kernel that ran; the tf32 kernel's
    split of K and V against its plain version, bit for bit; at the
    llama3.2-3b prefill shape the bf16 kernels are timed in turns (sm90,
    simt, SDPA) beside the plain version and the bound, with achieved
    TFLOP/s, and again at head_dim 64 (the minicpm-2b widths) and at the
    moonshot-v1-16b-a3b, qwen2-vl-7b and whisper-tiny prefill shapes and at
-   the tensor-parallel ranks' shares (1, 2048, 6 / 2, 128) and (1, 2048, 3 /
-   1, 128); in fp32 the same
+   the tensor-parallel ranks' shares (1, 2048, 6 / 2, 128), (1, 2048, 3 /
+   1, 128), (1, 2048, 4 / 4, 128) and (1, 2048, 7 / 1, 128); in fp32 the same
    at the training shape (batch 2; tf32, simt, SDPA, three rounds), at the
    prefill shape (one round) of llama3.2-3b, moonshot-v1-16b-a3b,
    qwen2-vl-7b and whisper-tiny, and at the ranks' shares (three rounds),
@@ -172,7 +175,10 @@ serves and trains llama3.2-3b tensor-parallel over 16 rank threads:
    on this card (llama3.2-3b fp32, batch 2 x 2048, remat, the plain
    attention, one rank) against the step itself: its FLOPs equal to
    ``FlopCounterMode``'s count on the card, exactly, and its peak within 10 %
-   of ``torch.cuda.max_memory_allocated``; the card's own bf16 GEMM rate and
+   of ``torch.cuda.max_memory_allocated``; the same for one rank of
+   moonshot-v1-16b-a3b's sharded MoE train step (1 layer, B 1 x 256, TP on
+   (1, 4): rank 0 a thread on the card, ranks 1-3 threads on the host, so
+   that the card holds rank 0 alone); the card's own bf16 GEMM rate and
    HBM copy bandwidth beside the roofline's data-sheet constants;
 23. the flow simulator's torch backend (``repro_torch.core.flowsim``): the
    max ECMP link load of uniform all-to-all on the paper's small Hx2Mesh
@@ -208,11 +214,24 @@ serves and trains llama3.2-3b tensor-parallel over 16 rank threads:
    the auto run too, ``CommStats`` against closed forms; then llama3.2-3b
    whole on (2, 8), one step (896 launches), its seconds and peak memory,
    its loss against the unsharded step's of 8;
-26. one JSON line on every kernel (launches by path, the MoE, SSM, hybrid,
-   VLM, audio, pipeline, EP and TP paths included), one each on the sync,
-   MoE, SSM, hybrid, VLM, audio, pipeline, EP-model, sharding, torchrun,
-   dry-run, flow-simulator, TP-serving and TP-training phases, the card's
-   name and power limit, and last the JSON result line.
+26. the sharded layout of the MoE, VLM and audio families
+   (``phase_tp_families``, after 25), on 16 rank threads of cuda:0:
+   moonshot-v1-16b-a3b TP over ``model`` (experts split on d_ff) in fp32 at
+   the 48-layer init's scale: the prefill gate at 4 layers (4 x 2048; (1, 16),
+   (2, 8)) and the training gate at 1 (2 x 2048; (1, 16), (2, 8), ring (2, 8))
+   against fp64 with its routing replayed, then bf16 whole: the TP prefill (768 sm90 launches a
+   call) and a few decode steps; qwen2-vl-7b at an image grid's M-RoPE
+   positions, bf16 whole on the pair (B 4) and gather (B 2) routes, fp32 at 4
+   layers: the prefill and training gates; whisper-tiny whole under its
+   ``default_policy`` (``tp=False``) and ``layout="fsdp"`` on (2, 8), 16 x
+   512: the prefill and training gates.  Gates as 25's, launches and
+   ``CommStats`` against closed forms (``_fam_closed_forms``);
+27. one JSON line on every kernel (launches by path, the MoE, SSM, hybrid,
+   VLM, audio, pipeline, EP, TP and sharded-family paths included), one each
+   on the sync, MoE, SSM, hybrid, VLM, audio, pipeline, EP-model, sharding,
+   torchrun, dry-run, flow-simulator, TP-serving, TP-training and
+   sharded-family phases, the card's name and power limit, and last the JSON
+   result line.
 
 Any failure raises and exits nonzero; without a CUDA device, or without the
 rest of the repository beside it, the script exits nonzero and prints no
@@ -225,6 +244,7 @@ import collections
 import contextlib
 import dataclasses
 import functools
+import gc
 import io
 import itertools
 import json
@@ -288,6 +308,13 @@ CASES = [
     # a rank's share of llama3.2-3b's training step under tensor parallelism
     # (phase_tp_train): 1 row x 1 kv head and its 3 q heads, on (1, 16) and (2, 8)
     (1, 2048, 2048, 3, 1, 128, True, 0),
+    # the ranks' shares of phase_tp_families: moonshot-v1-16b-a3b's prefill (1 row x 4
+    # heads, MHA) and training step (1 row x 2), qwen2-vl-7b's prefill (1 row x 1 kv
+    # head and its 7 q heads), whisper-tiny's 8 rows of 512 under default_policy
+    (1, 2048, 2048, 4, 4, 128, True, 0),
+    (1, 2048, 2048, 2, 2, 128, True, 0),
+    (1, 2048, 2048, 7, 1, 128, True, 0),
+    (8, 512, 512, 6, 6, 64, True, 0),
 ]
 # the prefill shape of llama3.2-3b at head_dim 128, of minicpm-2b at 64, of
 # moonshot-v1-16b-a3b (MHA, 16 heads of 128), of qwen2-vl-7b (GQA group 7) and of
@@ -295,7 +322,8 @@ CASES = [
 PREFILL_SHAPES = {"d128": (4, 2048, 24, 8, 128), "d64": (4, 2048, 36, 36, 64),
                   "moonshot": (4, 2048, 16, 16, 128), "vlm": (4, 2048, 28, 4, 128),
                   "audio": (4, 2048, 6, 6, 64), "tp": (1, 2048, 6, 2, 128),
-                  "tp_train": (1, 2048, 3, 1, 128)}
+                  "tp_train": (1, 2048, 3, 1, 128), "tp_moe": (1, 2048, 4, 4, 128),
+                  "tp_vlm": (1, 2048, 7, 1, 128)}
 PREFILL_BATCH, PREFILL_LEN = 4, 2048
 # the fp32 shapes, (tag, (b, s, h, kv, d), timing rounds), causal: the training
 # and prefill shapes of llama3.2-3b, then of moonshot-v1-16b-a3b, qwen2-vl-7b and
@@ -309,7 +337,10 @@ FP32_SHAPES = [("train_fp32", (2, 2048, 24, 8, 128), 3),
                ("train_audio_fp32", (2, 2048, 6, 6, 64), 3),
                ("prefill_audio_fp32", (4, 2048, 6, 6, 64), 1),
                ("prefill_tp_fp32", (1, 2048, 6, 2, 128), 3),
-               ("train_tp_fp32", (1, 2048, 3, 1, 128), 3)]
+               ("train_tp_fp32", (1, 2048, 3, 1, 128), 3),
+               ("prefill_tp_moe_fp32", (1, 2048, 4, 4, 128), 3),
+               ("train_tp_moe_fp32", (1, 2048, 2, 2, 128), 3),
+               ("prefill_tp_vlm_fp32", (1, 2048, 7, 1, 128), 3)]
 # q's scale in the large-score checks (mean row max scores ~40 and ~450), at the
 # training shapes of moonshot-v1-16b-a3b and whisper-tiny
 LARGE_SCORE_Q_SCALES = (12.0, 143.0)
@@ -1686,20 +1717,27 @@ def _replayed_routing(log_, per_rank: bool = False):
     that chose them: two paths of the model then differ only continuously.  The
     dispatches read the log in turn, whatever thread runs them (the backward's
     remat recompute runs on the autograd engine's); with ``per_rank`` each rank
-    thread of a ``LocalMesh`` replays the whole log on its own."""
+    thread of a ``LocalMesh`` replays the whole log on its own, each dispatch cut
+    to the rows of the batch the thread routes if it names them through the
+    ``claim(rows)`` this yields (a slice; one dispatch group a row: S <=
+    GROUP_TOKENS)."""
     from unittest import mock
 
     from repro_torch.models import moe
 
-    iters, lock = {}, threading.Lock()
+    iters, rows, lock = {}, {}, threading.Lock()
 
     def top_k(probs, k):
+        key = threading.get_ident() if per_rank else 0
         with lock:
-            it = iters.setdefault(threading.get_ident() if per_rank else 0, iter(log_))
-        return next(it)[0].reshape(*probs.shape[:-1], k)
+            it = iters.setdefault(key, iter(log_))
+        return next(it)[0][rows.get(key, slice(None))].reshape(*probs.shape[:-1], k)
+
+    def claim(sl: slice) -> None:
+        rows[threading.get_ident()] = sl
 
     with mock.patch.object(moe, "_top_k", top_k):
-        yield
+        yield claim
     if any(next(it, None) is not None for it in iters.values()) or (log_ and not iters):
         raise AssertionError("a replayed routing log outlived its dispatches")
 
@@ -3574,9 +3612,111 @@ def phase_dryrun(smi) -> dict:
     return {"cell": rec, "step": {"predicted": pred, "flops": flops, "peak_bytes": peak,
                                   "peak_rel_err": peak_err, "trace_s": trace_s,
                                   "step_s": step_s, "terms_s": terms},
+            "tp_moe_rank": _dryrun_tp_moe(smi),
             "card": rates, "datasheet": {"hardware": roof.HARDWARE,
                                          "peak_flops": roof.PEAK_FLOPS,
                                          "hbm_bw": roof.HBM_BW, "link_bw": roof.LINK_BW}}
+
+
+def _dryrun_tp_moe(smi) -> dict:
+    """The dry-run's prediction of one rank's sharded MoE train step against that
+    rank on the card: moonshot-v1-16b-a3b at FAM_DRYRUN_LAYERS layer (full width,
+    fp32, remat, the plain attention that ``FlopCounterMode`` sees), B 1 x
+    FAM_DRYRUN_LEN, TP over ``model`` on (data, model) = FAM_DRYRUN_SHAPE, rank 0 a
+    thread on the card and ranks 1-3 threads on the host, so that the card holds
+    rank 0 alone: its FLOPs (``FlopCounterMode`` in its thread) equal to the
+    trace's, exactly, and its peak (``max_memory_allocated``, its blocks, moments
+    and rows included, as the trace counts them) within DRYRUN_PEAK_RTOL."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import get_config
+    from repro_torch.core.comm import Comm, LocalMesh, TraceMesh
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.launch import dryrun
+    from repro_torch.models import get_model
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import steps as st
+
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=FAM_DRYRUN_LAYERS)
+    policy = sh.Policy()
+    ocfg = opt.AdamWConfig(lr=3e-3, warmup_steps=1, total_steps=2, schedule=cfg.schedule)
+    opts = st.TrainOptions(remat=True, use_kernel=False)
+    params = get_model(cfg).init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                                        dtype=torch.float32)
+    params = tree_lib.tree_map(lambda t: t.cpu(), params)  # the weights on the host
+    torch.cuda.empty_cache()
+    batch = {k: torch.from_numpy(v)
+             for k, v in make_batch(cfg, FAM_DRYRUN_LEN, 1, step=0).items()}
+    devices = [TP_DEVICE] + ["cpu"] * (math.prod(FAM_DRYRUN_SHAPE) - 1)
+    mesh = LocalMesh(FAM_DRYRUN_SHAPE, TP_AXES, devices)
+    specs = sh.sanitize_specs(params, sh.param_specs(cfg, params, policy), mesh)
+
+    def step_of(comm):
+        return st.make_train_step(cfg, ocfg, opts, act_specs={"mesh": comm, "policy": policy})
+
+    trace_mesh = TraceMesh(FAM_DRYRUN_SHAPE, TP_AXES)
+    meta = tree_lib.tree_map(lambda t: t.to("meta"),
+                             sh.block_views(params, specs, trace_mesh, 0))
+
+    def make_args():
+        blocks = dryrun._fake(meta)
+        return blocks, opt.init(blocks), {k: torch.empty(v.shape, dtype=v.dtype)
+                                          for k, v in batch.items()}
+
+    t0 = time.perf_counter()
+    pred = dryrun.trace(make_args, step_of(Comm(trace_mesh, 0)))
+    trace_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    blocks = [tree_lib.tree_map(lambda t, r=r: t.to(mesh.device(r), copy=True,
+                                                    memory_format=torch.contiguous_format),
+                                sh.block_views(params, specs, mesh, r))
+              for r in range(mesh.size)]
+    rows = [{k: v.to(mesh.device(r)) for k, v in batch.items()} for r in range(mesh.size)]
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counted = {}
+
+    def fn(comm, p, b):
+        state, step = opt.init(p), step_of(comm)
+        if comm.rank:
+            return float(step(p, state, b)[2]["loss"])
+        with FlopCounterMode(display=False) as counter:
+            m = step(p, state, b)[2]
+        counted["flops"] = counter.get_total_flops()
+        return float(m["loss"])
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    losses = mesh.run(fn, blocks, rows)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - before
+    launches = _counts()
+    del blocks, rows
+    torch.cuda.empty_cache()
+    peak_err = abs(pred["peak_bytes"] - peak) / max(1, peak)
+    rec = {"predicted": pred, "flops": counted["flops"], "peak_bytes": peak,
+           "peak_rel_err": peak_err, "trace_s": trace_s, "step_s": step_s, "loss": losses[0],
+           "shape": FAM_DRYRUN_SHAPE, "layers": FAM_DRYRUN_LAYERS, "tokens": FAM_DRYRUN_LEN}
+    log(f"[dryrun] {cfg.name} at {FAM_DRYRUN_LAYERS} layer, fp32, TP on (data, model) = "
+        f"{FAM_DRYRUN_SHAPE}, batch 1 x {FAM_DRYRUN_LEN}, remat, plain attention, rank 0 on "
+        f"the card (ranks 1-{mesh.size - 1} on the host): predicted on fake tensors in "
+        f"{trace_s:.1f}s: {pred['flops']} FLOPs, peak {pred['peak_bytes']} B; rank 0 on the "
+        f"card: {counted['flops']} FLOPs, peak {peak} B (predicted rel {peak_err:.4f}, tol "
+        f"{DRYRUN_PEAK_RTOL}); step {step_s:.2f}s, loss {losses[0]:.6f} (every rank alike: "
+        f"{len(set(losses)) == 1}) [{smi}]")
+    if counted["flops"] != pred["flops"]:
+        raise AssertionError(f"the dry-run's MoE rank FLOPs {pred['flops']} != the card's "
+                             f"{counted['flops']}")
+    if peak_err > DRYRUN_PEAK_RTOL or len(set(losses)) != 1 or any(launches.values()):
+        raise AssertionError(f"the dry-run's MoE rank peak {pred['peak_bytes']} B is "
+                             f"{peak_err:.3f} from the card's {peak} B, or the ranks' losses "
+                             f"{losses} differ, or kernels {launches} launched")
+    return rec
 
 
 def phase_flowsim(smi) -> dict:
@@ -3621,6 +3761,7 @@ def phase_flowsim(smi) -> dict:
 TP_ARCH = "llama3.2-3b"
 TP_MESHES = ((1, 16), (2, 8))  # (data, model): the bf16 path and the decode on the first
 TP_AXES = ("data", "model")
+TP_DEVICE = "cuda"  # the TP phases' ranks' device ("cpu" rehearses them at smoke size)
 # The TP decode loops: teacher-forced prompt, then greedy steps.  16 rank threads
 # share one GIL, so a TP decode step costs 16 ranks' host work (~1.1 s on the
 # H100's host): the fp32 gate's loop is cut from the serve phase's 128 + 32 to
@@ -3647,75 +3788,132 @@ def _tp_policy():
     return sh.Policy()  # (data, model): FSDP over data, TP over model (llama's default_policy)
 
 
-def _tp_shard(cfg, params, shape) -> tuple:
-    """``params`` cut into each rank's blocks on a (data, model) LocalMesh of cuda:0 under
-    ``sanitize_specs(param_specs)``: (mesh, per-rank block trees, each rank's bytes); each
-    rank's bytes held to its blocks' under the specs (``_named_block``)."""
+def _tp_shard(cfg, params, shape, policy=None, free: bool = False) -> tuple:
+    """``params`` cut into each rank's blocks on a (data, model) ``LocalMesh`` of the
+    card under ``sanitize_specs(param_specs(policy))`` (``_tp_policy()`` by
+    default), a leaf at a time (with ``free`` each whole leaf leaves ``params``
+    once cut, so that the blocks and the whole tree are never both held): (mesh,
+    specs, per-rank block trees), each rank's bytes held to its blocks' under the
+    specs."""
     from repro_torch import tree as tree_lib
     from repro_torch.core.comm import LocalMesh
     from repro_torch.parallel import sharding as sh
 
-    mesh = LocalMesh(shape, TP_AXES, "cuda")  # 16 ranks on one card: they take turns
-    specs = sh.sanitize_specs(params, sh.param_specs(cfg, params, _tp_policy()), mesh)
-    sharded = sh.shard_tree(params, sh.to_shardings(mesh, specs))
-    blocks = [sh.rank_blocks(sharded, r) for r in range(mesh.size)]
-    rank_bytes = [sum(t.numel() * t.element_size() for t in tree_lib.leaves(b)) for b in blocks]
+    policy = policy or _tp_policy()
+    mesh = LocalMesh(shape, TP_AXES, TP_DEVICE)  # ranks on one card take turns
+    specs = sh.sanitize_specs(params, sh.param_specs(cfg, params, policy), mesh)
+    leaves, structure = tree_lib.flatten(params)
+    names = [n for n, _ in _named_leaves(params)]
+    blocks, want = [[] for _ in range(mesh.size)], [0] * mesh.size
+    for i, (name, spec) in enumerate(zip(names, tree_lib.leaves(specs))):
+        x = leaves[i]
+        leaves[i] = None
+        if free:
+            *path, key = name.split(".")
+            node = params
+            for k in path:
+                node = node[k]
+            node[key] = None
+        ns = sh.NamedSharding(mesh, spec)
+        for r in range(mesh.size):
+            sl = ns.block(r, x.shape)
+            blocks[r].append(x[sl].to(TP_DEVICE, copy=True,
+                                       memory_format=torch.contiguous_format))
+            want[r] += math.prod(s.stop - s.start for s in sl) * x.element_size()
+        del x
+    trees = [tree_lib.unflatten(structure, b) for b in blocks]
+    got = [sum(t.numel() * t.element_size() for t in b) for b in blocks]
+    if got != want:
+        raise AssertionError(f"[tp] {cfg.name}: the ranks hold {got} B, their blocks "
+                             f"under the specs {want}")
+    return mesh, specs, trees
+
+
+def _tree_bytes(tree) -> int:
+    from repro_torch import tree as tree_lib
+
+    return sum(t.numel() * t.element_size() for t in tree_lib.leaves(tree))
+
+
+def _tp_rows(mesh, policy, batch: dict, comm) -> dict:
+    """The rank's rows of every batch leaf under ``batch_specs`` (the batch axis of
+    M-RoPE's (3, B, S) positions is its second)."""
+    from repro_torch.parallel import sharding as sh
+
+    n, i = mesh.axis_size(policy.data_axes), comm.axis_index(policy.data_axes)
+    out = {}
+    for k, v in batch.items():
+        dim = sh.batch_axis(k)
+        rows = v.shape[dim] // n
+        out[k] = v.narrow(dim, i * rows, rows)
+    return out
+
+
+def _tp_heads(mesh, policy) -> list[int]:
+    """One rank of each data position (the ranks sharing rows compute alike)."""
+    first = {}
     for r in range(mesh.size):
-        want = sum(math.prod(s.stop - s.start for s in _named_block(mesh, r, spec, x.shape))
-                   * x.element_size() for (_, x), spec in
-                   zip(_named_leaves(params), tree_lib.leaves(specs)))
-        if rank_bytes[r] != want:
-            raise AssertionError(f"[tp-serve] rank {r} holds {rank_bytes[r]:,} B, its blocks "
-                                 f"under the specs {want:,}")
-    return mesh, blocks, rank_bytes
+        first.setdefault(mesh.axis_index(r, policy.data_axes), r)
+    return [first[i] for i in range(len(first))]
 
 
-def _tp_rows(mesh, tokens, comm):
-    rows = tokens.shape[0] // mesh.shape["data"]
-    i = comm.axis_index("data")
-    return tokens[i * rows:(i + 1) * rows]
+def _rank_slice(mesh, policy, batch, comm) -> slice:
+    n, i = mesh.axis_size(policy.data_axes), comm.axis_index(policy.data_axes)
+    rows = batch["tokens"].shape[0] // n
+    return slice(i * rows, (i + 1) * rows)
 
 
-def _tp_prefill(cfg, mesh, blocks, tokens, use_kernel=True) -> tuple:
-    """The TP prefill step on every rank: (the last position's logits in batch
-    order, seconds, the largest difference between ranks along model)."""
+def _tp_prefill(cfg, mesh, blocks, batch, use_kernel=True, policy=None, replay=None) -> tuple:
+    """The sharded prefill step on every rank, with an unsharded run's MoE routing
+    replayed where ``replay`` holds its log (each rank its rows): (the last
+    position's logits in batch order, seconds, the largest difference between
+    ranks that share rows)."""
     from repro_torch.train import steps as st
 
-    policy = _tp_policy()
+    policy = policy or _tp_policy()
+    claim = None
 
     def fn(comm, p):
-        act = {"mesh": comm, "policy": policy}
+        rows = _tp_rows(mesh, policy, batch, comm)
+        if claim is not None:
+            claim(_rank_slice(mesh, policy, batch, comm))
         return st.make_prefill_step(cfg, st.TrainOptions(use_kernel=use_kernel),
-                                    act_specs=act)(p, {"tokens": _tp_rows(mesh, tokens, comm)})
+                                    act_specs={"mesh": comm, "policy": policy})(p, rows)
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    outs = mesh.run(fn, blocks)
+    with (_replayed_routing(replay, per_rank=True) if replay is not None
+          else contextlib.nullcontext()) as claim:
+        outs = mesh.run(fn, blocks)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    n = mesh.shape["model"]
-    spread = max(float((outs[r].float() - outs[r - r % n].float()).abs().max())
-                 for r in range(mesh.size))
-    return torch.cat([outs[r] for r in range(0, mesh.size, n)]), secs, spread
+    heads = _tp_heads(mesh, policy)
+    spread = max(float((outs[r].float() - outs[h].float()).abs().max()) for r in range(mesh.size)
+                 for h in heads if mesh.axis_index(r, policy.data_axes)
+                 == mesh.axis_index(h, policy.data_axes))
+    return torch.cat([outs[h] for h in heads]), secs, spread
 
 
-def _tp_decode(cfg, mesh, blocks, prompts, steps: int) -> tuple:
-    """Teacher-force ``prompts`` through ``decode_step`` on every rank, then ``steps``
-    greedy tokens through ``make_decode_step``: (the prompt steps' logits (B, P, V) in
-    batch order, the greedy tokens (B, steps), seconds a step).  ``mesh`` None: the
-    unsharded model on ``blocks`` (the whole weights)."""
+def _tp_decode(cfg, mesh, blocks, prompts, steps: int, policy=None) -> tuple:
+    """Teacher-force ``prompts`` through ``decode_step`` on every rank under ``policy``
+    (``_tp_policy()`` by default), then ``steps`` greedy tokens through
+    ``make_decode_step``: (the prompt steps' logits (B, P, V) in batch order, the
+    greedy tokens (B, steps), seconds a step).  ``mesh`` None: the unsharded model
+    on ``blocks`` (the whole weights)."""
     from repro_torch.models import transformer as T
     from repro_torch.train import steps as st
 
-    policy = _tp_policy()
+    policy = policy or _tp_policy()
     p_len = prompts.shape[1]
+    heads = [0] if mesh is None else _tp_heads(mesh, policy)
 
     def fn(comm, p):
         act = None if comm is None else {"mesh": comm, "policy": policy}
-        toks = prompts if comm is None else _tp_rows(mesh, prompts, comm)
-        keep = comm is None or comm.axis_index("model") == 0
+        toks = prompts if comm is None else _tp_rows(mesh, policy, {"tokens": prompts},
+                                                      comm)["tokens"]
+        keep = comm is None or comm.rank in heads  # one rank of those sharing rows
         cache = T.init_cache(cfg, toks.shape[0], p_len + steps, dtype=p["embed"].dtype,
-                             device="cuda", act_specs=act)
+                             device=TP_DEVICE, act_specs=act)
         logits = []
         with torch.no_grad():
             for t in range(p_len):
@@ -3732,12 +3930,7 @@ def _tp_decode(cfg, mesh, blocks, prompts, steps: int) -> tuple:
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    if mesh is None:
-        outs = [fn(None, blocks)]
-        heads = [0]
-    else:
-        outs = mesh.run(fn, blocks)
-        heads = range(0, mesh.size, mesh.shape["model"])
+    outs = [fn(None, blocks)] if mesh is None else mesh.run(fn, blocks)
     torch.cuda.synchronize()
     secs = (time.perf_counter() - t0) / (p_len + steps - 1)
     return (torch.cat([outs[r][0] for r in heads]), torch.cat([outs[r][1] for r in heads]),
@@ -3758,7 +3951,7 @@ def _tp_fp64(cfg, params, tokens, prompts) -> tuple:
         last = (hidden[:, -1:] @ layers.unembed(p64)).float()
         del hidden
         cache = T.init_cache(cfg, prompts.shape[0], prompts.shape[1], dtype=torch.float64,
-                             device="cuda")
+                             device=TP_DEVICE)
         steps = []
         for t in range(prompts.shape[1]):
             lg, cache = T.decode_step(cfg, p64, cache, prompts[:, t:t + 1])
@@ -3861,7 +4054,8 @@ def phase_tp_serve(smi) -> dict:
     dref16, tref16, dsec_ref16 = _tp_decode(cfg, None, params, prompts16, TP_DECODE)
     log(f"[tp-serve] the unsharded bf16 prefill and decode ({dsec_ref16 * 1e3:.1f} ms a step) "
         "done; cutting the weights into 16 ranks' blocks")
-    mesh, blocks, rank_bytes = _tp_shard(cfg, params, TP_MESHES[0])
+    mesh, _, blocks = _tp_shard(cfg, params, TP_MESHES[0])
+    rank_bytes = [_tree_bytes(b) for b in blocks]
     del params
     torch.cuda.empty_cache()
     ranks = mesh.size
@@ -3870,7 +4064,7 @@ def phase_tp_serve(smi) -> dict:
     for i in range(4):
         mesh.stats.reset()
         _reset_counts()
-        logits, t, spread = _tp_prefill(cfg, mesh, blocks, tokens)
+        logits, t, spread = _tp_prefill(cfg, mesh, blocks, {"tokens": tokens})
         launches = _expect_launches("[tp-serve] bf16 TP prefill", sm90=ranks * n_l)
         secs.append(t)
         log(f"[tp-serve] bf16 TP prefill call {i}: {t:.3f}s")
@@ -3945,10 +4139,11 @@ def phase_tp_serve(smi) -> dict:
     out["fp32"] = {"floor": floor, "bound": bound, "unsharded_vs_fp64": ref_err,
                    "unsharded_decode_vs_fp64": dref_err, **meta32}
     for shape in TP_MESHES:
-        mesh, blocks, rank_bytes = _tp_shard(cfg, params, shape)
+        mesh, _, blocks = _tp_shard(cfg, params, shape)
+        rank_bytes = [_tree_bytes(b) for b in blocks]
         mesh.stats.reset()
         _reset_counts()
-        logits, t, spread = _tp_prefill(cfg, mesh, blocks, tokens)
+        logits, t, spread = _tp_prefill(cfg, mesh, blocks, {"tokens": tokens})
         launches = _expect_launches(f"[tp-serve] fp32 TP prefill on {shape}",
                                     tf32=mesh.size * n_l)
         stats = _tp_stats_check(f"tp-serve fp32 {shape}", mesh, _tp_closed_forms(
@@ -4054,10 +4249,11 @@ def _tp_train_closed_forms(cfg, shape, batch: int, seq: int, sync: str) -> dict:
     return {**out, "ppermute_bytes": ring, "rank_param_bytes": 4 * blocks}
 
 
-def _tp_train_stats_check(tag, mesh, want) -> dict:
-    """``mesh.stats`` of one TP train step against ``_tp_train_closed_forms``, every
-    rank alike; under a sync mode also the ring's ppermute bytes, the sends between
-    ranks of two data rows (the step's other sends stay in a rank's model group)."""
+def _tp_step_stats_check(tag, mesh, want) -> dict:
+    """``mesh.stats`` of one sharded step against its closed forms
+    (``_tp_train_closed_forms``, ``_fam_closed_forms``), every rank alike; under a
+    sync mode also the ring's ppermute bytes, the sends between ranks of two data
+    rows (the step's other sends stay in a rank's model group)."""
     st, size, n = mesh.stats, mesh.size, mesh.shape["model"]
     got = {kind: {"calls": getattr(st, f"{kind}_calls") // size,
                   "bytes": st.payload[kind] // size}
@@ -4079,7 +4275,7 @@ def _tp_whole(mesh, spec, shape, blocks) -> torch.Tensor:
     under ``spec``."""
     from repro_torch.parallel import sharding as sh
 
-    out = torch.empty(shape, dtype=blocks[0].dtype, device="cuda")
+    out = torch.empty(shape, dtype=blocks[0].dtype, device=TP_DEVICE)
     ns = sh.NamedSharding(mesh, spec)
     for r, b in enumerate(blocks):
         out[ns.block(r, shape)] = b
@@ -4114,37 +4310,28 @@ def _no_autograd_collectives():
         yield
 
 
-def _tp_train_blocks(cfg, params, shape, sync) -> tuple:
-    """``params`` cut into each rank's blocks on a (data, model) LocalMesh of cuda:0
-    (FSDP over data under ``auto``, whole over it under a sync mode): (mesh, specs,
-    per-rank block trees)."""
-    from repro_torch.core.comm import LocalMesh
-    from repro_torch.parallel import sharding as sh
-
-    mesh = LocalMesh(shape, TP_AXES, "cuda")  # 16 ranks on one card: they take turns
-    policy = _tp_policy() if sync == "auto" else dataclasses.replace(_tp_policy(), fsdp=False)
-    specs = sh.sanitize_specs(params, sh.param_specs(cfg, params, policy), mesh)
-    sharded = sh.shard_tree(params, sh.to_shardings(mesh, specs))
-    return mesh, specs, [sh.rank_blocks(sharded, r) for r in range(mesh.size)]
-
-
-def _tp_train_step(cfg, ocfg, mesh, blocks, batch, sync) -> dict:
-    """One TP train step (AdamW from the init state) of every rank's ``blocks``,
-    through the tf32 kernel, which it takes over (the list is emptied): every
+def _tp_train_step(cfg, ocfg, mesh, blocks, batch, sync, policy=None, replay=None) -> dict:
+    """One sharded train step (AdamW from the init state) of every rank's ``blocks``
+    under ``policy`` (``_tp_policy()`` by default; the rows by ``batch_specs``),
+    through the tf32 kernel, which it takes over (the list is emptied), with an
+    unsharded run's MoE routing replayed where ``replay`` holds its log: every
     rank's updated blocks and first moment, its metrics, the step's seconds and
     peak memory; the launches and CommStats are left in the counters."""
     from repro_torch import tree as tree_lib
     from repro_torch.train import optimizer as opt
     from repro_torch.train import steps as st
 
+    policy = policy or _tp_policy()
     opts = st.TrainOptions(sync=sync, use_kernel=True, remat=True)
     per_rank = list(blocks)
     blocks.clear()
+    claim = None
 
     def fn(comm, p):
-        step = st.make_train_step(cfg, ocfg, opts,
-                                  act_specs={"mesh": comm, "policy": _tp_policy()})
-        rows = {k: _tp_rows(mesh, v, comm) for k, v in batch.items()}
+        step = st.make_train_step(cfg, ocfg, opts, act_specs={"mesh": comm, "policy": policy})
+        rows = _tp_rows(mesh, policy, batch, comm)
+        if claim is not None:
+            claim(_rank_slice(mesh, policy, batch, comm))
         p, state, m = step(p, opt.init(p), rows)
         return p, state.m, {k: float(v) for k, v in m.items()}
 
@@ -4154,17 +4341,19 @@ def _tp_train_step(cfg, ocfg, mesh, blocks, batch, sync) -> dict:
     mesh.stats.reset()
     _reset_counts()
     t0 = time.perf_counter()
-    with _no_autograd_collectives():
+    replayed = (_replayed_routing(replay, per_rank=True) if replay is not None
+                else contextlib.nullcontext())
+    with _no_autograd_collectives(), replayed as claim:
         outs = mesh.run(fn, per_rank)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     del per_rank
-    if not all(t.is_cuda for t in tree_lib.leaves(outs[0][0])):
-        raise AssertionError("[tp-train] the TP step's blocks left the card")
+    if not all(t.device.type == TP_DEVICE for t in tree_lib.leaves(outs[0][0])):
+        raise AssertionError("[tp] the step's blocks left the card")
     metrics = [o[2] for o in outs]
     if any(m != metrics[0] for m in metrics):
-        raise AssertionError(f"[tp-train] the ranks' metrics differ: {metrics}")
+        raise AssertionError(f"[tp] the ranks' metrics differ: {metrics}")
     return {"outs": outs, "metrics": metrics[0], "s": secs, "peak": peak}
 
 
@@ -4291,12 +4480,13 @@ def phase_tp_train(smi, train_loss: dict) -> dict:
     for sync, shape in TP_TRAIN_RUNS:
         tag = f"{sync}_{shape[0]}x{shape[1]}"
         label = f"[tp-train] {cfg.name} {sync} on (data, model) = {shape}"
-        mesh, specs, blocks = _tp_train_blocks(cfg, params, shape, sync)
+        policy = _tp_policy() if sync == "auto" else dataclasses.replace(_tp_policy(), fsdp=False)
+        mesh, specs, blocks = _tp_shard(cfg, params, shape, policy)
         run = _tp_train_step(cfg, ocfg, mesh, blocks, batch, sync)
         outs, m = run["outs"], run["metrics"]
         launches = _expect_launches(label, tf32=mesh.size * 2 * cfg.n_layers)
         want = _tp_train_closed_forms(cfg, shape, TRAIN_BATCH, TRAIN_LEN, sync)
-        stats = _tp_train_stats_check(f"tp-train {tag}", mesh, want)
+        stats = _tp_step_stats_check(f"tp-train {tag}", mesh, want)
         spec_of = dict(zip(names, tree_lib.leaves(specs)))
         leaf_err, leaf_vs_auto, excess, worst = {}, {}, -1.0, 0.0
         new_auto = {}
@@ -4382,12 +4572,12 @@ def phase_tp_train(smi, train_loss: dict) -> dict:
     t0 = time.perf_counter()
     params = get_model(full).init_params(full, torch.Generator("cuda").manual_seed(0),
                                          dtype=torch.float32)
-    mesh, _, blocks = _tp_train_blocks(full, params, TP_TRAIN_FULL, "auto")
+    mesh, _, blocks = _tp_shard(full, params, TP_TRAIN_FULL)
     del params  # the ranks' blocks alone stay on the card
     run = _tp_train_step(full, ocfg, mesh, blocks, batch, "auto")
     launches = _expect_launches("[tp-train] full depth", tf32=mesh.size * 2 * full.n_layers)
     want = _tp_train_closed_forms(full, TP_TRAIN_FULL, TRAIN_BATCH, TRAIN_LEN, "auto")
-    stats = _tp_train_stats_check("tp-train full", mesh, want)
+    stats = _tp_step_stats_check("tp-train full", mesh, want)
     m = run["metrics"]
     loss_err = abs(m["loss"] - train_loss["kernel"]) / abs(train_loss["kernel"])
     rec = {"loss": m["loss"], "phase_train_loss": train_loss["kernel"], "loss_rel": loss_err,
@@ -4409,6 +4599,534 @@ def phase_tp_train(smi, train_loss: dict) -> dict:
     out["s"] = time.perf_counter() - t_phase
     log(f"[tp-train] phase {out['s']:.1f}s (the gate {out['gate_s']:.1f}s, full depth "
         f"{time.perf_counter() - t0:.1f}s)")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the thirteenth slice: the sharded layout for the MoE, VLM and audio families
+# ---------------------------------------------------------------------------
+
+# moonshot's fp32 training gate depth: 4.96 GB of fp32 weights.  At 2 layers
+# (7.25 GB) the ring run's blocks, whole over data, with their gradients,
+# moments, the ring's flat buffers and 16 ranks' MoE temporaries ran out of the
+# card's 79 GiB.  Its prefill gate runs deeper, so that layers past the first
+# (the stacks' indexing, a layer's FSDP gathers, the experts' F-column blocks)
+# are held to fp64 on the card: 11.8 GB of fp32 weights, 23.6 GB in fp64
+FAM_MOE_LAYERS = 1
+FAM_MOE_PREFILL_LAYERS = 4
+FAM_MOE_PREFILL_SHAPES = ((1, 16), (2, 8))
+FAM_VLM_LAYERS = 4  # qwen2-vl-7b's: 8.1 GB (8 layers would hold 82 GB of fp64
+#                     references on the 96 GiB host)
+# (sync, (data, model)) of moonshot's fp32 gate: TP alone, with FSDP, and the ring
+FAM_MOE_RUNS = (("auto", (1, 16)), ("auto", (2, 8)), ("ring", (2, 8)))
+FAM_SHAPE = (1, 16)  # the bf16 serving mesh, and qwen2-vl-7b's fp32 gate's
+FAM_AUDIO_SHAPE = (2, 8)
+FAM_PROMPT, FAM_DECODE = 2, 3  # moonshot's bf16 TP decode: teacher-forced, then greedy
+FAM_GATHER_BATCH = 2  # qwen2-vl-7b's gather-route prefill: 2 rows x 4 kv heads over 16
+# whisper-tiny under both tp=False layouts: 16 rows (one a rank under layout="fsdp")
+# of 512 tokens; at 2048 its fp64 reference's logits alone would be 13.6 GB
+FAM_AUDIO_BATCH, FAM_AUDIO_LEN = 16, 512
+FAM_PREFILL = (PREFILL_BATCH, PREFILL_LEN)
+FAM_TRAIN = (TRAIN_BATCH, TRAIN_LEN)
+# the dry-run's prediction of one rank's sharded MoE train step: moonshot at 1
+# layer, B 1 x 256, on (1, 4) with rank 0 on the card and ranks 1-3 on the host
+FAM_DRYRUN_SHAPE, FAM_DRYRUN_LAYERS, FAM_DRYRUN_LEN = (1, 4), 1, 256
+
+
+def _fam_policy(cfg, layout: str):
+    """``sh.Policy()`` (TP over model, FSDP over data) or ``default_policy``'s
+    ``layout`` ("2d", "fsdp")."""
+    from repro_torch.parallel import sharding as sh
+
+    return sh.Policy() if layout == "tp" else sh.default_policy(cfg, layout=layout)
+
+
+def _fam_closed_forms(cfg, policy, shape, batch: int, seq: int, kind: str, sync: str = "auto",
+                      dtype=torch.float32) -> dict:
+    """What one rank of a sharded prefill step, or train step (``make_tp_value_and_grad``
+    then AdamW), calls and moves, from the shapes and the specs: calls and input
+    bytes by collective.  A train step runs each layer, the embed and the
+    encoder's input twice (no-grad, then recomputed under the tape), the unembed
+    once, and each cut's transpose once."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import abstract_params
+    from repro_torch.core.comm import TraceMesh
+    from repro_torch.models import moe
+    from repro_torch.parallel import sharding as sh
+
+    train = kind == "train"
+    if train and sync != "auto":  # the data axes manual: blocks whole over them
+        policy = dataclasses.replace(policy, fsdp=False)
+    mesh = TraceMesh(shape, TP_AXES)
+    dp, n = mesh.shape["data"], mesh.shape["model"] if policy.tp else 1
+    nd = mesh.axis_size(policy.data_axes)
+    elt = torch.tensor([], dtype=dtype).element_size()
+    rows = batch // nd
+    tok, n_l, hd = rows * seq, cfg.n_layers, cfg.kq_head_dim
+    act = tok * cfg.d_model
+    passes = 2 if train else 1
+    out = {k: {"calls": 0, "bytes": 0}
+           for k in ("psum", "all_gather", "all_to_all", "reduce_scatter")}
+
+    def add(k, calls, nbytes):
+        out[k]["calls"] += calls
+        out[k]["bytes"] += nbytes
+
+    params = abstract_params(cfg)
+    specs = sh.sanitize_specs(params, sh.param_specs(cfg, params, policy), mesh)
+    groups, split, blocks = set(), {}, 0
+    for (name, x), spec in zip(_named_leaves(params), tree_lib.leaves(specs)):
+        block = math.prod(s.stop - s.start for s in sh.NamedSharding(mesh, spec).block(0, x.shape))
+        blocks += block
+        dims = [set(e if isinstance(e, tuple) else (e,)) if e else set() for e in spec]
+        axes = {a for d in dims for a in d if mesh.shape[a] > 1}
+        split[name] = [("model" in d) for d in dims]
+        groups.add(frozenset(axes))
+        if "data" in axes:  # FSDP: a stacked leaf a layer at a time, else whole
+            per = (cfg.enc_layers if name.startswith("encoder.layers.") else
+                   n_l if name.startswith("layers.") else 1)
+            times = 1 if name == "unembed" else passes
+            add("all_gather", times * per, times * block * elt)
+            if train:  # the transposes: each layer's gradient, reduce-scattered
+                add("reduce_scatter", per, dp * block * elt)
+        if train and sync == "auto" and any(
+                mesh.shape[a] > 1 and a not in axes for a in policy.data_axes):
+            add("psum", 1, block * elt)  # sum_over_data
+    if policy.tp:
+        h, kv = cfg.n_heads, cfg.n_kv_heads
+        if split["embed"][0]:  # the vocab-parallel lookup's psum
+            add("psum", passes, passes * act * elt)
+        # the row sums (attention's, the MLP's or the experts'): a reduce-scatter of
+        # the fp32 partial in n pieces, an all-gather of the sums
+        piece = -(-act // n)
+        add("reduce_scatter", 2 * n_l * passes, 2 * n_l * passes * piece * n * 4)
+        add("all_gather", 2 * n_l * passes, 2 * n_l * passes * piece * elt)
+        qkv, o = tok * (h + 2 * kv) * hd // n, tok * h * hd // n
+        if sh.head_split(rows, kv, n) is None:  # the gather route
+            add("all_gather", n_l * passes, n_l * passes * qkv * elt)
+            if train:
+                add("reduce_scatter", n_l, n_l * n * qkv * elt)
+        else:  # q, k, v in, o back; in training recomputed, and their transposes
+            k = 3 if train else 1
+            add("all_to_all", 2 * n_l * k, n_l * k * (qkv + o) * elt)
+        if not train and (split["unembed"][1] if "unembed" in split else split["embed"][0]):
+            add("all_gather", 1, rows * cfg.vocab // n * elt)  # the last logits' columns
+        if train:
+            # the loss: the row max (fp32), its exp-sums and the label's logit, the
+            # hidden states' pvary; each layer's pvarys: attention's input, and the
+            # MLP's input or the MoE's capacity buffer and gates
+            add("all_gather", 1, tok * 4)
+            add("psum", 3, 2 * tok * 4 + act * elt)
+            add("psum", n_l, n_l * act * elt)
+            if cfg.family == "moe":
+                group = min(moe.GROUP_TOKENS, seq)
+                g = rows * -(-seq // group)
+                cap = moe.capacity(group, cfg.top_k, cfg.n_experts, cfg.capacity_factor)
+                add("psum", 2 * n_l, n_l * (g * cfg.n_experts * cap * cfg.d_model * elt
+                                            + tok * cfg.top_k * 4))
+            else:
+                add("psum", n_l, n_l * act * elt)
+    if train:
+        if sync == "auto" and nd > 1:  # the loss's (and the MoE aux's) mean over data
+            add("psum", 1 + (cfg.family == "moe"), 4 + 4 * (cfg.family == "moe"))
+        if sync != "auto":  # the loss and aux over data, after the ring
+            add("psum", 2, 8)
+        norm = sum(1 for a in groups if a)  # the gradient norm: a psum a split group
+        add("psum", norm, 4 * norm)
+    # the ring's ppermutes over data: the rank's whole fp32 gradient, in dp chunks
+    ring = 2 * (dp - 1) * -(-blocks // dp) * 4 if train and sync != "auto" else 0
+    return {**out, "ppermute_bytes": ring}
+
+
+def _fam_train_gate(cfg, params, batch, runs, tag: str, smi) -> dict:
+    """``phase_tp_train``'s gate for ``runs`` ((sync, shape, layout) each) of ``cfg``:
+    one AdamW step from the init state on 16 rank threads, through the cut route
+    (no collective under autograd) and the tf32 kernel, against the unsharded model
+    in fp64 (plain attention): the loss, ``grad_norm`` and every leaf's clipped
+    gradient within max(FP32_TOL, floor), the floor being the plain chunked fp32
+    step's distance from fp64 (``_reference_runs``), and the updated parameters
+    within SYNC_STEP_TOL plus lr·|u(g) - u(g64)|.  The MoE's runs replay the fp64
+    run's routing (``_routing_log``): free, a (token, choice) pair near a top-k
+    tie moves one token's output by O(1) between paths.  Launches and
+    ``CommStats`` against their closed forms."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.train import optimizer as opt
+
+    ocfg = opt.AdamWConfig(**TP_TRAIN_OCFG, schedule=cfg.schedule)
+    lr = float(opt.schedule_lr(ocfg, torch.tensor(1)))
+    names = [n for n, _ in _named_leaves(params)]
+    b, s = batch["tokens"].shape
+
+    def first_update(g):  # u(g) of AdamW's first step
+        return g / (g.abs() + ocfg.eps)
+
+    moe_log = [] if cfg.family == "moe" else None
+    p64 = tree_lib.tree_map(lambda t: t.double(), params)
+    with (_routing_log() if moe_log is not None else contextlib.nullcontext()) as log_:
+        ref = _loss_and_grads(cfg, p64, {k: (v.double() if v.is_floating_point() else v)
+                                         for k, v in batch.items()}, use_kernel=False)
+    del p64
+    if moe_log is not None:
+        moe_log.extend(log_)
+    around = (lambda _name: _replayed_routing(moe_log)) if moe_log is not None else None
+    g64 = dict(_named_leaves(ref.pop("grads")))
+    norm64 = math.sqrt(sum(float((g ** 2).sum()) for g in g64.values()))
+    scale64 = min(1.0, ocfg.clip_norm / norm64)
+    for n in names:
+        g64[n] = (g64[n] * scale64).cpu()
+    torch.cuda.empty_cache()
+    refs, host = _reference_runs(cfg, params, batch, around)
+    host.pop("kernel"), host.pop("fp64")
+    refs["plain"].pop("grads")
+    _to_host(params)  # the blocks are cut from the host copy: the card holds the ranks' alone
+    chunked = refs["chunked"]
+    scale = min(1.0, ocfg.clip_norm / chunked["norm"])
+    floor = {"loss": abs(chunked["loss"] - ref["loss"]) / abs(ref["loss"]),
+             "norm": abs(chunked["norm"] - norm64) / norm64,
+             "leaves": {n: rel_l2(g.to(TP_DEVICE).double() * scale, g64[n].to(TP_DEVICE))
+                        for n, g in host.pop("chunked").items()}}
+    bound = {k: max(FP32_TOL, floor[k]) for k in ("loss", "norm")}
+    bound["leaves"] = {n: max(FP32_TOL, f) for n, f in floor["leaves"].items()}
+    out = {"fp64": {"loss": ref["loss"], "grad_norm": norm64}, "floor": floor,
+           "unsharded_tf32": {k: refs["kernel"][k] for k in ("loss", "norm", "s", "peak_gib")},
+           "runs": {}}
+    log(f"[{tag}] {cfg.name} at {cfg.n_layers} layers, fp32, batch {b} x {s}, remat: fp64 "
+        f"loss {ref['loss']:.7f}, grad norm {norm64:.6e}; the plain chunked fp32 step (the "
+        f"floor) loss {floor['loss']:.2e}, norm {floor['norm']:.2e}, leaves up to "
+        f"{max(floor['leaves'].values()):.2e} from it"
+        + (" (every run replays the fp64 run's routing)" if moe_log is not None else "")
+        + f" [{smi}]")
+    for sync, shape, layout in runs:
+        policy = _fam_policy(cfg, layout)
+        label = f"[{tag}] {cfg.name} {layout} {sync} on (data, model) = {shape}"
+        grad_policy = policy if sync == "auto" else dataclasses.replace(policy, fsdp=False)
+        mesh, specs, blocks = _tp_shard(cfg, params, shape, grad_policy)
+        run = _tp_train_step(cfg, ocfg, mesh, blocks, batch, sync, policy, moe_log)
+        outs, m = run["outs"], run["metrics"]
+        launches = _expect_launches(label, tf32=mesh.size * 2 * cfg.n_layers)
+        stats = _tp_step_stats_check(label, mesh, _fam_closed_forms(cfg, policy, shape, b, s,
+                                                                "train", sync))
+        spec_of = dict(zip(names, tree_lib.leaves(specs)))
+        leaf_err, excess = {}, -1.0
+        for i, (n, p0) in enumerate(_named_leaves(params)):
+            gt = _tp_whole(mesh, spec_of[n], p0.shape, [tree_lib.leaves(o[1])[i] for o in outs])
+            pt = _tp_whole(mesh, spec_of[n], p0.shape, [tree_lib.leaves(o[0])[i] for o in outs])
+            gt /= 1 - ocfg.b1  # the clipped gradient the step applied
+            sq = sq_ref = 0.0
+            for sl in _row_chunks(p0.shape):
+                g, p = gt[sl].double(), pt[sl].double()
+                g_ref, p_0 = g64[n][sl].to(TP_DEVICE), p0[sl].to(TP_DEVICE).double()
+                p_ref = p_0 - lr * (first_update(g_ref) + ocfg.weight_decay * p_0)
+                sq += float(((g - g_ref) ** 2).sum())
+                sq_ref += float((g_ref ** 2).sum())
+                d = (p - p_ref).abs() - SYNC_STEP_TOL["rtol"] * p_ref.abs() - SYNC_STEP_TOL[
+                    "atol"] - lr * (first_update(g) - first_update(g_ref)).abs()
+                excess = max(excess, float(d.max()))
+                del g, p, g_ref, p_0, p_ref, d
+            leaf_err[n] = math.sqrt(sq / sq_ref) if sq_ref else math.sqrt(sq)
+            del gt, pt
+        del outs, run["outs"]
+        torch.cuda.empty_cache()
+        loss_err = abs(m["loss"] - ref["loss"]) / abs(ref["loss"])
+        norm_err = abs(m["grad_norm"] - norm64) / norm64
+        bad = [n for n, e in leaf_err.items() if e > bound["leaves"][n]]
+        worst = max(leaf_err, key=leaf_err.get)
+        line = (f"{label}, {b} x {s}, one AdamW step through tf32: loss {m['loss']:.7f} vs "
+                f"fp64 {loss_err:.2e} (tol {bound['loss']:.2e}), grad_norm "
+                f"{m['grad_norm']:.6e} vs fp64 {norm_err:.2e} (tol {bound['norm']:.2e}); "
+                f"clipped gradient leaves vs fp64 up to {leaf_err[worst]:.2e} ({worst}; tol "
+                f"max({FP32_TOL}, the plain chunked step's {floor['leaves'][worst]:.2e})); "
+                f"params within rtol {SYNC_STEP_TOL['rtol']} atol {SYNC_STEP_TOL['atol']} + "
+                f"lr*|du| (excess {excess:.3e}); aux {m['aux']:.6f}; step {run['s']:.2f}s, "
+                f"peak {run['peak'] / 2**30:.2f} GiB; launches {launches}; CommStats a rank "
+                f"{json.dumps(stats)} (closed forms)")
+        log(line + f" [{smi}]")
+        for n in names:
+            log(f"[{tag}] {layout}_{sync}_{shape[0]}x{shape[1]} leaf {n:28s} clipped gradient "
+                f"vs fp64 rel_l2 {leaf_err[n]:.2e} (tol {bound['leaves'][n]:.2e})")
+        if bad or excess > 0 or loss_err > bound["loss"] or norm_err > bound["norm"] \
+                or not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])):
+            raise AssertionError(f"{line}: over the bound ({bad})")
+        out["runs"][f"{layout}_{sync}_{shape[0]}x{shape[1]}"] = {
+            "loss": m["loss"], "aux": m["aux"], "grad_norm": m["grad_norm"],
+            "loss_vs_fp64": loss_err, "norm_vs_fp64": norm_err, "leaf_vs_fp64": leaf_err,
+            "param_excess": excess, "s": run["s"], "peak_bytes": run["peak"],
+            "launches": launches, "stats": stats}
+    return out
+
+
+def _to_host(tree) -> None:
+    """Every leaf of the nested dict ``tree`` replaced by its copy on the host."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _to_host(v)
+        else:
+            tree[k] = v.cpu()
+
+
+def _fam_fp64_prefill(cfg, params, batch, moe_log=None) -> torch.Tensor:
+    """The unsharded prefill's last logits in fp64 (plain attention), on ``params``
+    cast to fp64; the MoE's routing logged into ``moe_log`` (a list)."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as T
+    from repro_torch.train.steps import model_extras
+
+    p64 = tree_lib.tree_map(lambda t: t.double(), params)
+    extras = {k: (v.double() if v.is_floating_point() else v)
+              for k, v in model_extras(batch).items()}
+    with torch.no_grad(), (_routing_log() if moe_log is not None
+                           else contextlib.nullcontext()) as log_:
+        hidden = T.forward(cfg, p64, batch["tokens"], return_hidden=True, **extras)[0]
+        last = (hidden[:, -1:] @ layers.unembed(p64)).float()
+    if moe_log is not None:
+        moe_log.extend(log_)
+    del p64, hidden
+    return last
+
+
+def _fam_prefill_gate(cfg, params, batch, shape, layout, tag: str, smi) -> dict:
+    """The sharded fp32 prefill through tf32 on ``shape`` against the fp64 run of the
+    same weights and batch, within max(FP32_TOL, floor), the floor the plain chunked
+    fp32 prefill's own distance from it; launches and ``CommStats`` against their
+    closed forms.  The MoE's runs replay the fp64 run's routing."""
+    policy = _fam_policy(cfg, layout)
+    moe_log = [] if cfg.family == "moe" else None
+    ex = _fam_fp64_prefill(cfg, params, batch, moe_log)
+    extras = {k: v for k, v in batch.items() if k != "tokens"}
+    def replay():
+        return _replayed_routing(moe_log) if moe_log is not None else contextlib.nullcontext()
+
+    with replay():
+        chunked, _ = _prefill(dataclasses.replace(cfg, attn_chunk=FLOOR_CHUNK), params,
+                              batch["tokens"], False, extras=extras)
+        chunked = chunked.clone()
+    with replay():
+        kernel, _ = _prefill(cfg, params, batch["tokens"], True, extras=extras)
+        kernel = kernel.clone()
+    floor = rel_l2(chunked, ex)
+    bound = max(FP32_TOL, floor)
+    mesh, _, blocks = _tp_shard(cfg, params, shape, policy)
+    mesh.stats.reset()
+    _reset_counts()
+    logits, secs, spread = _tp_prefill(cfg, mesh, blocks, batch, policy=policy, replay=moe_log)
+    b, s = batch["tokens"].shape
+    launches = _expect_launches(f"[{tag}] fp32 prefill", tf32=mesh.size * cfg.n_layers)
+    stats = _tp_step_stats_check(f"{tag} fp32 prefill {shape}", mesh, _fam_closed_forms(
+        cfg, policy, shape, b, s, "prefill"))
+    err = rel_l2(logits, ex)
+    route = _route_of(cfg, policy, shape, b)
+    rec = {"vs_fp64": err, "floor": floor, "bound": bound, "unsharded_vs_fp64": rel_l2(kernel, ex),
+           "s": secs, "launches": launches, "stats": stats, "rank_spread": spread,
+           "route": route}
+    line = (f"[{tag}] {cfg.name} at {cfg.n_layers} layers, {layout} on (data, model) = {shape}, "
+            f"fp32 prefill {b} x {s} through tf32 ({route}): last logits vs the fp64 run rel_l2 "
+            f"{err:.3e} (tol max({FP32_TOL}, the plain chunked prefill's {floor:.3e})); the "
+            f"unsharded tf32 prefill's {rec['unsharded_vs_fp64']:.3e}; ranks sharing rows within "
+            f"{spread:.3e}; {secs:.3f}s; launches {launches}; CommStats a rank "
+            f"{json.dumps(stats)} (closed forms)"
+            + (" (the fp64 run's routing replayed)" if moe_log is not None else ""))
+    log(line + f" [{smi}]")
+    if not (err <= bound and torch.isfinite(logits).all()):
+        raise AssertionError(f"{line}: over the bound")
+    del blocks, mesh
+    return rec
+
+
+def _route_of(cfg, policy, shape, batch: int) -> str:
+    """How a rank's attention takes its heads: "pair (rows x kv heads)", "gather",
+    or "whole" (nothing split over model)."""
+    from repro_torch.parallel import sharding as sh
+
+    if not policy.tp:
+        return "whole"
+    hs = sh.head_split(batch // shape[0], cfg.n_kv_heads, shape[1])
+    return "gather" if hs is None else f"pair ({hs.rows} row x {hs.kv_heads} kv heads)"
+
+
+def _fam_bf16_serve(cfg, params, batches, tag: str, smi, decode: bool) -> dict:
+    """bf16 on FAM_SHAPE: the unsharded prefill of each batch of ``batches`` (name ->
+    batch), then the weights cut into the ranks' blocks (the whole tree freed a
+    leaf at a time) and the TP prefill of each through sm90, one warm-up and two
+    timed calls, the last logits against the unsharded ones (reported), launches
+    and ``CommStats`` against the closed forms; with ``decode`` the TP decode loop
+    (FAM_PROMPT teacher-forced, FAM_DECODE greedy) after it."""
+    policy = _fam_policy(cfg, "tp")
+    ref = {}
+    for name, batch in batches.items():  # the unsharded prefill, and two bf16 paths' floor
+        extras = {k: v for k, v in batch.items() if k != "tokens"}
+        logits, t = _prefill(cfg, params, batch["tokens"], True, extras=extras)
+        logits = logits.clone()
+        chunked, _ = _prefill(dataclasses.replace(cfg, attn_chunk=FLOOR_CHUNK), params,
+                              batch["tokens"], False, extras=extras)
+        ref[name] = (logits, t, rel_l2(chunked.float(), logits.float()))
+        del chunked
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mesh, _, blocks = _tp_shard(cfg, params, FAM_SHAPE, policy, free=True)
+    shard_s = time.perf_counter() - t0
+    out = {"shard_s": shard_s}
+    for name, batch in batches.items():
+        b, s = batch["tokens"].shape
+        secs = []
+        for i in range(3):
+            mesh.stats.reset()
+            _reset_counts()
+            logits, t, spread = _tp_prefill(cfg, mesh, blocks, batch, policy=policy)
+            launches = _expect_launches(f"[{tag}] bf16 TP prefill {name}",
+                                        sm90=mesh.size * cfg.n_layers)
+            if i == 0:
+                stats = _tp_step_stats_check(f"{tag} bf16 {name}", mesh, _fam_closed_forms(
+                    cfg, policy, FAM_SHAPE, b, s, "prefill", dtype=torch.bfloat16))
+            secs.append(t)
+        if logits.shape != (b, 1, cfg.vocab) or not torch.isfinite(logits).all():
+            raise AssertionError(f"[{tag}] bf16 TP logits {tuple(logits.shape)} not finite or "
+                                 "misshapen")
+        r, r_s, floor = ref[name]
+        rec = {"s": statistics.median(secs[1:]), "s_runs": secs, "unsharded_s": r_s,
+               "rel_l2_vs_unsharded": rel_l2(logits.float(), r.float()), "bf16_floor": floor,
+               "argmax_agree": float((logits.argmax(-1) == r.argmax(-1)).float().mean()),
+               "launches": launches, "stats": stats, "rank_spread": spread,
+               "route": _route_of(cfg, policy, FAM_SHAPE, b)}
+        log(f"[{tag}] {cfg.name} bf16 whole ({cfg.n_layers} layers), {name}: TP prefill "
+            f"{b} x {s} on (data, model) = {FAM_SHAPE}, {rec['route']}: "
+            f"{rec['s']:.3f}s median of 2 after a warm-up ({', '.join(f'{t:.3f}' for t in secs)}"
+            f" s; unsharded {r_s:.3f}s; no speed claim: 16 ranks share one card); vs the "
+            f"unsharded prefill rel_l2 {rec['rel_l2_vs_unsharded']:.3e}, argmax agreement "
+            f"{rec['argmax_agree']:.2f}, beside two unsharded bf16 paths' distance (the plain "
+            f"chunked prefill from the kernel's) {floor:.3e} (bf16, reported); launches "
+            f"{launches}; CommStats a rank {json.dumps(stats)} (closed forms) [{smi}]")
+        out[name] = rec
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    if decode:
+        prompts = next(iter(batches.values()))["tokens"][:, :FAM_PROMPT].contiguous()
+        _reset_counts()
+        dl, toks, dsec = _tp_decode(cfg, mesh, blocks, prompts, FAM_DECODE, policy)
+        _expect_launches(f"[{tag}] bf16 TP decode")
+        if not (torch.isfinite(dl).all() and ((toks >= 0) & (toks < cfg.vocab)).all()):
+            raise AssertionError(f"[{tag}] the bf16 TP decode gave bad logits or tokens")
+        out["decode_ms"] = dsec * 1e3
+        log(f"[{tag}] {cfg.name} bf16 TP decode on {FAM_SHAPE}, batch {prompts.shape[0]}: "
+            f"{FAM_PROMPT} teacher-forced and {FAM_DECODE} greedy steps, {dsec * 1e3:.1f} ms a "
+            f"step (16 ranks' host work under one GIL), tokens {toks[0].tolist()} [{smi}]")
+    del blocks, mesh
+    return out
+
+
+def _fam_fp32_model(arch: str, layers: int):
+    """``arch`` cut to ``layers`` layers at full width in fp32, each stack scaled to
+    the full depth's init (``_rescale_stacks``)."""
+    from repro_torch.configs import get_config
+
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=layers)
+    params, _ = _load_model(cfg, "tp-families", torch.float32)
+    _rescale_stacks(params["layers"], layers, full.n_layers)
+    return cfg, params
+
+
+def _fam_batch(cfg, b, s, positions=None) -> dict:
+    from repro_torch.data.pipeline import make_batch
+
+    batch = {k: torch.from_numpy(v).to(TP_DEVICE) for k, v in make_batch(cfg, s, b).items()}
+    if positions is not None:
+        batch["positions"] = positions
+    return batch
+
+
+def _fam_free() -> None:
+    gc.collect()  # a model's tensors in a reference cycle wait for the cyclic collector
+    torch.cuda.empty_cache()
+
+
+def phase_tp_families(smi) -> dict:
+    """The sharded layout of the MoE, VLM and audio families on 16 rank threads of
+    the card (``parallel/tensor_parallel.py``), each rank computing from its blocks
+    under ``sanitize_specs(param_specs(policy))``:
+
+    * moonshot-v1-16b-a3b (64 experts top-6, split on d_ff over ``model``), TP in
+      fp32 at the 48-layer init's scale: the prefill gate (B 4 x 2048) at
+      FAM_MOE_PREFILL_LAYERS layers on (data, model) = (1, 16) and (2, 8), the
+      training gate at FAM_MOE_LAYERS on (1, 16), (2, 8) and ring (2, 8) (B 2 x
+      2048), every run replaying the fp64 run's routing; then bf16 at full width
+      and depth on (1, 16): the TP prefill (B 4 x 2048, 768 sm90 launches a
+      call) and a few greedy decode steps;
+    * qwen2-vl-7b (M-RoPE at an image grid): bf16 whole, the TP prefill at B 4 on
+      (1, 16) (the pair route) and at B 2 (the gather route); fp32 at
+      FAM_VLM_LAYERS layers, the prefill gate at B 4 and the training gate at B 2
+      (the gather route) on (1, 16);
+    * whisper-tiny whole, on weights scaled to 1/sqrt(input width) as
+      ``phase_audio``'s gates: under its ``default_policy`` (``tp=False``) and
+      ``layout="fsdp"`` on (2, 8), B 16 x 512, the fp32 prefill and training gates.
+
+    Gates as ``phase_tp_train``'s; launches by variant and ``CommStats`` a rank
+    against closed forms (``_fam_closed_forms``); the peak reported.  Forward and
+    the cut route only: the ranks' backwards would share the card's one autograd
+    thread."""
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    out = {}
+
+    # -- moonshot-v1-16b-a3b: fp32 gates, then bf16 whole
+    cfg, params = _fam_fp32_model(MOE_ARCH, FAM_MOE_PREFILL_LAYERS)
+    batch = _fam_batch(cfg, *FAM_PREFILL)
+    out["moe_prefill"] = {f"{d}x{m}": _fam_prefill_gate(cfg, params, batch, (d, m), "tp",
+                                                        "tp-moe", smi)
+                          for d, m in FAM_MOE_PREFILL_SHAPES}
+    del params, batch
+    _fam_free()
+    cfg, params = _fam_fp32_model(MOE_ARCH, FAM_MOE_LAYERS)
+    out["moe_train"] = _fam_train_gate(cfg, params, _fam_batch(cfg, *FAM_TRAIN),
+                                       [(sync, shape, "tp") for sync, shape in FAM_MOE_RUNS],
+                                       "tp-moe", smi)
+    del params
+    _fam_free()
+    full = get_config(MOE_ARCH)
+    params, meta = _load_model(full, "tp-moe", torch.bfloat16)
+    out["moe_bf16"] = {**meta, **_fam_bf16_serve(full, params, {
+        "text": _fam_batch(full, *FAM_PREFILL)}, "tp-moe", smi, decode=True)}
+    del params
+    _fam_free()
+
+    # -- qwen2-vl-7b: bf16 whole at image positions (pair and gather), fp32 gates
+    full = get_config(VLM_ARCH)
+    params, meta = _load_model(full, "tp-vlm", torch.bfloat16)
+    b, s = FAM_PREFILL
+    out["vlm_bf16"] = {**meta, **_fam_bf16_serve(full, params, {
+        "pair": _fam_batch(full, b, s, _image_positions(b, s)),
+        "gather": _fam_batch(full, FAM_GATHER_BATCH, s, _image_positions(FAM_GATHER_BATCH, s))},
+        "tp-vlm", smi, decode=False)}
+    del params
+    _fam_free()
+    cfg, params = _fam_fp32_model(VLM_ARCH, FAM_VLM_LAYERS)
+    out["vlm_prefill"] = _fam_prefill_gate(cfg, params,
+                                           _fam_batch(cfg, b, s, _image_positions(b, s)),
+                                           FAM_SHAPE, "tp", "tp-vlm", smi)
+    tb, ts = FAM_TRAIN
+    out["vlm_train"] = _fam_train_gate(cfg, params, _fam_batch(cfg, tb, ts,
+                                                               _image_positions(tb, ts)),
+                                       [("auto", FAM_SHAPE, "tp")], "tp-vlm", smi)
+    del params
+    _fam_free()
+
+    # -- whisper-tiny whole under both tp=False layouts
+    cfg = get_config(AUDIO_ARCH)
+    params, _ = _load_model(cfg, "tp-audio", torch.float32)
+    _rescale_stacks(params["layers"], cfg.n_layers, None)
+    _rescale_stacks(params["encoder"]["layers"], cfg.enc_layers, None)
+    batch = _fam_batch(cfg, FAM_AUDIO_BATCH, FAM_AUDIO_LEN)
+    out["audio_prefill"] = {layout: _fam_prefill_gate(cfg, params, {
+        k: v for k, v in batch.items() if k != "labels"}, FAM_AUDIO_SHAPE, layout, "tp-audio",
+        smi) for layout in ("2d", "fsdp")}
+    out["audio_train"] = _fam_train_gate(cfg, params, batch,
+                                         [("auto", FAM_AUDIO_SHAPE, layout)
+                                          for layout in ("2d", "fsdp")], "tp-audio", smi)
+    del params, batch
+    _fam_free()
+    out["s"] = time.perf_counter() - t_phase
+    log(f"[tp-families] phase {out['s']:.1f}s")
     return out
 
 
@@ -4456,13 +5174,28 @@ def main() -> int:
     flowsim = phase_flowsim(smi)
     tp = phase_tp_serve(smi)
     tp_train = phase_tp_train(smi, train_loss)
+    tp_fam = phase_tp_families(smi)
 
     paths = {"prefill": prefill, "train_steps": train, "train_driver": driver,
              "train_sync": sync_train["launches"], "prefill_moe": moe_serve["launches"],
              "train_moe": moe_train["launches"], "train_pipeline": pipeline["launches"],
              "prefill_moe_ep": moe_ep_prefill["launches"], "prefill_tp": tp["launches"],
              **{f"prefill_tp_fp32_{k}": tp["fp32"][k]["launches"] for k in ("1x16", "2x8")},
-             **{f"train_tp_{k}": run["launches"] for k, run in tp_train["runs"].items()}}
+             **{f"train_tp_{k}": run["launches"] for k, run in tp_train["runs"].items()},
+             "prefill_tp_moe": tp_fam["moe_bf16"]["text"]["launches"],
+             **{f"prefill_tp_moe_fp32_{k}": r["launches"]
+                for k, r in tp_fam["moe_prefill"].items()},
+             **{f"train_tp_moe_{k}": r["launches"]
+                for k, r in tp_fam["moe_train"]["runs"].items()},
+             **{f"prefill_tp_vlm_{k}": tp_fam["vlm_bf16"][k]["launches"]
+                for k in ("pair", "gather")},
+             "prefill_tp_vlm_fp32": tp_fam["vlm_prefill"]["launches"],
+             **{f"train_tp_vlm_{k}": r["launches"]
+                for k, r in tp_fam["vlm_train"]["runs"].items()},
+             **{f"prefill_fsdp_audio_{k}": r["launches"]
+                for k, r in tp_fam["audio_prefill"].items()},
+             **{f"train_fsdp_audio_{k}": r["launches"]
+                for k, r in tp_fam["audio_train"]["runs"].items()}}
     for tag, fam in (("ssm", ssm), ("hybrid", hybrid), ("vlm", vlm), ("audio", audio)):
         paths.update({f"prefill_{tag}": fam["launches"], f"serve_{tag}": fam["serve"]["launches"],
                       f"train_{tag}": fam["train"]["launches"]})
@@ -4536,6 +5269,7 @@ def main() -> int:
     log(json.dumps({"flowsim": {"device": smi, **flowsim}}))
     log(json.dumps({"tp_serve": {"device": smi, "arch": TP_ARCH, **tp}}))
     log(json.dumps({"tp_train": {"device": smi, "arch": TP_ARCH, **tp_train}}))
+    log(json.dumps({"tp_families": {"device": smi, **tp_fam}}))
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(smi)
     print(json.dumps({"ok": True, "device": {

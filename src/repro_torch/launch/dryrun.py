@@ -16,18 +16,22 @@ For each cell this script:
      write, the rank's peak of live storages, and the collectives it calls
      with their bytes on the wire, into a JSON report.
 
-The port has no GSPMD.  In the dense family's cells under a ``tp=True`` policy
-rank 0 runs the tensor-parallel step (``parallel/tensor_parallel.py``) on its
-blocks under ``param_specs``: FSDP gathers over ``data`` a layer at a time,
-Megatron's column and row products over ``model``, attention on whole heads
-(the pair or the gather route); in prefill and decode the logits of the last
-position, in training (``sync="auto"``) the vocab-parallel loss and the
-gradient route of ``make_tp_value_and_grad`` (the layers recomputed, every
+The port has no GSPMD.  In the cells of the dense, MoE, VLM and audio
+families (``tensor_parallel.sharded``) rank 0 runs the sharded step
+(``parallel/tensor_parallel.py``) on its blocks under ``param_specs``: FSDP
+gathers over ``data`` a layer at a time and, under a ``tp=True`` policy,
+Megatron's column and row products over ``model`` (the MoE's experts split on
+d_ff), attention on whole heads (the pair or the gather route); under a
+``tp=False`` one (whisper-tiny's ``default_policy``, ``--layout fsdp``) the
+layers run whole on the gathered weights.  In prefill and decode the logits of
+the last position, in training (``sync="auto"``) the vocab-parallel loss and
+the gradient route of ``make_tp_value_and_grad`` (the layers recomputed, every
 collective's transpose), the gradients reduce-scattered over ``data``, and
-AdamW on the rank's blocks and moments.  Every other cell (the other
-families, ``tp=False`` policies, the sync modes) runs the whole model on the
-rank's data shard, as JAX's sync modes do, and ``sync="auto"`` there is
-traced as a psum of the gradients.  The FLOPs and collectives are the port's
+AdamW on the rank's blocks and moments; ``auto_as`` records ``"tp"`` or
+``"fsdp"``.  Every other cell (the SSM and hybrid families, ``moe_mode`` ``ep``
+and ``gshard``, the sync modes) runs the whole model on the rank's data shard,
+as JAX's sync modes do, and ``sync="auto"`` there is traced as a psum of the
+gradients (``auto_as`` ``"psum"``).  The FLOPs and collectives are the port's
 own, not XLA's.
 
 Usage:
@@ -58,6 +62,7 @@ from repro_torch.core.comm import Comm, TraceMesh
 from repro_torch.launch.mesh import production_layout
 from repro_torch.models import get_model
 from repro_torch.parallel import sharding as shard_lib
+from repro_torch.parallel import tensor_parallel as tp_lib
 from repro_torch.train import optimizer as opt_lib
 from repro_torch.train import steps as steps_lib
 
@@ -196,7 +201,7 @@ class Cell:
     step: object
     untracked: object = lambda: ()
     baseline: int = 0
-    auto_as: str | None = None  # what a train cell's sync="auto" runs as: "psum" or "tp"
+    auto_as: str | None = None  # a train cell's sync="auto": "psum", "tp" or "fsdp"
 
 
 def _units(cfg):
@@ -214,8 +219,8 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool, options, smoke=False
 
     Rank 0 takes its block of the batch under ``batch_specs``: the global batch
     over the data axes, or all of it where they do not divide it (JAX
-    replicates it then).  A dense cell under a ``tp=True`` policy (training:
-    under ``sync="auto"``) runs the tensor-parallel step on rank 0's blocks;
+    replicates it then).  A cell that ``tensor_parallel.sharded`` admits
+    (training: under ``sync="auto"``) runs the sharded step on rank 0's blocks;
     every other cell the whole model."""
     cfg = cfg_override if cfg_override is not None else get_config(arch, smoke=smoke)
     if moe_mode != "tp" and cfg.family == "moe":
@@ -233,6 +238,7 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool, options, smoke=False
     block_abs = _blocks(mesh, {k: bspecs.get(k, P()) for k in batch_abs}, batch_abs)
     rows = block_abs["tokens"].shape[0]
     act_specs = shard_lib.activation_specs(cfg, policy, mesh, shape.global_batch)
+    sharded = tp_lib.sharded(cfg, policy)
     opts = dataclasses.replace(options, use_kernel=False)
     param_bytes = _nbytes(_blocks(mesh, pspecs, params_abs))
 
@@ -244,7 +250,7 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool, options, smoke=False
             lambda t: torch.empty(t.shape, dtype=torch.float32, device="meta"), params_abs)
         moment_bytes = 2 * _nbytes(_blocks(mesh, pspecs, moment_abs))
         at_rest = param_bytes + 4 + moment_bytes + _nbytes(block_abs)
-        if cfg.family == "dense" and policy.tp and opts.sync == "auto":
+        if sharded and opts.sync == "auto":
             return _tp_train_cell(cfg, ocfg, opts, mesh, params_abs, pspecs, block_abs, at_rest,
                                   {**act_specs, "policy": policy})
         # otherwise sync="auto" takes no mesh: its inter-rank meaning is the
@@ -269,7 +275,7 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool, options, smoke=False
     def with_mesh(comm):
         return {**act_specs, "mesh": comm}
 
-    if cfg.family == "dense" and policy.tp:
+    if sharded:
         return _tp_serving_cell(cfg, shape, mesh, policy, opts, params_abs, pspecs,
                                 block_abs, param_bytes, {**act_specs, "policy": policy})
 
@@ -310,9 +316,9 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool, options, smoke=False
 
 def _tp_train_cell(cfg, ocfg, opts, mesh, params_abs, pspecs, block_abs, at_rest,
                    act_specs) -> Cell:
-    """Rank 0's tensor-parallel train step (``sync="auto"``) on its blocks, its
-    moments (``optimizer.init`` of the blocks) and its rows: what it holds is its
-    at-rest bytes."""
+    """Rank 0's sharded train step (``sync="auto"``) on its blocks, its moments
+    (``optimizer.init`` of the blocks) and its rows: what it holds is its at-rest
+    bytes."""
     blocks_abs = _blocks(mesh, pspecs, params_abs)
     step = steps_lib.make_train_step(cfg, ocfg, opts,
                                      act_specs={**act_specs, "mesh": Comm(mesh, 0)})
@@ -322,13 +328,13 @@ def _tp_train_cell(cfg, ocfg, opts, mesh, params_abs, pspecs, block_abs, at_rest
         return blocks, opt_lib.init(blocks), _fake(block_abs)
 
     return Cell(mesh, block_abs["tokens"].shape[0], at_rest, at_rest, make_args, step,
-                auto_as="tp")
+                auto_as="tp" if act_specs["policy"].tp else "fsdp")
 
 
 def _tp_serving_cell(cfg, shape, mesh, policy, opts, params_abs, pspecs, block_abs,
                      param_bytes, act_specs) -> Cell:
-    """Rank 0's tensor-parallel prefill or decode step on its blocks: the rank holds
-    its blocks, its rows of the batch and (decode) its own cache."""
+    """Rank 0's sharded prefill or decode step on its blocks: the rank holds its
+    blocks, its rows of the batch and (decode) its own cache."""
     blocks_abs = _blocks(mesh, pspecs, params_abs)
     comm = Comm(mesh, 0)
     act = {**act_specs, "mesh": comm}

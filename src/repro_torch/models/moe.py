@@ -11,6 +11,9 @@ the JAX package:
   decode step at batch B is one dispatch a layer.
 * ``moe_apply_gshard``: the same routing through one-hot dispatch and
   combine tensors contracted with einsums.
+* ``moe_apply_tp``: ``moe_apply`` on one rank of tensor parallelism over
+  ``model`` with the experts split on d_ff (``parallel/tensor_parallel.py``),
+  the "operator parallelism" of the JAX docstring.
 * ``moe_apply_ep``: *expert parallelism* over a ``core.comm`` mesh.  Each
   rank holds ``E / n`` experts; the token slabs move with
   ``Comm.all_to_all``, the MoE all-to-all traffic the paper analyses for
@@ -140,6 +143,40 @@ def moe_apply(x, params, top_k: int, capacity_factor: float = 1.25):
     if pad:
         y = y[:, :s]
     return y, torch.mean(aux)
+
+
+def moe_apply_tp(tp, x, params, top_k: int, capacity_factor: float = 1.25):
+    """``moe_apply`` on one rank of tensor parallelism over ``model``: x (B, S, D)
+    replicated over ``model``; params the router (D, E) and the rank's F columns
+    of every expert, w_gate/w_up (E, D, F/n), w_down (E, F/n, D) (FSDP undone);
+    ``tp`` the rank's ``tensor_parallel.TensorParallel``.
+
+    1. The rank routes and dispatches its tokens (``_route``, ``_slots``,
+       ``_scatter``): the same bits on every rank along ``model``, whose x
+       comes out of the previous row sum bit-equal.
+    2. It runs every expert on its F columns (``_experts_ffn``): a part of
+       each expert's output.
+    3. It combines its parts (``_gather``, linear in them): a part of y.
+    4. The parts are summed over ``model`` (``tp.sum``, the row sum).
+
+    The sum carries (B, S, D), top_k x capacity_factor times fewer bytes than
+    the (E, C, D) buffer that GSPMD psums after the row-parallel ``w_down``.
+    The buffer and the gates enter the rank's own products through
+    ``tp.pvary``, whose transpose psums their gradients over ``model``, so the
+    router's and x's gradients are whole on every rank.  The aux loss is the
+    mean over the rank's groups, the same on every rank along ``model``."""
+    b, s, d = x.shape
+    xg, n_groups, group, pad = _groups(x)
+    e = params["router"].shape[1]
+    cap = capacity(group, top_k, e, capacity_factor)
+    gates, experts, aux = _route(xg, params["router"], top_k)
+    flat_e, pos_c, keep = _slots(experts, e, cap)
+    buf = _scatter(xg, flat_e, pos_c, keep, e, cap, top_k)
+    out = _experts_ffn(tp.pvary(buf), params["w_gate"], params["w_up"], params["w_down"])
+    y = _gather(out, flat_e, pos_c, keep, tp.pvary(gates), top_k).reshape(b, n_groups * group, d)
+    if pad:
+        y = y[:, :s]
+    return tp.sum(y), torch.mean(aux)
 
 
 def moe_apply_gshard(x, params, top_k: int, capacity_factor: float, expert_spec=None):

@@ -19,13 +19,16 @@ precomputed frames (B, enc_seq, d), and a cross-attention in every decoder
 layer whose decode cache ``xk``/``xv`` is zeros, as in JAX.  The SSM and
 hybrid families have modules of their own (``mamba2``, ``recurrentgemma``).
 
-The dense family also runs tensor-parallel: given the rank's ``Comm`` as
-``act_specs["mesh"]`` and a ``Policy`` with ``tp=True`` as
-``act_specs["policy"]``, ``forward``, ``init_cache`` and ``decode_step`` run one
-rank's share on its blocks of the parameters (``parallel/tensor_parallel.py``),
-through the same ``decoder_layer``, ``_attn_block`` and ``_mlp_block``, where
-JAX's jitted steps leave the split to GSPMD; under autograd too (training,
-``train/steps.py``).
+The four families also run sharded: given the rank's ``Comm`` as
+``act_specs["mesh"]`` and a ``Policy`` as ``act_specs["policy"]``, ``forward``,
+``init_cache`` and ``decode_step`` run one rank's share on its blocks of the
+parameters (``parallel/tensor_parallel.py``), through the same
+``decoder_layer``, ``_attn_block``, ``_mlp_block`` and encoder, where JAX's
+jitted steps leave the split to GSPMD; under autograd too (training,
+``train/steps.py``).  Under a ``tp=True`` policy (dense, MoE, VLM) the layers
+split over ``model`` (the MoE's experts on d_ff, ``moe.moe_apply_tp``); under a
+``tp=False`` one (every family here, audio included) they gather their FSDP
+leaves and run whole.
 """
 
 from __future__ import annotations
@@ -214,8 +217,12 @@ def _moe_ep(cfg: ArchConfig, mp, x, comm):
     return comm.replicated_out(y, "model"), comm.replicated_out(aux, "model")
 
 
-def _moe_block(cfg: ArchConfig, mp, x, act_specs=None):
-    """(y, aux) of one MoE layer in the forward pass, by ``cfg.moe_mode``."""
+def _moe_block(cfg: ArchConfig, mp, x, act_specs=None, tp=None):
+    """(y, aux) of one MoE layer in the forward pass, by ``cfg.moe_mode``; with
+    ``tp`` (a view that splits over ``model``) the experts' F columns of the
+    rank, summed over ``model``."""
+    if tp is not None:
+        return moe_lib.moe_apply_tp(tp, x, mp, cfg.top_k, cfg.capacity_factor)
     if cfg.moe_mode == "ep":
         comm = (act_specs or {}).get("mesh")
         if comm is None:
@@ -258,29 +265,25 @@ def forward(
     are accepted and change no number; ``"mesh"`` is read for
     ``moe_mode="ep"`` (``_moe_ep``).
 
-    Tensor parallelism (``parallel/tensor_parallel.py``; dense family): with
-    ``act_specs["policy"]`` a ``Policy`` with ``tp=True`` and
-    ``act_specs["mesh"]`` the rank's ``Comm`` (inside ``Mesh.run``), ``params``
-    are the rank's blocks under ``sanitize_specs(param_specs(...))`` and
-    ``tokens`` its rows under ``batch_specs``; the logits come back for the last
-    position only, (B, 1, V), the whole vocab on every rank along ``model``;
-    with ``return_hidden`` the final-norm hidden states of every position, which
-    ``TensorParallel.loss`` takes.  ``remat`` acts as above, the recomputed layer
-    running its collectives again (``train/steps.py: make_tp_value_and_grad`` is
-    the route that keeps every collective out of autograd).
+    The sharded path (``parallel/tensor_parallel.py``): with
+    ``act_specs["policy"]`` a ``Policy`` and ``act_specs["mesh"]`` the rank's
+    ``Comm`` (inside ``Mesh.run``), ``params`` are the rank's blocks under
+    ``sanitize_specs(param_specs(...))`` and ``tokens``, ``positions`` and
+    ``encoder_frames`` its rows under ``batch_specs``; the logits come back for
+    the last position only, (B, 1, V), the whole vocab on every rank along
+    ``model``; with ``return_hidden`` the final-norm hidden states of every
+    position, which ``TensorParallel.loss`` takes.  ``remat`` acts as above, the
+    recomputed layer running its collectives again (``train/steps.py:
+    make_tp_value_and_grad`` is the route that keeps every collective out of
+    autograd).
     """
     tp = tp_lib.context(cfg, act_specs)
     if tp is not None:
-        return _forward_tp(cfg, tp, params, tokens, positions, remat, use_kernel,
-                           return_hidden)
+        return _forward_tp(cfg, tp, params, tokens, positions, encoder_frames, remat,
+                           use_kernel, return_hidden)
     if positions is None:
-        positions = _positions_default(tokens)
-        if cfg.rope_type == "mrope":
-            positions = positions.expand(3, *positions.shape)
-    x = params["embed"][tokens.long()]
-    if cfg.rope_type == "learned":
-        x = x + params["pos_embed"][: x.shape[1]][None]
-
+        positions = default_positions(cfg, tokens)
+    x = embed(cfg, params, tokens)
     enc_out = None
     if cfg.enc_layers:
         if encoder_frames is None:
@@ -302,18 +305,46 @@ def forward(
     return logits, aux
 
 
-def _forward_tp(cfg: ArchConfig, tp, params, tokens, positions, remat, use_kernel,
-                return_hidden):
+def _forward_tp(cfg: ArchConfig, tp, params, tokens, positions, encoder_frames, remat,
+                use_kernel, return_hidden):
     """``forward`` on the rank's blocks (``tensor_parallel``): the last position's
     logits, or the final-norm hidden states with ``return_hidden``."""
     tp.check(params)
-    x = tp.embed(params, tokens)
-    x, aux = forward_layers(cfg, params["layers"], x, positions, remat=remat,
+    x = embed(cfg, params, tokens, tp)
+    enc_out = None
+    if cfg.enc_layers:
+        if encoder_frames is None:
+            raise ValueError(f"{cfg.name}: the audio family needs encoder frames")
+        enc_out = _encoder_forward(cfg, params["encoder"], encoder_frames,
+                                   remat and torch.is_grad_enabled(), tp)
+    x, aux = forward_layers(cfg, params["layers"], x, positions, enc_out, remat=remat,
                             use_kernel=use_kernel, tp=tp)
     if return_hidden:
         return L.apply_norm(x, params["final_norm"], cfg.norm_type), aux / cfg.n_layers
     x = L.apply_norm(x[:, -1:], params["final_norm"], cfg.norm_type)
     return tp.logits(params, x, mask=True), aux / cfg.n_layers
+
+
+def embed(cfg: ArchConfig, params, tokens, tp=None):
+    """The embedding of tokens (B, S), plus the learned positions; with ``tp`` from
+    the rank's blocks (the vocab-parallel lookup, FSDP undone)."""
+    if tp is None:
+        x = params["embed"][tokens.long()]
+        pos_embed = params.get("pos_embed")
+    else:
+        x = tp.embed(params, tokens)
+        pos_embed = tp.whole(params["pos_embed"], "pos_embed") if "pos_embed" in params else None
+    if cfg.rope_type == "learned":
+        x = x + pos_embed[: x.shape[1]][None]
+    return x
+
+
+def default_positions(cfg: ArchConfig, x):
+    """0 .. S-1 for every row of x (B, S, ...): (B, S), or (3, B, S) under M-RoPE."""
+    positions = _positions_default(x)
+    if cfg.rope_type == "mrope":
+        positions = positions.expand(3, *positions.shape)
+    return positions
 
 
 def forward_layers(cfg: ArchConfig, layers, x, positions=None, enc_out=None, remat=True,
@@ -326,9 +357,7 @@ def forward_layers(cfg: ArchConfig, layers, x, positions=None, enc_out=None, rem
     layer's are all-gathered over ``data`` as it runs."""
     tp = tp or tp_lib.context(cfg, act_specs)
     if positions is None:
-        positions = _positions_default(x)
-        if cfg.rope_type == "mrope":
-            positions = positions.expand(3, *positions.shape)
+        positions = default_positions(cfg, x)
     checkpointed = remat and torch.is_grad_enabled()
 
     def layer_fn(h, aux, lp, enc):
@@ -349,43 +378,58 @@ def decoder_layer(cfg: ArchConfig, lp, h, aux, positions, enc=None, use_kernel=F
                   act_specs=None, tp=None):
     """One decoder layer of ``forward_layers`` on its (unstacked) weights ``lp``:
     (h, aux) -> (h, aux plus the layer's MoE loss).  With ``tp`` ``lp`` holds
-    the rank's blocks, all-gathered over ``data`` here."""
+    the rank's blocks, all-gathered over ``data`` here; the products split over
+    ``model`` under a ``tp=True`` view, and run whole under a ``tp=False`` one."""
+    split_tp = None if tp is None else tp.model_view
     if tp is not None:
         lp = tp.layer(lp)
     a = L.apply_norm(h, lp["attn_norm"], cfg.norm_type)
     h = h + _attn_block(cfg, lp, a, positions, causal=True, window=0,
-                        use_kernel=use_kernel, tp=tp)
+                        use_kernel=use_kernel, tp=split_tp)
     if enc is not None:
         xa = L.apply_norm(h, lp["xattn_norm"], cfg.norm_type)
         xp = {k[1:]: v for k, v in lp.items() if k.startswith("x") and k != "xattn_norm"}
         h = h + _attn_block(cfg, xp, xa, positions, causal=False, window=0, kv_seq=enc)
     m = L.apply_norm(h, lp["mlp_norm"], cfg.norm_type)
     if cfg.family == "moe":
-        y, a_loss = _moe_block(cfg, lp["moe"], m, act_specs)
+        y, a_loss = _moe_block(cfg, lp["moe"], m, act_specs, split_tp)
         aux = aux + a_loss
     else:
-        y = _mlp_block(cfg, lp, m, tp)
+        y = _mlp_block(cfg, lp, m, split_tp)
     return h + y, aux
 
 
-def _encoder_forward(cfg: ArchConfig, enc, frames, checkpointed: bool):
-    """The audio encoder: frames in ``pos_embed``'s dtype plus the learned
-    positions, then ``enc_layers`` of non-causal self-attention (plain, never
-    the kernel, as in JAX) and a gelu MLP, then the final norm."""
-    x = frames.to(enc["pos_embed"].dtype) + enc["pos_embed"][: frames.shape[1]][None]
-    pos = _positions_default(frames[..., 0])
+def encoder_embed(cfg: ArchConfig, enc, frames, tp=None):
+    """The encoder's input: frames in ``pos_embed``'s dtype plus the learned
+    positions (with ``tp`` ``enc`` holds the rank's blocks, FSDP undone here)."""
+    pos_embed = enc["pos_embed"] if tp is None else tp.whole(enc["pos_embed"], "encoder",
+                                                             "pos_embed")
+    return frames.to(pos_embed.dtype) + pos_embed[: frames.shape[1]][None]
 
-    def layer_fn(h, lp):
-        a = L.apply_norm(h, lp["attn_norm"], cfg.norm_type)
-        h = h + _attn_block(cfg, lp, a, pos, causal=False, window=0)
-        m = L.apply_norm(h, lp["mlp_norm"], cfg.norm_type)
-        return h + _mlp_block(cfg, lp, m)
 
+def encoder_layer(cfg: ArchConfig, lp, h, tp=None):
+    """One encoder layer on its (unstacked) weights ``lp``: non-causal
+    self-attention (plain, never the kernel, as in JAX) and a gelu MLP.  With
+    ``tp`` (a ``tp=False`` view: the audio family has no split over ``model``)
+    ``lp`` holds the rank's blocks, all-gathered over ``data`` here."""
+    if tp is not None:
+        lp = tp.layer(lp, "encoder")
+    a = L.apply_norm(h, lp["attn_norm"], cfg.norm_type)
+    h = h + _attn_block(cfg, lp, a, _positions_default(h), causal=False, window=0)
+    m = L.apply_norm(h, lp["mlp_norm"], cfg.norm_type)
+    return h + _mlp_block(cfg, lp, m)
+
+
+def _encoder_forward(cfg: ArchConfig, enc, frames, checkpointed: bool, tp=None):
+    """The audio encoder: ``encoder_embed``, ``enc_layers`` of ``encoder_layer``,
+    then the final norm."""
+    x = encoder_embed(cfg, enc, frames, tp)
     for lp in L.unstack(enc["layers"], cfg.enc_layers):
         if checkpointed:
-            x = torch.utils.checkpoint.checkpoint(layer_fn, x, lp, use_reentrant=False)
+            x = torch.utils.checkpoint.checkpoint(encoder_layer, cfg, lp, x, tp,
+                                                  use_reentrant=False)
         else:
-            x = layer_fn(x, lp)
+            x = encoder_layer(cfg, lp, x, tp)
     return L.apply_norm(x, enc["final_norm"], cfg.norm_type)
 
 
@@ -398,13 +442,14 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                device=None, act_specs=None):
     """Zero K/V caches (L, B, max_len, KV, hd) and ``len`` 0; for the audio
     family also the cross-attention's ``xk``/``xv`` (L, B, enc_seq, KV, hd),
-    which stay zero, as in JAX (``decode_step``).  With a tensor-parallel
-    ``act_specs`` (``forward``) the rank's cache of its ``batch`` rows: under the
-    pair route (L, rows, max_len, kv heads, hd) of its share, else every kv head
-    (``tensor_parallel``)."""
+    which stay zero, as in JAX (``decode_step``).  With a sharded ``act_specs``
+    (``forward``) the rank's cache of its ``batch`` rows: under a ``tp=True``
+    policy's pair route (L, rows, max_len, kv heads, hd) of its share, else every
+    kv head (``tensor_parallel``)."""
     hd = cfg.kq_head_dim
     tp = tp_lib.context(cfg, act_specs)
-    rows, kv = (batch, cfg.n_kv_heads) if tp is None else tp.cache_heads(batch)
+    split_tp = None if tp is None else tp.model_view
+    rows, kv = (batch, cfg.n_kv_heads) if split_tp is None else split_tp.cache_heads(batch)
     shape = (cfg.n_layers, rows, max_len, kv, hd)
     cache = {
         "k": torch.zeros(shape, dtype=dtype, device=device),
@@ -436,11 +481,13 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, positions=None, act_spec
     which nothing fills (neither here nor in JAX): its softmax over zero
     scores averages zero values, so each layer adds ``0 @ xwo``.
 
-    With a tensor-parallel ``act_specs`` (``forward``) ``params`` are the rank's
-    blocks, ``tokens`` its rows and ``cache`` its ``init_cache``; the logits are
-    the whole vocab's on every rank along ``model``.
+    With a sharded ``act_specs`` (``forward``) ``params`` are the rank's blocks,
+    ``tokens`` its rows and ``cache`` its ``init_cache``; the logits are the
+    whole vocab's on every rank along ``model``.  Under a ``tp=True`` policy the
+    MoE runs ``moe.moe_apply_tp``, in groups of one token too.
     """
     tp = tp_lib.context(cfg, act_specs)
+    split_tp = None if tp is None else tp.model_view
     if tp is not None:
         tp.check(params)
     b = tokens.shape[0]
@@ -454,37 +501,42 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, positions=None, act_spec
     window = cfg.local_window if cfg.family == "vlm" else 0
     x = params["embed"][tokens.long()] if tp is None else tp.embed(params, tokens)
     if cfg.rope_type == "learned":
-        x = x + params["pos_embed"][min(pos, params["pos_embed"].shape[0] - 1)]
+        pos_embed = (params["pos_embed"] if tp is None
+                     else tp.whole(params["pos_embed"], "pos_embed"))
+        x = x + pos_embed[min(pos, pos_embed.shape[0] - 1)]
     for i, lp in enumerate(L.unstack(params["layers"], cfg.n_layers)):
         if tp is not None:
             lp = tp.layer(lp)
         a = L.apply_norm(x, lp["attn_norm"], cfg.norm_type)
-        if tp is None:
+        if split_tp is None:
             q = (a @ lp["wq"]).reshape(b, 1, h_, hd)
             k = (a @ lp["wk"]).reshape(b, 1, kv, hd)
             v = (a @ lp["wv"]).reshape(b, 1, kv, hd)
             rows = positions
         else:
-            q, k, v, rows = tp.heads(a @ lp["wq"], a @ lp["wk"], a @ lp["wv"], positions)
+            q, k, v, rows = split_tp.heads(a @ lp["wq"], a @ lp["wk"], a @ lp["wv"], positions)
         q, k = _apply_pos(cfg, q, k, rows)
         kc, vc = cache["k"][i], cache["v"][i]
         kc[:, slot:slot + 1] = k
         vc[:, slot:slot + 1] = v
         o = L.attention_decode(q, kc, vc, pos + 1, window=window)
-        if tp is None:
+        if split_tp is None:
             x = x + o.reshape(b, 1, h_ * hd) @ lp["wo"]
         else:
-            x = x + tp.sum(tp.columns(o, b) @ lp["wo"])
+            x = x + split_tp.sum(split_tp.columns(o, b) @ lp["wo"])
         if cfg.enc_layers:
             xa = L.apply_norm(x, lp["xattn_norm"], cfg.norm_type)
             qx = (xa @ lp["xwq"]).reshape(b, 1, h_, hd)
             o = L.attention_decode(qx, cache["xk"][i], cache["xv"][i], cfg.enc_seq)
             x = x + o.reshape(b, 1, h_ * hd) @ lp["xwo"]
         m = L.apply_norm(x, lp["mlp_norm"], cfg.norm_type)
-        if cfg.family == "moe":
+        if cfg.family == "moe" and split_tp is not None:
+            y, _ = moe_lib.moe_apply_tp(split_tp, m, lp["moe"], cfg.top_k,
+                                        cfg.capacity_factor)
+        elif cfg.family == "moe":
             y, _ = moe_lib.moe_apply(m, lp["moe"], cfg.top_k, cfg.capacity_factor)
         else:
-            y = _mlp_block(cfg, lp, m, tp)
+            y = _mlp_block(cfg, lp, m, split_tp)
         x = x + y
     x = L.apply_norm(x, params["final_norm"], cfg.norm_type)
     logits = x @ L.unembed(params) if tp is None else tp.logits(params, x, mask=False)

@@ -1,4 +1,4 @@
-"""Tensor parallelism over ``model`` and FSDP over ``data`` (dense family).
+"""Tensor parallelism over ``model`` and FSDP over ``data`` (the transformer families).
 
 The JAX package has no counterpart module: it jits its train, prefill and decode
 steps with ``in_shardings`` from ``param_specs`` (``repro/launch/dryrun.py``),
@@ -6,8 +6,9 @@ and GSPMD splits the compute.  Here each rank of a ``core.comm`` mesh runs the
 step on its own blocks of the parameters, under
 ``sanitize_specs(param_specs(...))``, and reaches the other ranks through its
 ``Comm``.  ``models/transformer.py`` and ``train/steps.py`` take this path when
-``act_specs`` holds the rank's ``Comm`` as ``"mesh"`` and a ``Policy`` with
-``tp=True`` as ``"policy"``.  A layer runs as Megatron's:
+``act_specs`` holds the rank's ``Comm`` as ``"mesh"`` and a ``Policy`` as
+``"policy"``.  Under a ``tp=True`` policy (the dense, MoE and VLM families) a
+layer runs as Megatron's:
 
 * FSDP: a leaf whose spec splits a dimension over ``data`` is all-gathered
   along it when its layer runs (``Comm.all_gather``), one layer at a time, as
@@ -18,7 +19,12 @@ step on its own blocks of the parameters, under
   bits.  Where ``sanitize_specs`` left the vocab whole (an odd vocab) each rank
   looks up every token and nothing is summed.
 * ``wq``, ``wk``, ``wv``, ``w_gate``, ``w_up`` column-parallel: the rank's
-  columns are its block's.
+  columns are its block's.  The MoE experts are split on d_ff (P(None, None,
+  fs, mp)), GSPMD's "operator parallelism": every rank routes and dispatches
+  its replicated tokens alike, runs each expert on its F columns, combines its
+  partial outputs and sums them over ``model`` (``models/moe.py:
+  moe_apply_tp``): the row sum carries the (B, S, D) output, where XLA psums
+  the (E, C, D) capacity buffer, top_k x capacity_factor times its bytes.
 * attention on whole heads.  The flat column split cuts heads (llama3.2-3b's
   192 columns of ``wq`` a rank of 16 are 1.5 heads), and RoPE rotates column
   i with column i + hd/2, so q, k and v move from the rank's columns to whole
@@ -28,7 +34,9 @@ step on its own blocks of the parameters, under
     form a rectangle of rows x kv heads: one ``Comm.all_to_all`` of q, k and v
     together among the ``groups`` ranks whose columns make up the rank's kv
     heads (``axis_index_groups``), and one back for the output.  The flash
-    kernel gets the rank's rows with its kv heads and their q heads;
+    kernel gets the rank's rows with its kv heads and their q heads, and the
+    rows' positions ((B, S), or M-RoPE's (3, B, S)) are cut along their row
+    axis;
   - the gather route elsewhere: q, k and v all-gathered together over
     ``model`` to every head, the attention of every head of the rank's rows on
     every rank (so ``model``-fold the attention work), and the rank's own
@@ -89,7 +97,23 @@ collective out of autograd: under a ``Tape`` each collective is a cut (its
 input detached, its output a fresh leaf), and the tape carries each cut's
 gradient across with the plain collective of its transpose.
 
-A family other than dense given a ``tp=True`` policy raises (ROADMAP item 14).
+Under a ``tp=False`` policy with FSDP (whisper-tiny's and mamba2-130m's
+``default_policy``, every arch's ``layout="fsdp"``) the rank's view splits
+nothing over ``model``: each layer's FSDP leaves are all-gathered over ``data``
+as it runs and the family's own layer code runs on the whole weights.  With
+``data_axes=("data",)`` the ranks along ``model`` hold the same rows and compute
+the same thing, as GSPMD's replicated compute does, and no gradient is summed
+over ``model``; with ``layout="fsdp"`` (``data_axes=("data", "model")``)
+``model`` is one more data axis: the batch is split over both, the parameters
+over ``data`` only, and ``sum_over_data`` sums each leaf's gradient over the
+data axes that leave it whole.  The audio family's encoder layers are gathered
+the same way.
+
+Not ported, each raising with its ROADMAP item: the SSM family (item 14.1) and
+the hybrid family (14.2) under any sharded policy; ``ce_chunk`` under a
+``tp=True`` policy (14.3, ``train/steps.py``); ``moe_mode`` ``"ep"`` and
+``"gshard"`` (experts split over ``model``) and the audio family under a
+``tp=True`` policy (14.4).
 """
 
 from __future__ import annotations
@@ -110,25 +134,52 @@ from repro_torch.parallel import sharding as shard_lib
 
 def context(cfg: ArchConfig, act_specs) -> TensorParallel | None:
     """The rank's ``TensorParallel`` when ``act_specs`` asks for it (a ``"policy"``
-    with ``tp=True`` and the rank's ``Comm`` as ``"mesh"``), else None."""
+    that splits, ``_splits``, and the rank's ``Comm`` as ``"mesh"``), else None."""
     act_specs = act_specs or {}
     policy = act_specs.get("policy")
-    if policy is None or not policy.tp:
+    if policy is None or not _splits(policy):
         return None
-    if cfg.family != "dense":
-        raise ValueError(f"{cfg.name}: tensor parallelism (a tp=True policy) is ported for "
-                         f"the dense family only; the {cfg.family} family's is ROADMAP item 14")
+    unported = _unported(cfg, policy)
+    if unported:
+        raise ValueError(f"{cfg.name}: {unported}")
     comm = act_specs.get("mesh")
     if not isinstance(comm, Comm):
-        raise ValueError(f"{cfg.name}: a tp=True policy needs the rank's core.comm Comm as "
+        raise ValueError(f"{cfg.name}: a sharded policy needs the rank's core.comm Comm as "
                          "act_specs['mesh'] (the step inside Mesh.run)")
     if policy.model_axis not in comm.mesh.shape:
         raise ValueError(f"{cfg.name}: the mesh {comm.mesh.axis_names} has no "
                          f"{policy.model_axis!r} axis")
-    if cfg.act != "swiglu" or cfg.rope_type != "rope":
-        raise ValueError(f"{cfg.name}: tensor parallelism takes the dense family's SwiGLU "
-                         "and RoPE")
+    if policy.tp and (cfg.act != "swiglu" or cfg.rope_type not in ("rope", "mrope")):
+        raise ValueError(f"{cfg.name}: tensor parallelism takes SwiGLU and RoPE or M-RoPE")
     return TensorParallel(cfg, comm, policy)
+
+
+def _unported(cfg: ArchConfig, policy) -> str | None:
+    """Why ``cfg`` has no sharded path under ``policy``, or None."""
+    if cfg.family == "ssm":
+        return "the SSM family's sharded layout is ROADMAP item 14.1"
+    if cfg.family == "hybrid":
+        return "the hybrid family's sharded layout is ROADMAP item 14.2"
+    if cfg.family == "moe" and cfg.moe_mode != "tp":
+        return (f"moe_mode={cfg.moe_mode!r} under a sharded policy (experts split over "
+                "model) is ROADMAP item 14.4")
+    if cfg.family == "audio" and policy.tp:
+        return ("the audio family under a tp=True policy is ROADMAP item 14.4 (its "
+                "cross-attention weights match no rule of param_specs)")
+    return None
+
+
+def _splits(policy) -> bool:
+    """Whether ``policy`` splits the parameters: over ``model`` (TP) or over
+    ``data`` (FSDP).  A policy that splits neither runs the whole model on a rank."""
+    return policy.tp or policy.fsdp
+
+
+def sharded(cfg: ArchConfig, policy) -> bool:
+    """Whether ``context`` gives a rank of ``cfg`` under ``policy`` a view (where it
+    returns None this is False, and where it raises, a family the path does not
+    hold, too)."""
+    return _splits(policy) and _unported(cfg, policy) is None
 
 
 class _Leaf:
@@ -144,15 +195,16 @@ class _Leaf:
 
 class _Plan:
     """What every rank of one (config, policy, mesh shape) needs, computed once:
-    each leaf's ``_Leaf`` (the layer weights' without the layer axis), from the
-    leaf's sanitized spec."""
+    each leaf's ``_Leaf`` from its sanitized spec, in flatten order (``leaves``),
+    and as a tree of ``params``' structure (``tree``) in which the leaves under a
+    ``layers`` key of any subtree are a layer's, without the layer axis."""
 
     def __init__(self, cfg, policy, axes, shape):
         mesh = _Shape(dict(zip(axes, shape)))
         params = abstract_params(cfg)
         specs = shard_lib.sanitize_specs(params, shard_lib.param_specs(cfg, params, policy),
                                          mesh)
-        self.model = policy.model_axis
+        self.model = policy.model_axis if policy.tp else None
 
         def leaf(name, meta, spec, lead=0):
             dims, gathers, split, used = [], [], [], set()
@@ -171,17 +223,25 @@ class _Plan:
             split_by = tuple(a for a in mesh.shape if a in used and mesh.shape[a] > 1)
             return _Leaf(name, tuple(dims), tuple(gathers), tuple(split), split_by)
 
-        self.top = {k: leaf(k, params[k], specs[k]) for k in ("embed", "unembed")
-                    if k in params}
+        metas, structure = tree_lib.flatten(params)
         self.leaves = [leaf(n, m, sp) for n, m, sp in zip(
-            _paths(params), tree_lib.leaves(params), tree_lib.leaves(specs), strict=True)]
-        self.layer = _map2(lambda n, _, m, sp: leaf(n, m, sp, lead=1), params["layers"],
-                           params["layers"], specs["layers"])
-        for name, dim in (("wq", 1), ("wk", 1), ("wv", 1), ("w_gate", 1), ("w_up", 1),
-                          ("wo", 0), ("w_down", 0)):
-            if not self.layer[name].split[dim]:
-                raise ValueError(f"{cfg.name}: {name}'s spec leaves dimension {dim} whole over "
-                                 f"{self.model!r} (it does not divide by {mesh.shape[self.model]})")
+            _paths(params), metas, tree_lib.leaves(specs), strict=True)]
+        self.tree = tree_lib.unflatten(structure, [
+            leaf(n, m, sp, lead=int("layers" in n.split(".")[:-1]))
+            for n, m, sp in zip(_paths(params), metas, tree_lib.leaves(specs), strict=True)])
+        self.layer = self.tree["layers"]
+        if policy.tp:  # the column- and row-parallel products need their split
+            want = [(self.layer, n, d) for n, d in (
+                ("wq", 1), ("wk", 1), ("wv", 1), ("w_gate", 1), ("w_up", 1), ("wo", 0),
+                ("w_down", 0)) if n in self.layer]
+            if "moe" in self.layer:  # the experts (E, D, F) and (E, F, D): F
+                want += [(self.layer["moe"], n, d)
+                         for n, d in (("w_gate", 2), ("w_up", 2), ("w_down", 1))]
+            for tree, name, dim in want:
+                if not tree[name].split[dim]:
+                    raise ValueError(f"{cfg.name}: {tree[name].name}'s spec leaves dimension "
+                                     f"{dim} whole over {self.model!r} (it does not divide by "
+                                     f"{mesh.shape[self.model]})")
 
 
 _PLANS: dict = {}
@@ -212,22 +272,31 @@ def _axes(entry) -> tuple[str, ...]:
 
 
 class TensorParallel:
-    """One rank's tensor-parallel view of ``cfg`` on its ``Comm``: its blocks'
-    plan, and the collectives of the module docstring.  While ``tape`` holds a
-    ``Tape`` and autograd is on, every collective is a cut of that tape."""
+    """One rank's sharded view of ``cfg`` on its ``Comm``: its blocks' plan, and
+    the collectives of the module docstring.  ``tp`` says whether it splits over
+    ``model`` (a ``tp=True`` policy); without, ``n`` is 1 and nothing is exchanged
+    over ``model``.  While ``tape`` holds a ``Tape`` and autograd is on, every
+    collective is a cut of that tape."""
 
     def __init__(self, cfg: ArchConfig, comm: Comm, policy: shard_lib.Policy):
         self.cfg, self.comm, self.policy = cfg, comm, policy
         self.plan = _plan(cfg, policy, comm.mesh)
+        self.tp = policy.tp
         self.axis = policy.model_axis
-        self.n = comm.axis_size(self.axis)
-        self.index = comm.axis_index(self.axis)
+        self.n = comm.axis_size(self.axis) if self.tp else 1
+        self.index = comm.axis_index(self.axis) if self.tp else 0
         self.data_axes = tuple(policy.data_axes)
         missing = [a for a in self.data_axes if a not in comm.mesh.shape]
         if missing:
             raise ValueError(f"{cfg.name}: the mesh {comm.mesh.axis_names} has no data axes "
                              f"{missing}")
         self.tape: Tape | None = None
+
+    @property
+    def model_view(self) -> TensorParallel | None:
+        """This view where it splits over ``model`` (a ``tp=True`` policy), else
+        None: what the column and row products of ``models/transformer.py`` take."""
+        return self if self.tp else None
 
     # -- the collectives: plain, under autograd, or cuts of the tape ------------
 
@@ -279,12 +348,25 @@ class TensorParallel:
             block = parts.movedim(0, dim).reshape(shape)
         return block
 
-    def layer(self, lp: dict) -> dict:
+    def layer(self, lp: dict, *path: str) -> dict:
         """One layer's weights (the per-layer trees ``layers.unstack`` gives) with
-        FSDP undone, each leaf checked against its block."""
-        return _map2(self._layer_leaf, lp, self.plan.layer, self.plan.layer)
+        FSDP undone, each leaf checked against its block: a decoder layer's, or
+        with ``path`` the layers of that subtree (``"encoder"``)."""
+        plan = self.plan.tree
+        for k in path:
+            plan = plan[k]
+        return _map2(self._layer_leaf, lp, plan["layers"], plan["layers"])
 
     def _layer_leaf(self, name, t, leaf, _):
+        _check(self.cfg, leaf, t)
+        return self.full(t, leaf)
+
+    def whole(self, t: torch.Tensor, *path: str) -> torch.Tensor:
+        """The block ``t`` of the leaf at ``path`` (``"pos_embed"``, ``"encoder",
+        "pos_embed"``) checked, with FSDP undone."""
+        leaf = self.plan.tree
+        for k in path:
+            leaf = leaf[k]
         _check(self.cfg, leaf, t)
         return self.full(t, leaf)
 
@@ -293,7 +375,7 @@ class TensorParallel:
     def embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
         """The vocab-parallel lookup of ``tokens``: (B, S, d), the same on every rank
         along ``model``."""
-        leaf = self.plan.top["embed"]
+        leaf = self.plan.tree["embed"]
         table = self.full(params["embed"], leaf)
         tokens = tokens.long()
         if not leaf.split[0]:
@@ -309,9 +391,9 @@ class TensorParallel:
         """The (d, columns) unembedding of the rank, FSDP undone, and whether its
         columns are a part of the vocab (split over ``model``)."""
         if "unembed" in params:
-            leaf = self.plan.top["unembed"]
+            leaf = self.plan.tree["unembed"]
             return self.full(params["unembed"], leaf), leaf.split[1]
-        leaf = self.plan.top["embed"]  # tied: the embedding's rows are the vocab
+        leaf = self.plan.tree["embed"]  # tied: the embedding's rows are the vocab
         return self.full(params["embed"], leaf).T, leaf.split[0]
 
     def _mask_tail(self, logits: torch.Tensor, split: bool) -> torch.Tensor:
@@ -390,8 +472,9 @@ class TensorParallel:
 
     def heads(self, q, k, v, positions):
         """q, k, v of the rank's columns (B, S, cols) -> whole heads of the rank's
-        share, (rows, S, heads, hd) each, and the rows' positions; the three move
-        in one exchange."""
+        share, (rows, S, heads, hd) each, and the rows' positions ((B, S), or
+        M-RoPE's (3, B, S): rows on the second-last axis either way); the three
+        move in one exchange."""
         b, s, _ = q.shape
         widths = [t.shape[-1] for t in (q, k, v)]
         qkv = torch.cat([q, k, v], -1)
@@ -403,7 +486,7 @@ class TensorParallel:
             # the result: the columns of the group's m-th rank, a part of the heads
             got = self.exchange(qkv.reshape(hs.groups, hs.rows, s, -1), hs.index_groups(self.n))
             r0 = (self.index % hs.groups) * hs.rows
-            positions = positions[r0:r0 + hs.rows]
+            positions = positions[..., r0:r0 + hs.rows, :]
         hd = self.cfg.kq_head_dim
         parts = torch.split(got, widths, -1)
         out = [t.permute(1, 2, 0, 3).reshape(t.shape[1], s, t.shape[0] * w // hd, hd)
@@ -497,8 +580,9 @@ class Tape:
         self.cuts.append((x, out, transpose))
         return out
 
-    def backward(self, y: torch.Tensor, grad: torch.Tensor) -> None:
-        """Backpropagate ``grad`` from ``y`` into the leaves of its segment, then
+    def backward(self, y, grad) -> None:
+        """Backpropagate ``grad`` from ``y`` (a tensor, or a list of tensors with a
+        list of their gradients) into the leaves of its segment, then
         the cuts in the reverse order of the forward, a batch at a time: the
         last cut left, with each cut before it that no input of the batch
         reaches.  By then every use of a batch's outputs has added to their
@@ -508,7 +592,7 @@ class Tape:
         autograd adds them.  Every rank runs the same cuts in the same order,
         so the transposes' collectives match; the gradients add up in the
         leaves' ``.grad``."""
-        roots, grads = [y], [grad]
+        roots, grads = (list(y), list(grad)) if isinstance(y, (list, tuple)) else ([y], [grad])
         while True:
             _backprop(roots, grads)
             if not self.cuts:

@@ -16,16 +16,17 @@ feature):
 * ``compress_k > 0`` with a sync mode: top-k sparsified gradient sync (paper
   Appendix A) over the first data axis, in the reference's stateless form.
 
-Tensor parallelism (dense family; ``parallel/tensor_parallel.py``): with the
-rank's ``Comm`` as ``act_specs["mesh"]`` and a ``tp=True`` ``Policy`` as
-``act_specs["policy"]`` the train step runs on one rank inside ``Mesh.run``,
-on its blocks of the parameters and moments and its rows of the batch, as
-JAX's step jitted with ``in_shardings`` from ``param_specs`` runs under GSPMD:
-``sync="auto"`` splits the compute over ``model`` and the parameters,
-gradients and moments over ``data`` (FSDP); a sync mode is JAX's
-partial-manual step, the blocks split over ``model`` and whole over the data
-axes, the gradients reduced over them by the paper's algorithm.  Its gradient
-route, ``make_tp_value_and_grad``, keeps every collective out of autograd.
+The sharded path (the dense, MoE, VLM and audio families;
+``parallel/tensor_parallel.py``): with the rank's ``Comm`` as
+``act_specs["mesh"]`` and a ``Policy`` as ``act_specs["policy"]`` the train
+step runs on one rank inside ``Mesh.run``, on its blocks of the parameters and
+moments and its rows of the batch, as JAX's step jitted with ``in_shardings``
+from ``param_specs`` runs under GSPMD: ``sync="auto"`` splits the compute over
+``model`` (a ``tp=True`` policy) and the parameters, gradients and moments over
+``data`` (FSDP); a sync mode is JAX's partial-manual step, the blocks split
+over ``model`` and whole over the data axes, the gradients reduced over them by
+the paper's algorithm.  Its gradient route, ``make_tp_value_and_grad``, keeps
+every collective out of autograd.
 
 The serving steps run without autograd.
 """
@@ -40,6 +41,7 @@ import torch.utils.checkpoint
 from repro_torch import tree as tree_lib
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import collectives as coll
+from repro_torch.core import comm as comm_lib
 from repro_torch.core import compression as comp
 from repro_torch.models import get_model
 from repro_torch.models import layers as L
@@ -95,25 +97,29 @@ def make_loss_fn(cfg: ArchConfig, options: TrainOptions, act_specs=None):
     number, and its ``"mesh"``, the rank's ``Comm``, carries the MoE family's
     ``moe_mode="ep"`` (``models/transformer.py::forward``).
 
-    Under tensor parallelism (``act_specs``' ``tp=True`` policy, dense family)
-    ``params`` are the rank's blocks and ``batch`` its rows; the loss is the
-    vocab-parallel cross-entropy (``TensorParallel.loss``): under
-    ``sync="auto"`` the whole batch's mean, psum'd over the data axes from each
-    rank's share (its rows' mean / their size: the seed of 1/dp), under a sync
-    mode the rank's rows' mean.  Every collective is differentiable: the
-    autograd route, one autograd engine thread a rank (the CPU, one process a
-    rank).  ``ce_chunk`` raises there (ROADMAP item 14).
+    On the sharded path (``act_specs``' policy) ``params`` are the rank's
+    blocks and ``batch`` its rows; the loss is the vocab-parallel cross-entropy
+    (``TensorParallel.loss``): under ``sync="auto"`` the whole batch's mean,
+    psum'd over the data axes from each rank's share (its rows' mean / their
+    size: the seed of 1/dp), under a sync mode the rank's rows' mean.  The MoE
+    aux loss is the mean over the rank's dispatch groups, under ``sync="auto"``
+    psum'd over the data axes the same way (every data rank holds as many
+    groups), as JAX averages it over every group.  Every collective is
+    differentiable: the autograd route, one autograd engine thread a rank (the
+    CPU, one process a rank).  ``ce_chunk`` raises under a ``tp=True`` policy
+    (ROADMAP item 14.3).
     """
     model = get_model(cfg)
     tp = tp_lib.context(cfg, act_specs)  # raises for a family without the path
     if tp is not None:
-        _check_tp_options(cfg, options)
+        _check_tp_options(tp, options)
 
         def tp_loss_fn(params, batch):
             hidden, aux = model.forward(cfg, params, batch["tokens"], remat=options.remat,
                                         use_kernel=options.use_kernel, act_specs=act_specs,
-                                        return_hidden=True)
+                                        return_hidden=True, **model_extras(batch))
             loss = _tp_loss(tp, options, params, hidden, batch["labels"])
+            aux = _tp_aux(tp, options, aux)
             return loss + options.moe_aux_weight * aux, (loss, aux)
 
         return tp_loss_fn
@@ -191,44 +197,70 @@ def value_and_grad(loss_fn):
     return f
 
 
-def _check_tp_options(cfg: ArchConfig, options: TrainOptions) -> None:
-    if options.ce_chunk:
-        raise ValueError(f"{cfg.name}: ce_chunk under tensor parallelism is ROADMAP item 14 "
-                         "(the vocab-parallel loss holds a rank's vocab columns only)")
+def _check_tp_options(tp, options: TrainOptions) -> None:
+    if options.ce_chunk and tp.tp:
+        raise ValueError(f"{tp.cfg.name}: ce_chunk under tensor parallelism is ROADMAP item "
+                         "14.3 (the vocab-parallel loss holds a rank's vocab columns only)")
 
 
 def _tp_loss(tp, options: TrainOptions, params, hidden, labels):
-    """The rank's loss: its rows' mean cross-entropy, vocab-parallel; under
-    ``sync="auto"`` psum'd over the data axes from its share of the mean."""
-    loss = tp.loss(params, hidden, labels)
+    """The rank's loss: its rows' mean cross-entropy, vocab-parallel (chunked with
+    ``ce_chunk`` under a ``tp=False`` view, whose rank holds the whole vocab);
+    under ``sync="auto"`` psum'd over the data axes from its share of the mean."""
+    if options.ce_chunk and tp.cfg.family in ("dense", "moe", "vlm"):  # as make_loss_fn
+        loss = chunked_cross_entropy(hidden, tp._unembed(params)[0], labels, tp.cfg.vocab,
+                                     options.ce_chunk)
+    else:
+        loss = tp.loss(params, hidden, labels)
     dp = tp.comm.axis_size(tp.data_axes)
     if options.sync == "auto" and dp > 1:
         loss = tp.psum(loss / dp, tp.data_axes)
     return loss
 
 
+def _aux_share(tp, options: TrainOptions) -> int:
+    """What the rank's MoE aux loss is divided by before its psum over the data
+    axes: their size under ``sync="auto"``, else 1 (no psum)."""
+    dp = tp.comm.axis_size(tp.data_axes)
+    return dp if options.sync == "auto" and dp > 1 and tp.cfg.family == "moe" else 1
+
+
+def _tp_aux(tp, options: TrainOptions, aux):
+    """The MoE aux loss of the whole batch from the rank's (``make_loss_fn``)."""
+    share = _aux_share(tp, options)
+    return tp.psum(aux / share, tp.data_axes) if share > 1 else aux
+
+
 def make_tp_value_and_grad(cfg: ArchConfig, options: TrainOptions, act_specs):
-    """``value_and_grad(make_loss_fn(cfg, options, act_specs))`` under tensor
-    parallelism, with no collective inside autograd: the route for rank threads
-    that share one GPU (whose backwards would queue on its one autograd engine
+    """``value_and_grad(make_loss_fn(cfg, options, act_specs))`` on the sharded
+    path, with no collective inside autograd: the route for rank threads that
+    share one GPU (whose backwards would queue on its one autograd engine
     thread, and wait there for ranks queued behind them), and the one the train
     step takes on every mesh, so that the CPU checks the code the card runs.
 
     Returns f(params, batch) -> ((value, (loss, aux)), grads): ``params`` the
-    rank's blocks, ``batch`` its rows, ``grads`` the value's gradient with
-    respect to each block (a tree of the same structure), which is
-    ``value_and_grad``'s on the autograd route.  The steps
-    (``parallel/pipeline.py: make_pipelined_value_and_grad``'s, inside a layer):
+    rank's blocks, ``batch`` its rows (with the VLM's positions and the audio
+    family's encoder frames), ``grads`` the value's gradient with respect to
+    each block (a tree of the same structure), which is ``value_and_grad``'s
+    on the autograd route.  The steps (``parallel/pipeline.py:
+    make_pipelined_value_and_grad``'s, inside a layer):
 
-    1. the embed and the layers forward under ``no_grad``, keeping each layer's
-       input (what remat keeps);
+    1. the encoder's layers (audio), the embed and the decoder layers forward
+       under ``no_grad``, keeping each layer's input (what remat keeps) and
+       summing the layers' MoE aux losses;
     2. the final norm and the loss under a ``Tape``, then its backward: the
        graph from the loss to its leaves, then each cut in reverse, its
        output's gradient carried to its input by the plain collective of its
        transpose (``Tape.backward``);
     3. the layers in reverse, each recomputed under the tape from its input,
-       with the gradient of its output;
-    4. the embed recomputed the same way, with the gradient of the first
+       with the gradient of its output and, for the MoE, of its aux loss
+       (``moe_aux_weight / n_layers``, over the data axes' size where the aux
+       is psum'd over them), so that the router gets the aux's gradient; the
+       encoder's output is one leaf that every layer's cross-attention reads,
+       so its gradient adds up over the layers;
+    4. the encoder's final norm and layers in reverse the same way, from the
+       encoder output's gradient, then the encoder's input;
+    5. the embed recomputed the same way, with the gradient of the first
        layer's input (so that no rank keeps its FSDP-gathered table through
        the layers).
 
@@ -236,29 +268,52 @@ def make_tp_value_and_grad(cfg: ArchConfig, options: TrainOptions, act_specs):
     device's engine thread at a time.  A layer's weights are leaves of their own
     (views of the blocks), whose gradients are copied into each stack's.
     """
-    tp = tp_lib.context(cfg, act_specs)
-    if tp is None:
+    act_specs = act_specs or {}
+    if act_specs.get("policy") is None or not isinstance(act_specs.get("mesh"), comm_lib.Comm):
         raise ValueError(f"{cfg.name}: make_tp_value_and_grad needs the rank's Comm and a "
-                         "tp=True policy in act_specs")
-    _check_tp_options(cfg, options)
+                         "sharded policy in act_specs")
+    tp = tp_lib.context(cfg, act_specs)
+    _check_tp_options(tp, options)
+    aux_seed = options.moe_aux_weight / cfg.n_layers / _aux_share(tp, options)
+
+    def layer_grads_into(dst, lp, i):
+        for d, leaf in zip(tree_lib.leaves(dst), tree_lib.leaves(lp), strict=True):
+            if leaf.grad is not None:
+                d[i].copy_(leaf.grad)
 
     def f(params, batch):
         tp.check(params)
         tokens, labels = batch["tokens"], batch["labels"]
-        top = tree_lib.tree_map(_grad_leaf, {k: v for k, v in params.items() if k != "layers"})
+        extras = model_extras(batch)
+        positions = extras.get("positions")
+        if positions is None:
+            positions = T.default_positions(cfg, tokens)
+        rest = {k: v for k, v in params.items() if k != "layers"}
+        enc_stacks = None
+        if "encoder" in rest:
+            enc_stacks = rest["encoder"]["layers"]
+            rest["encoder"] = {k: v for k, v in rest["encoder"].items() if k != "layers"}
+        top = tree_lib.tree_map(_grad_leaf, rest)
         stacks = params["layers"]
         n = stacks["attn_norm"]["scale"].shape[0]
-        positions = T._positions_default(tokens)
         aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
         tape = tp_lib.Tape()
         try:
-            inputs = []
+            inputs, enc_inputs, enc = [], [], None
             with torch.no_grad():
-                x = tp.embed(top, tokens)
+                if enc_stacks is not None:
+                    e = T.encoder_embed(cfg, top["encoder"], extras["encoder_frames"], tp)
+                    for lp in L.unstack(enc_stacks, cfg.enc_layers):
+                        enc_inputs.append(e)
+                        e = T.encoder_layer(cfg, lp, e, tp)
+                    enc_inputs.append(e)  # the final norm's input
+                    enc = L.apply_norm(e, top["encoder"]["final_norm"], cfg.norm_type)
+                x = T.embed(cfg, top, tokens, tp)
                 for lp in L.unstack(stacks, n):
                     inputs.append(x)
-                    x, _ = T.decoder_layer(cfg, lp, x, aux, positions,
-                                           use_kernel=options.use_kernel, tp=tp)
+                    x, aux = T.decoder_layer(cfg, lp, x, aux, positions, enc,
+                                             use_kernel=options.use_kernel, tp=tp)
+                aux = _tp_aux(tp, options, aux / cfg.n_layers)
             tp.tape = tape
             with torch.enable_grad():
                 h = x.requires_grad_(True)
@@ -269,28 +324,54 @@ def make_tp_value_and_grad(cfg: ArchConfig, options: TrainOptions, act_specs):
             # the loss's graph goes now, not with ``f``'s locals after the layers
             grad, value, loss = h.grad, value.detach(), loss.detach()
             del h
+            if enc is not None:
+                enc.requires_grad_(True)
             layer_grads = tree_lib.tree_map(torch.zeros_like, stacks)
+            zero = torch.zeros_like(aux)
             for i in reversed(range(n)):
                 lp = tree_lib.tree_map(lambda t, i=i: _grad_leaf(t[i]), stacks)
                 with torch.enable_grad():
                     x_in = inputs[i].requires_grad_(True)
-                    y, _ = T.decoder_layer(cfg, lp, x_in, aux, positions,
-                                           use_kernel=options.use_kernel, tp=tp)
-                tape.backward(y, grad)
+                    y, a_loss = T.decoder_layer(cfg, lp, x_in, zero, positions, enc,
+                                                use_kernel=options.use_kernel, tp=tp)
+                if cfg.family == "moe":
+                    tape.backward([y, a_loss], [grad, torch.full_like(a_loss, aux_seed)])
+                else:
+                    tape.backward(y, grad)
                 grad, inputs[i] = x_in.grad, None
-                for dst, leaf in zip(tree_lib.leaves(layer_grads), tree_lib.leaves(lp),
-                                     strict=True):
-                    if leaf.grad is not None:
-                        dst[i].copy_(leaf.grad)
-                del y, lp, x_in
+                layer_grads_into(layer_grads, lp, i)
+                del y, a_loss, lp, x_in
+            enc_grads = None
+            if enc is not None:
+                with torch.enable_grad():
+                    e_in = enc_inputs[-1].requires_grad_(True)
+                    e_out = L.apply_norm(e_in, top["encoder"]["final_norm"], cfg.norm_type)
+                tape.backward(e_out, enc.grad)
+                g, enc = e_in.grad, None
+                enc_grads = tree_lib.tree_map(torch.zeros_like, enc_stacks)
+                for i in reversed(range(cfg.enc_layers)):
+                    lp = tree_lib.tree_map(lambda t, i=i: _grad_leaf(t[i]), enc_stacks)
+                    with torch.enable_grad():
+                        e_in = enc_inputs[i].requires_grad_(True)
+                        e_out = T.encoder_layer(cfg, lp, e_in, tp)
+                    tape.backward(e_out, g)
+                    g, enc_inputs[i] = e_in.grad, None
+                    layer_grads_into(enc_grads, lp, i)
+                    del e_out, lp, e_in
+                with torch.enable_grad():
+                    e0 = T.encoder_embed(cfg, top["encoder"], extras["encoder_frames"], tp)
+                tape.backward(e0, g)
+                del e0, g
             with torch.enable_grad():
-                x0 = tp.embed(top, tokens)
+                x0 = T.embed(cfg, top, tokens, tp)
             tape.backward(x0, grad)
         finally:
             tp.tape = None
         grads = tree_lib.tree_map(
             lambda t: torch.zeros_like(t) if t.grad is None else t.grad, top)
         grads["layers"] = layer_grads
+        if enc_grads is not None:
+            grads["encoder"]["layers"] = enc_grads
         return (value, (loss, aux)), grads
 
     return f
@@ -326,13 +407,20 @@ def _sync_grads(comm, grads, loss, aux, options: TrainOptions, axes, dp_shape, t
     return grads, loss, aux
 
 
+def _step_specs(options: TrainOptions, act_specs):
+    """``act_specs`` with the policy of the train step's blocks: under a sync mode
+    the data axes are manual, so the blocks are whole over them (``fsdp=False``;
+    a ``tp=False`` policy then splits nothing and takes the plain sync step)."""
+    policy = (act_specs or {}).get("policy")
+    if policy is None or options.sync == "auto":
+        return act_specs
+    return {**act_specs, "policy": dataclasses.replace(policy, fsdp=False)}
+
+
 def _make_tp_train_step(cfg: ArchConfig, ocfg: opt.AdamWConfig, options: TrainOptions,
                         act_specs):
-    """``make_train_step`` under tensor parallelism (its docstring)."""
-    policy = act_specs["policy"]
-    if options.sync != "auto":  # the data axes manual: blocks whole over them
-        policy = dataclasses.replace(policy, fsdp=False)
-        act_specs = {**act_specs, "policy": policy}
+    """``make_train_step`` on the sharded path (its docstring): ``act_specs`` holds
+    the policy of the step's blocks (``_step_specs``)."""
     tp = tp_lib.context(cfg, act_specs)
     comm, axes = tp.comm, tp.data_axes
     if (options.sync in ("torus", "hamiltonian") and not options.compress_k
@@ -366,23 +454,26 @@ def make_train_step(cfg: ArchConfig, ocfg: opt.AdamWConfig, options: TrainOption
     once, with the synced gradients, and returns them.  ``act_specs`` goes to
     ``make_loss_fn``.
 
-    Tensor parallelism (dense family): with ``act_specs["policy"]`` a ``Policy``
-    with ``tp=True`` and ``act_specs["mesh"]`` the rank's ``Comm``, the step runs
-    on one rank inside ``Mesh.run`` and reads neither ``policy`` nor ``mesh``:
+    The sharded path (the dense, MoE, VLM and audio families): with
+    ``act_specs["policy"]`` a ``Policy`` and ``act_specs["mesh"]`` the rank's
+    ``Comm``, the step runs on one rank inside ``Mesh.run`` and reads neither
+    ``policy`` nor ``mesh``:
     ``params`` are its blocks (``sharding.rank_blocks``), ``opt_state``
     ``optimizer.init`` of them, ``batch`` its rows under ``batch_specs``.
     Under ``sync="auto"`` the blocks are those of ``act_specs``' policy (FSDP
     over ``data``); under a sync mode those of the policy with ``fsdp=False``
-    (split over ``model``, whole over the data axes, JAX's ``in_specs=P()``
-    over its manual data axes), their gradients reduced over the data axes by
-    the mode's algorithm (mean).  The gradients come from
+    (split over ``model`` under ``tp=True``, whole over the data axes, JAX's
+    ``in_specs=P()`` over its manual data axes), their gradients reduced over
+    the data axes by the mode's algorithm (mean).  The gradients come from
     ``make_tp_value_and_grad``; the leaves whole over a data axis are summed
     over it (``TensorParallel.sum_over_data``), and the clipping norm is the
     whole gradient's (``TensorParallel.global_norm``).  ``grad_norm`` and the
-    loss are the same on every rank.  Another family raises.
+    loss are the same on every rank.  What the path does not hold raises
+    (``tensor_parallel.context``).
     """
-    if tp_lib.context(cfg, act_specs) is not None:
-        return _make_tp_train_step(cfg, ocfg, options, act_specs)
+    step_specs = _step_specs(options, act_specs)
+    if tp_lib.context(cfg, step_specs) is not None:
+        return _make_tp_train_step(cfg, ocfg, options, step_specs)
     if options.sync == "auto":
         grad_fn = value_and_grad(make_loss_fn(cfg, options, act_specs=act_specs))
 
@@ -406,7 +497,7 @@ def make_train_step(cfg: ArchConfig, ocfg: opt.AdamWConfig, options: TrainOption
         params = tree_lib.tree_map(lambda t: t.to(comm.device), params)
         batch = {k: v.to(comm.device) for k, v in batch.items()}
         rank_grad_fn = value_and_grad(make_loss_fn(cfg, options,
-                                                   act_specs={**(act_specs or {}), "mesh": comm}))
+                                                   act_specs={**(step_specs or {}), "mesh": comm}))
         (_, (loss, aux)), grads = rank_grad_fn(params, batch)
         return _sync_grads(comm, grads, loss, aux, options, axes, dp_shape)
 
@@ -445,12 +536,12 @@ def make_prefill_step(cfg: ArchConfig, options: TrainOptions, act_specs=None):
     """prefill_step(params, batch) -> logits of the last position, (B, 1, V).
     ``act_specs`` goes to the model's ``forward``, as in ``make_loss_fn``.
 
-    Tensor parallelism (dense family): with ``act_specs["policy"]`` a ``Policy``
-    with ``tp=True`` and ``act_specs["mesh"]`` the rank's ``Comm``, the step runs
-    on one rank inside ``Mesh.run``: ``params`` its blocks under
-    ``sanitize_specs(param_specs(...))`` (``sharding.rank_blocks``), ``batch``
-    its rows under ``batch_specs``, and the logits are its rows', the whole
-    vocab (``parallel/tensor_parallel.py``).  Another family raises.
+    The sharded path: with ``act_specs["policy"]`` a ``Policy`` and
+    ``act_specs["mesh"]`` the rank's ``Comm``, the step runs on one rank inside
+    ``Mesh.run``: ``params`` its blocks under ``sanitize_specs(param_specs(...))``
+    (``sharding.rank_blocks``), ``batch`` its rows under ``batch_specs``, and the
+    logits are its rows', the whole vocab (``parallel/tensor_parallel.py``).
+    What the path does not hold raises.
     """
     model = get_model(cfg)
     tp_lib.context(cfg, act_specs)  # raises for a family without the path

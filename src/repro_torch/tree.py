@@ -28,36 +28,39 @@ def _children(node):
 def flatten(tree) -> tuple[list, Any]:
     """(leaves, structure); ``unflatten(structure, leaves)`` rebuilds the tree."""
     leaves: list = []
+    return leaves, _walk(tree, leaves)
 
-    def walk(node):
-        inner = _children(node)
-        if inner is None:
-            leaves.append(node)
-            return None
-        kind, keys, kids = inner
-        return kind, keys, [walk(k) for k in kids]
 
-    return leaves, walk(tree)
+def _walk(node, leaves: list):
+    """``node``'s structure, its leaves appended to ``leaves``.  A module-level
+    function, not a closure that calls itself: such a closure is a reference
+    cycle that would hold ``leaves`` (tensors) until the cyclic collector runs."""
+    inner = _children(node)
+    if inner is None:
+        leaves.append(node)
+        return None
+    kind, keys, kids = inner
+    return kind, keys, [_walk(k, leaves) for k in kids]
 
 
 def unflatten(structure, leaves):
     it = iter(leaves)
-
-    def build(spec):
-        if spec is None:
-            return next(it)
-        kind, keys, kids = spec
-        values = [build(k) for k in kids]
-        if kind == "dict":
-            return dict(zip(keys, values))
-        if kind is tuple:
-            return tuple(values)
-        return kind(*values)  # a NamedTuple
-
-    out = build(structure)
+    out = _build(structure, it)
     if next(it, None) is not None:
         raise ValueError("unflatten: more leaves than the structure holds")
     return out
+
+
+def _build(spec, it):
+    if spec is None:
+        return next(it)
+    kind, keys, kids = spec
+    values = [_build(k, it) for k in kids]
+    if kind == "dict":
+        return dict(zip(keys, values))
+    if kind is tuple:
+        return tuple(values)
+    return kind(*values)  # a NamedTuple
 
 
 def leaves(tree) -> list:

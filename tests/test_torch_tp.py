@@ -32,7 +32,7 @@ The same cases over 4 gloo processes (``DistMesh``; a ``FileStore``
 rendezvous, no TCP port) give the ``LocalMesh``'s bits; the vocab-parallel
 embedding gives the lookup's bits; each rank's cache holds the bytes of
 ``cache_specs``' block under the pair route, ``model`` times them under the
-gather route; a ``tp=True`` policy raises for the other families; the dry-run
+gather route; what the sharded path does not hold raises; the dry-run
 traces the TP steps of llama3.2-3b-smoke's prefill_32k and decode_32k cells,
 and on a ``TraceMesh`` counts rank 0's collectives as a ``LocalMesh`` run does.
 
@@ -342,18 +342,44 @@ def test_vocab_parallel_embed_is_the_lookup_bit_for_bit(case, dtype):
 @pytest.mark.parametrize("family_arch", ["moonshot-v1-16b-a3b", "mamba2-130m",
                                          "recurrentgemma-9b", "qwen2-vl-7b", "whisper-tiny"])
 def test_tp_policy_on_another_family_raises(family_arch):
+    """What the sharded path does not hold raises, naming its ROADMAP item: the SSM
+    (14.1) and hybrid (14.2) families under any policy, ``ce_chunk`` under a
+    ``tp=True`` policy (14.3; the VLM's case here), ``moe_mode`` ``"ep"`` and
+    ``"gshard"`` and the audio family under a ``tp=True`` policy (14.4).  The MoE
+    (``moe_mode="tp"``) and the VLM under ``Policy()`` and the audio family under
+    its ``default_policy`` (``tp=False``) take the sharded path
+    (``test_torch_tp_families.py``)."""
     cfg = get_config(family_arch, smoke=True)
     mesh = TraceMesh((1, 4), AXES)
-    act = {"mesh": Comm(mesh, 0), "policy": POLICY}
-    for make in (lambda: TS.make_prefill_step(cfg, TS.TrainOptions(), act_specs=act),
-                 lambda: TS.make_decode_step(cfg, act_specs=act),
-                 lambda: TS.make_loss_fn(cfg, TS.TrainOptions(), act_specs=act)):
-        with pytest.raises(ValueError, match="ROADMAP item 14"):
-            make()
-    # a tp=False policy (the smoke archs' default_policy, whisper-tiny's and
-    # mamba2-130m's at full width) keeps today's path
+
+    def act(policy):
+        return {"mesh": Comm(mesh, 0), "policy": policy}
+
+    def steps(c, policy):
+        return (lambda: TS.make_prefill_step(c, TS.TrainOptions(), act_specs=act(policy)),
+                lambda: TS.make_decode_step(c, act_specs=act(policy)),
+                lambda: TS.make_loss_fn(c, TS.TrainOptions(), act_specs=act(policy)))
+
+    raising = {"moonshot-v1-16b-a3b": [(dataclasses.replace(cfg, moe_mode=m), POLICY, "14.4")
+                                       for m in ("ep", "gshard")],
+               "mamba2-130m": [(cfg, POLICY, "14.1"), (cfg, sh.default_policy(cfg), "14.1")],
+               "recurrentgemma-9b": [(cfg, POLICY, "14.2"),
+                                     (cfg, sh.default_policy(cfg), "14.2")],
+               "whisper-tiny": [(cfg, POLICY, "14.4")]}
+    for c, policy, item in raising.get(family_arch, []):
+        for make in steps(c, policy):
+            with pytest.raises(ValueError, match=f"ROADMAP item {item}"):
+                make()
+    if family_arch == "qwen2-vl-7b":
+        with pytest.raises(ValueError, match=r"ce_chunk.*ROADMAP item 14\.3"):
+            TS.make_loss_fn(cfg, TS.TrainOptions(ce_chunk=4), act_specs=act(POLICY))
+    if family_arch in ("moonshot-v1-16b-a3b", "qwen2-vl-7b"):
+        assert tp_lib.context(cfg, act(POLICY)).tp
+    # no policy: today's unsharded path; the smoke archs' default_policy (tp=False)
     assert not sh.default_policy(cfg).tp
-    assert tp_lib.context(cfg, {"mesh": Comm(mesh, 0), "policy": sh.default_policy(cfg)}) is None
+    assert tp_lib.context(cfg, {"mesh": Comm(mesh, 0)}) is None
+    if family_arch in ("moonshot-v1-16b-a3b", "qwen2-vl-7b", "whisper-tiny"):
+        assert not tp_lib.context(cfg, act(sh.default_policy(cfg))).tp
 
 
 def test_tp_checks_blocks_and_autograd():
