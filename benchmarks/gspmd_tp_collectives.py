@@ -1,7 +1,9 @@
 """The collectives GSPMD puts in the JAX package's jitted serving steps under
 ``param_specs``' 2D layout: an arch at full width (llama3.2-3b unless ``--arch``
-names another, such as moonshot-v1-16b-a3b for the MoE layer's), one layer, on
-a mesh of (data, model) = (1, 16) host devices.
+names another, such as moonshot-v1-16b-a3b for the MoE layer's), ``--layers``
+layers (1 by default; recurrentgemma-9b needs 3, one (rec, rec, attn) block), on
+a mesh of (data, model) = (1, 16) host devices.  ``--smoke`` takes the arch's
+smoke twin, a quick check of the script itself.
 
 The prefill step (B 4 x 2048) and the decode step (B 4, a cache of 2048) are
 jitted with ``in_shardings`` as ``repro.launch.dryrun.build_cell`` jits them,
@@ -12,7 +14,7 @@ function with a re-layout of its own; ``chip_smoke.py`` prints these lines
 beside its own collectives.  XLA's CPU backend may upcast bf16 dots to f32, so
 the dtypes are not evidence about a TPU.
 
-  PYTHONPATH=src python benchmarks/gspmd_tp_collectives.py [--arch moonshot-v1-16b-a3b]
+  PYTHONPATH=src python benchmarks/gspmd_tp_collectives.py [--arch recurrentgemma-9b --layers 3]
 """
 
 from __future__ import annotations
@@ -58,13 +60,16 @@ def main() -> int:
 
     from repro.configs import abstract_params, get_config
     from repro.launch import compat
-    from repro.models import transformer as T
+    from repro.models import get_model
     from repro.parallel import sharding as sh
     from repro.train import steps
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3.2-3b")
-    cfg = dataclasses.replace(get_config(ap.parse_args().arch), n_layers=1)
+    ap.add_argument("--layers", type=int, default=1)
+    ap.add_argument("--smoke", action="store_true")
+    args = ap.parse_args()
+    cfg = dataclasses.replace(get_config(args.arch, smoke=args.smoke), n_layers=args.layers)
     mesh = compat.make_mesh((1, 16), ("data", "model"))
     policy = sh.default_policy(cfg)
     params = abstract_params(cfg)
@@ -76,12 +81,12 @@ def main() -> int:
     prefill = jax.jit(steps.make_prefill_step(cfg, steps.TrainOptions(), act_specs=act),
                       in_shardings=(pshard, {"tokens": tshard}))
     tokens = jax.ShapeDtypeStruct((BATCH, SEQ), jnp.int32)
-    cache = jax.eval_shape(lambda: T.init_cache(cfg, BATCH, SEQ))
+    cache = jax.eval_shape(lambda: get_model(cfg).init_cache(cfg, BATCH, SEQ))
     cshard = sh.to_shardings(mesh, sh.cache_specs(cfg, cache, policy, mesh, BATCH))
     decode = jax.jit(steps.make_decode_step(cfg), in_shardings=(pshard, cshard, tshard))
     one = jax.ShapeDtypeStruct((BATCH, 1), jnp.int32)
     print(f"jax {jax.__version__}, {len(jax.devices())} {jax.devices()[0].platform} devices; "
-          f"{cfg.name} at 1 layer, mesh (data, model) = (1, 16), {policy}")
+          f"{cfg.name} at {cfg.n_layers} layers, mesh (data, model) = (1, 16), {policy}")
     for name, fn, args in (("prefill", prefill, (params, {"tokens": tokens})),
                            ("decode", decode, (params, cache, one))):
         lines = collectives(fn.lower(*args).compile().as_text())

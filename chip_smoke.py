@@ -194,7 +194,7 @@ MoE, VLM and audio families in their sharded layouts:
    all_gather and all_to_all calls and input bytes, the all-to-all's sends
    by rank pair) against closed forms from the shapes, GSPMD's collectives
    for the same layer (``benchmarks/gspmd_tp_collectives.py``) printed for
-   the record; the bf16 decode loop (16 teacher-forced, 8 greedy: 16 rank
+   the record; the bf16 decode loop (16 teacher-forced, 4 greedy: 16 rank
    threads share one GIL) beside the unsharded one, token agreement
    reported; then fp32 through tf32: the TP prefill's last logits on (1, 16)
    and on (2, 8) (FSDP gathers over data) and the decode's prompt steps'
@@ -3612,7 +3612,7 @@ def phase_dryrun(smi) -> dict:
     return {"cell": rec, "step": {"predicted": pred, "flops": flops, "peak_bytes": peak,
                                   "peak_rel_err": peak_err, "trace_s": trace_s,
                                   "step_s": step_s, "terms_s": terms},
-            "tp_moe_rank": _dryrun_tp_moe(smi),
+            "tp_moe_rank": _dryrun_tp_moe(smi), "tp_hybrid_rank": _dryrun_tp_hybrid(smi),
             "card": rates, "datasheet": {"hardware": roof.HARDWARE,
                                          "peak_flops": roof.PEAK_FLOPS,
                                          "hbm_bw": roof.HBM_BW, "link_bw": roof.LINK_BW}}
@@ -3620,17 +3620,41 @@ def phase_dryrun(smi) -> dict:
 
 def _dryrun_tp_moe(smi) -> dict:
     """The dry-run's prediction of one rank's sharded MoE train step against that
-    rank on the card: moonshot-v1-16b-a3b at FAM_DRYRUN_LAYERS layer (full width,
-    fp32, remat, the plain attention that ``FlopCounterMode`` sees), B 1 x
-    FAM_DRYRUN_LEN, TP over ``model`` on (data, model) = FAM_DRYRUN_SHAPE, rank 0 a
-    thread on the card and ranks 1-3 threads on the host, so that the card holds
-    rank 0 alone: its FLOPs (``FlopCounterMode`` in its thread) equal to the
-    trace's, exactly, and its peak (``max_memory_allocated``, its blocks, moments
-    and rows included, as the trace counts them) within DRYRUN_PEAK_RTOL."""
+    rank on the card: moonshot-v1-16b-a3b at FAM_DRYRUN_LAYERS layer
+    (``_dryrun_tp_rank``), its peak within DRYRUN_PEAK_RTOL."""
+    from repro_torch.configs import get_config
+
+    return _dryrun_tp_rank(dataclasses.replace(get_config(MOE_ARCH), n_layers=FAM_DRYRUN_LAYERS),
+                           DRYRUN_PEAK_RTOL, smi)
+
+
+def _dryrun_tp_hybrid(smi) -> dict:
+    """The same for one rank of recurrentgemma-9b's sharded train step at
+    REC_TRAIN_LAYERS (one (rec, rec, attn) block), B 1 x REC_DRYRUN_LEN on
+    REC_DRYRUN_SHAPE, its peak
+    within REC_DRYRUN_PEAK_RTOL; the ranks' losses within 1e-6 (rank 0's log and
+    mean round on the card, the others' on the host)."""
+    from repro_torch.configs import get_config
+
+    return _dryrun_tp_rank(dataclasses.replace(get_config(HYBRID_ARCH), n_layers=REC_TRAIN_LAYERS),
+                           REC_DRYRUN_PEAK_RTOL, smi, tokens=REC_DRYRUN_LEN,
+                           shape=REC_DRYRUN_SHAPE, loss_rtol=1e-6)
+
+
+def _dryrun_tp_rank(cfg, rtol: float, smi, tokens: int | None = None, shape=None,
+                    loss_rtol: float = 0.0) -> dict:
+    """The dry-run's prediction of one rank's sharded train step against that rank
+    on the card: ``cfg`` at full width, fp32, remat, the plain attention that
+    ``FlopCounterMode`` sees, B 1 x ``tokens`` (FAM_DRYRUN_LEN), TP over ``model``
+    on (data, model) = ``shape`` (FAM_DRYRUN_SHAPE), rank 0 a thread on the card and
+    the others threads on the host, so that the card holds rank 0 alone: its FLOPs
+    (``FlopCounterMode`` in its thread) equal to the trace's, exactly, and its peak
+    (``max_memory_allocated``, its blocks, moments and rows included, as the trace
+    counts them) within ``rtol``; every rank's loss within ``loss_rtol`` of rank
+    0's."""
     from torch.utils.flop_counter import FlopCounterMode
 
     from repro_torch import tree as tree_lib
-    from repro_torch.configs import get_config
     from repro_torch.core.comm import Comm, LocalMesh, TraceMesh
     from repro_torch.data.pipeline import make_batch
     from repro_torch.launch import dryrun
@@ -3639,8 +3663,8 @@ def _dryrun_tp_moe(smi) -> dict:
     from repro_torch.train import optimizer as opt
     from repro_torch.train import steps as st
 
-    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=FAM_DRYRUN_LAYERS)
     policy = sh.Policy()
+    tokens, shape = tokens or FAM_DRYRUN_LEN, shape or FAM_DRYRUN_SHAPE
     ocfg = opt.AdamWConfig(lr=3e-3, warmup_steps=1, total_steps=2, schedule=cfg.schedule)
     opts = st.TrainOptions(remat=True, use_kernel=False)
     params = get_model(cfg).init_params(cfg, torch.Generator("cuda").manual_seed(0),
@@ -3648,15 +3672,15 @@ def _dryrun_tp_moe(smi) -> dict:
     params = tree_lib.tree_map(lambda t: t.cpu(), params)  # the weights on the host
     torch.cuda.empty_cache()
     batch = {k: torch.from_numpy(v)
-             for k, v in make_batch(cfg, FAM_DRYRUN_LEN, 1, step=0).items()}
-    devices = [TP_DEVICE] + ["cpu"] * (math.prod(FAM_DRYRUN_SHAPE) - 1)
-    mesh = LocalMesh(FAM_DRYRUN_SHAPE, TP_AXES, devices)
+             for k, v in make_batch(cfg, tokens, 1, step=0).items()}
+    devices = [TP_DEVICE] + ["cpu"] * (math.prod(shape) - 1)
+    mesh = LocalMesh(shape, TP_AXES, devices)
     specs = sh.sanitize_specs(params, sh.param_specs(cfg, params, policy), mesh)
 
     def step_of(comm):
         return st.make_train_step(cfg, ocfg, opts, act_specs={"mesh": comm, "policy": policy})
 
-    trace_mesh = TraceMesh(FAM_DRYRUN_SHAPE, TP_AXES)
+    trace_mesh = TraceMesh(shape, TP_AXES)
     meta = tree_lib.tree_map(lambda t: t.to("meta"),
                              sh.block_views(params, specs, trace_mesh, 0))
 
@@ -3699,21 +3723,23 @@ def _dryrun_tp_moe(smi) -> dict:
     del blocks, rows
     torch.cuda.empty_cache()
     peak_err = abs(pred["peak_bytes"] - peak) / max(1, peak)
+    agree = all(abs(x - losses[0]) <= loss_rtol * abs(losses[0]) for x in losses)
     rec = {"predicted": pred, "flops": counted["flops"], "peak_bytes": peak,
            "peak_rel_err": peak_err, "trace_s": trace_s, "step_s": step_s, "loss": losses[0],
-           "shape": FAM_DRYRUN_SHAPE, "layers": FAM_DRYRUN_LAYERS, "tokens": FAM_DRYRUN_LEN}
-    log(f"[dryrun] {cfg.name} at {FAM_DRYRUN_LAYERS} layer, fp32, TP on (data, model) = "
-        f"{FAM_DRYRUN_SHAPE}, batch 1 x {FAM_DRYRUN_LEN}, remat, plain attention, rank 0 on "
-        f"the card (ranks 1-{mesh.size - 1} on the host): predicted on fake tensors in "
+           "shape": shape, "layers": cfg.n_layers, "tokens": tokens,
+           "peak_rtol": rtol}
+    log(f"[dryrun] {cfg.name} at {cfg.n_layers} layers, fp32, TP on (data, model) = "
+        f"{shape}, batch 1 x {tokens}, remat, plain attention, rank 0 on "
+        f"the card ({mesh.size - 1} more on the host): predicted on fake tensors in "
         f"{trace_s:.1f}s: {pred['flops']} FLOPs, peak {pred['peak_bytes']} B; rank 0 on the "
         f"card: {counted['flops']} FLOPs, peak {peak} B (predicted rel {peak_err:.4f}, tol "
-        f"{DRYRUN_PEAK_RTOL}); step {step_s:.2f}s, loss {losses[0]:.6f} (every rank alike: "
-        f"{len(set(losses)) == 1}) [{smi}]")
+        f"{rtol}); step {step_s:.2f}s, loss {losses[0]:.6f} (every rank alike: "
+        f"{agree}) [{smi}]")
     if counted["flops"] != pred["flops"]:
-        raise AssertionError(f"the dry-run's MoE rank FLOPs {pred['flops']} != the card's "
-                             f"{counted['flops']}")
-    if peak_err > DRYRUN_PEAK_RTOL or len(set(losses)) != 1 or any(launches.values()):
-        raise AssertionError(f"the dry-run's MoE rank peak {pred['peak_bytes']} B is "
+        raise AssertionError(f"the dry-run's {cfg.name} rank FLOPs {pred['flops']} != the "
+                             f"card's {counted['flops']}")
+    if peak_err > rtol or not agree or any(launches.values()):
+        raise AssertionError(f"the dry-run's {cfg.name} rank peak {pred['peak_bytes']} B is "
                              f"{peak_err:.3f} from the card's {peak} B, or the ranks' losses "
                              f"{losses} differ, or kernels {launches} launched")
     return rec
@@ -3763,10 +3789,11 @@ TP_MESHES = ((1, 16), (2, 8))  # (data, model): the bf16 path and the decode on 
 TP_AXES = ("data", "model")
 TP_DEVICE = "cuda"  # the TP phases' ranks' device ("cpu" rehearses them at smoke size)
 # The TP decode loops: teacher-forced prompt, then greedy steps.  16 rank threads
-# share one GIL, so a TP decode step costs 16 ranks' host work (~1.1 s on the
+# share one GIL, so a TP decode step costs 16 ranks' host work (1.1-1.9 s on the
 # H100's host): the fp32 gate's loop is cut from the serve phase's 128 + 32 to
-# 64 + 8, the bf16 loop (reported, not gated) to 16 + 8.
-TP_PROMPT, TP_DECODE = 64, 8
+# 16 + 4 (64 + 8 before the SSM and hybrid phases took ~150 s of the script's
+# time), the bf16 loop (reported, not gated) to 16 + 4.
+TP_PROMPT, TP_DECODE = 16, 4
 TP_PROMPT_BF16 = 16
 # The collectives GSPMD puts in the JAX package's jitted steps for one layer of
 # llama3.2-3b on (data, model) = (1, 16) host devices, B 4 (prefill x 2048), from
@@ -3900,12 +3927,13 @@ def _tp_decode(cfg, mesh, blocks, prompts, steps: int, policy=None) -> tuple:
     ``make_decode_step``: (the prompt steps' logits (B, P, V) in batch order, the
     greedy tokens (B, steps), seconds a step).  ``mesh`` None: the unsharded model
     on ``blocks`` (the whole weights)."""
-    from repro_torch.models import transformer as T
+    from repro_torch.models import get_model
     from repro_torch.train import steps as st
 
     policy = policy or _tp_policy()
     p_len = prompts.shape[1]
     heads = [0] if mesh is None else _tp_heads(mesh, policy)
+    T = get_model(cfg)
 
     def fn(comm, p):
         act = None if comm is None else {"mesh": comm, "policy": policy}
@@ -4643,16 +4671,20 @@ def _fam_policy(cfg, layout: str):
 
 def _fam_closed_forms(cfg, policy, shape, batch: int, seq: int, kind: str, sync: str = "auto",
                       dtype=torch.float32) -> dict:
-    """What one rank of a sharded prefill step, or train step (``make_tp_value_and_grad``
-    then AdamW), calls and moves, from the shapes and the specs: calls and input
-    bytes by collective.  A train step runs each layer, the embed and the
-    encoder's input twice (no-grad, then recomputed under the tape), the unembed
-    once, and each cut's transpose once."""
+    """What one rank of a sharded prefill step (a decode step: ``seq`` 1), or train
+    step (``make_tp_value_and_grad`` then AdamW), calls and moves, from the
+    shapes and the specs: calls and input bytes by collective.  A train step runs
+    each layer, the embed and the encoder's input twice (no-grad, then recomputed
+    under the tape), the unembed once, and each cut's transpose once.  The
+    hybrid's attention layers are one a block; its recurrent layers gather their
+    conv output over ``model``."""
     from repro_torch import tree as tree_lib
     from repro_torch.configs import abstract_params
     from repro_torch.core.comm import TraceMesh
     from repro_torch.models import moe
     from repro_torch.parallel import sharding as sh
+
+    from repro_torch.parallel import tensor_parallel as tp_lib
 
     train = kind == "train"
     if train and sync != "auto":  # the data axes manual: blocks whole over them
@@ -4665,6 +4697,10 @@ def _fam_closed_forms(cfg, policy, shape, batch: int, seq: int, kind: str, sync:
     tok, n_l, hd = rows * seq, cfg.n_layers, cfg.kq_head_dim
     act = tok * cfg.d_model
     passes = 2 if train else 1
+    # the layers with attention (the hybrid's: one a block) and the recurrent ones
+    n_att = n_l // max(1, cfg.attention_period) if cfg.family == "hybrid" else n_l
+    n_rec = n_l - n_att if cfg.family == "hybrid" else 0
+    stacks = tp_lib.stacks(cfg)
     out = {k: {"calls": 0, "bytes": 0}
            for k in ("psum", "all_gather", "all_to_all", "reduce_scatter")}
 
@@ -4683,8 +4719,7 @@ def _fam_closed_forms(cfg, policy, shape, batch: int, seq: int, kind: str, sync:
         split[name] = [("model" in d) for d in dims]
         groups.add(frozenset(axes))
         if "data" in axes:  # FSDP: a stacked leaf a layer at a time, else whole
-            per = (cfg.enc_layers if name.startswith("encoder.layers.") else
-                   n_l if name.startswith("layers.") else 1)
+            per = x.shape[0] if tp_lib._stacked(name, stacks) else 1
             times = 1 if name == "unembed" else passes
             add("all_gather", times * per, times * block * elt)
             if train:  # the transposes: each layer's gradient, reduce-scattered
@@ -4703,12 +4738,18 @@ def _fam_closed_forms(cfg, policy, shape, batch: int, seq: int, kind: str, sync:
         add("all_gather", 2 * n_l * passes, 2 * n_l * passes * piece * elt)
         qkv, o = tok * (h + 2 * kv) * hd // n, tok * h * hd // n
         if sh.head_split(rows, kv, n) is None:  # the gather route
-            add("all_gather", n_l * passes, n_l * passes * qkv * elt)
+            add("all_gather", n_att * passes, n_att * passes * qkv * elt)
             if train:
-                add("reduce_scatter", n_l, n_l * n * qkv * elt)
+                add("reduce_scatter", n_att, n_att * n * qkv * elt)
         else:  # q, k, v in, o back; in training recomputed, and their transposes
             k = 3 if train else 1
-            add("all_to_all", 2 * n_l * k, n_l * k * (qkv + o) * elt)
+            add("all_to_all", 2 * n_att * k, n_att * k * (qkv + o) * elt)
+        # a recurrent layer's conv output, all-gathered over model for w_a and w_i
+        # (in training recomputed, and the reduce-scatter of its transpose)
+        conv = tok * cfg.d_model // n
+        add("all_gather", n_rec * passes, n_rec * passes * conv * elt)
+        if train:
+            add("reduce_scatter", n_rec, n_rec * n * conv * elt)
         if not train and (split["unembed"][1] if "unembed" in split else split["embed"][0]):
             add("all_gather", 1, rows * cfg.vocab // n * elt)  # the last logits' columns
         if train:
@@ -4718,6 +4759,8 @@ def _fam_closed_forms(cfg, policy, shape, batch: int, seq: int, kind: str, sync:
             add("all_gather", 1, tok * 4)
             add("psum", 3, 2 * tok * 4 + act * elt)
             add("psum", n_l, n_l * act * elt)
+            # the recurrent layers' lambda_p (fp32), whole, read at the rank's channels
+            add("psum", n_rec, n_rec * cfg.d_model * 4)
             if cfg.family == "moe":
                 group = min(moe.GROUP_TOKENS, seq)
                 g = rows * -(-seq // group)
@@ -4744,7 +4787,10 @@ def _fam_train_gate(cfg, params, batch, runs, tag: str, smi) -> dict:
     (no collective under autograd) and the tf32 kernel, against the unsharded model
     in fp64 (plain attention): the loss, ``grad_norm`` and every leaf's clipped
     gradient within max(FP32_TOL, floor), the floor being the plain chunked fp32
-    step's distance from fp64 (``_reference_runs``), and the updated parameters
+    step's distance from fp64 (``_reference_runs``; for the SSM and hybrid
+    families, which reach no kernel, twice the unsharded fp32 step's,
+    ``_gate_bound``, its weights on the host while the fp64 run holds the card),
+    and the updated parameters
     within SYNC_STEP_TOL plus lr·|u(g) - u(g64)|.  The MoE's runs replay the fp64
     run's routing (``_routing_log``): free, a (token, choice) pair near a top-k
     tie moves one token's output by O(1) between paths.  Launches and
@@ -4761,7 +4807,10 @@ def _fam_train_gate(cfg, params, batch, runs, tag: str, smi) -> dict:
         return g / (g.abs() + ocfg.eps)
 
     moe_log = [] if cfg.family == "moe" else None
-    p64 = tree_lib.tree_map(lambda t: t.double(), params)
+    recurrent = cfg.family in RECURRENT
+    if recurrent:  # the fp64 run's weights, gradients and logits fill the card alone
+        _to_host(params)
+    p64 = tree_lib.tree_map(lambda t: t.to(TP_DEVICE, torch.float64), params)
     with (_routing_log() if moe_log is not None else contextlib.nullcontext()) as log_:
         ref = _loss_and_grads(cfg, p64, {k: (v.double() if v.is_floating_point() else v)
                                          for k, v in batch.items()}, use_kernel=False)
@@ -4775,9 +4824,18 @@ def _fam_train_gate(cfg, params, batch, runs, tag: str, smi) -> dict:
     for n in names:
         g64[n] = (g64[n] * scale64).cpu()
     torch.cuda.empty_cache()
-    refs, host = _reference_runs(cfg, params, batch, around)
-    host.pop("kernel"), host.pop("fp64")
-    refs["plain"].pop("grads")
+    if recurrent:  # no kernel and no attention chunking to vary: the plain step's floor
+        p32 = tree_lib.tree_map(lambda t: t.to(TP_DEVICE), params)
+        plain = _loss_and_grads(cfg, p32, batch, use_kernel=False)
+        del p32
+        plain["norm"] = float(opt.global_norm(plain["grads"]))
+        host = {"chunked": {n: g.cpu() for n, g in _named_leaves(plain.pop("grads"))}}
+        refs = {"chunked": plain, "kernel": plain}
+        torch.cuda.empty_cache()
+    else:
+        refs, host = _reference_runs(cfg, params, batch, around)
+        host.pop("kernel"), host.pop("fp64")
+        refs["plain"].pop("grads")
     _to_host(params)  # the blocks are cut from the host copy: the card holds the ranks' alone
     chunked = refs["chunked"]
     scale = min(1.0, ocfg.clip_norm / chunked["norm"])
@@ -4785,13 +4843,15 @@ def _fam_train_gate(cfg, params, batch, runs, tag: str, smi) -> dict:
              "norm": abs(chunked["norm"] - norm64) / norm64,
              "leaves": {n: rel_l2(g.to(TP_DEVICE).double() * scale, g64[n].to(TP_DEVICE))
                         for n, g in host.pop("chunked").items()}}
-    bound = {k: max(FP32_TOL, floor[k]) for k in ("loss", "norm")}
-    bound["leaves"] = {n: max(FP32_TOL, f) for n, f in floor["leaves"].items()}
+    bound = {k: _gate_bound(cfg, floor[k]) for k in ("loss", "norm")}
+    bound["leaves"] = {n: _gate_bound(cfg, f) for n, f in floor["leaves"].items()}
+    unsharded = "unsharded_plain" if recurrent else "unsharded_tf32"
     out = {"fp64": {"loss": ref["loss"], "grad_norm": norm64}, "floor": floor,
-           "unsharded_tf32": {k: refs["kernel"][k] for k in ("loss", "norm", "s", "peak_gib")},
+           unsharded: {k: refs["kernel"][k] for k in ("loss", "norm", "s", "peak_gib")},
            "runs": {}}
     log(f"[{tag}] {cfg.name} at {cfg.n_layers} layers, fp32, batch {b} x {s}, remat: fp64 "
-        f"loss {ref['loss']:.7f}, grad norm {norm64:.6e}; the plain chunked fp32 step (the "
+        f"loss {ref['loss']:.7f}, grad norm {norm64:.6e}; the "
+        f"{'unsharded plain' if recurrent else 'plain chunked'} fp32 step (the "
         f"floor) loss {floor['loss']:.2e}, norm {floor['norm']:.2e}, leaves up to "
         f"{max(floor['leaves'].values()):.2e} from it"
         + (" (every run replays the fp64 run's routing)" if moe_log is not None else "")
@@ -4803,7 +4863,7 @@ def _fam_train_gate(cfg, params, batch, runs, tag: str, smi) -> dict:
         mesh, specs, blocks = _tp_shard(cfg, params, shape, grad_policy)
         run = _tp_train_step(cfg, ocfg, mesh, blocks, batch, sync, policy, moe_log)
         outs, m = run["outs"], run["metrics"]
-        launches = _expect_launches(label, tf32=mesh.size * 2 * cfg.n_layers)
+        launches = _expect_launches(label, tf32=0 if recurrent else mesh.size * 2 * cfg.n_layers)
         stats = _tp_step_stats_check(label, mesh, _fam_closed_forms(cfg, policy, shape, b, s,
                                                                 "train", sync))
         spec_of = dict(zip(names, tree_lib.leaves(specs)))
@@ -4831,11 +4891,15 @@ def _fam_train_gate(cfg, params, batch, runs, tag: str, smi) -> dict:
         norm_err = abs(m["grad_norm"] - norm64) / norm64
         bad = [n for n, e in leaf_err.items() if e > bound["leaves"][n]]
         worst = max(leaf_err, key=leaf_err.get)
-        line = (f"{label}, {b} x {s}, one AdamW step through tf32: loss {m['loss']:.7f} vs "
+        line = (f"{label}, {b} x {s}, one AdamW step "
+                f"{'(no kernel)' if recurrent else 'through tf32'}: loss {m['loss']:.7f} vs "
                 f"fp64 {loss_err:.2e} (tol {bound['loss']:.2e}), grad_norm "
                 f"{m['grad_norm']:.6e} vs fp64 {norm_err:.2e} (tol {bound['norm']:.2e}); "
                 f"clipped gradient leaves vs fp64 up to {leaf_err[worst]:.2e} ({worst}; tol "
-                f"max({FP32_TOL}, the plain chunked step's {floor['leaves'][worst]:.2e})); "
+                f"max({FP32_TOL}, "
+                f"{f'{REC_FLOOR_FACTOR} x the unsharded' if recurrent else 'the plain chunked'} "
+                f"step's "
+                f"{floor['leaves'][worst]:.2e})); "
                 f"params within rtol {SYNC_STEP_TOL['rtol']} atol {SYNC_STEP_TOL['atol']} + "
                 f"lr*|du| (excess {excess:.3e}); aux {m['aux']:.6f}; step {run['s']:.2f}s, "
                 f"peak {run['peak'] / 2**30:.2f} GiB; launches {launches}; CommStats a rank "
@@ -4868,11 +4932,11 @@ def _fam_fp64_prefill(cfg, params, batch, moe_log=None) -> torch.Tensor:
     """The unsharded prefill's last logits in fp64 (plain attention), on ``params``
     cast to fp64; the MoE's routing logged into ``moe_log`` (a list)."""
     from repro_torch import tree as tree_lib
-    from repro_torch.models import layers
-    from repro_torch.models import transformer as T
+    from repro_torch.models import get_model, layers
     from repro_torch.train.steps import model_extras
 
-    p64 = tree_lib.tree_map(lambda t: t.double(), params)
+    T = get_model(cfg)
+    p64 = tree_lib.tree_map(lambda t: t.to(TP_DEVICE, torch.float64), params)
     extras = {k: (v.double() if v.is_floating_point() else v)
               for k, v in model_extras(batch).items()}
     with torch.no_grad(), (_routing_log() if moe_log is not None
@@ -4888,9 +4952,12 @@ def _fam_fp64_prefill(cfg, params, batch, moe_log=None) -> torch.Tensor:
 def _fam_prefill_gate(cfg, params, batch, shape, layout, tag: str, smi) -> dict:
     """The sharded fp32 prefill through tf32 on ``shape`` against the fp64 run of the
     same weights and batch, within max(FP32_TOL, floor), the floor the plain chunked
-    fp32 prefill's own distance from it; launches and ``CommStats`` against their
-    closed forms.  The MoE's runs replay the fp64 run's routing."""
+    fp32 prefill's own distance from it (the SSM and hybrid families, which reach
+    no kernel: twice the unsharded fp32 prefill's own, ``_gate_bound``); launches
+    and ``CommStats``
+    against their closed forms.  The MoE's runs replay the fp64 run's routing."""
     policy = _fam_policy(cfg, layout)
+    recurrent = cfg.family in RECURRENT
     moe_log = [] if cfg.family == "moe" else None
     ex = _fam_fp64_prefill(cfg, params, batch, moe_log)
     extras = {k: v for k, v in batch.items() if k != "tokens"}
@@ -4904,14 +4971,15 @@ def _fam_prefill_gate(cfg, params, batch, shape, layout, tag: str, smi) -> dict:
     with replay():
         kernel, _ = _prefill(cfg, params, batch["tokens"], True, extras=extras)
         kernel = kernel.clone()
-    floor = rel_l2(chunked, ex)
-    bound = max(FP32_TOL, floor)
+    floor = rel_l2(kernel if recurrent else chunked, ex)
+    bound = _gate_bound(cfg, floor)
     mesh, _, blocks = _tp_shard(cfg, params, shape, policy)
     mesh.stats.reset()
     _reset_counts()
     logits, secs, spread = _tp_prefill(cfg, mesh, blocks, batch, policy=policy, replay=moe_log)
     b, s = batch["tokens"].shape
-    launches = _expect_launches(f"[{tag}] fp32 prefill", tf32=mesh.size * cfg.n_layers)
+    launches = _expect_launches(f"[{tag}] fp32 prefill",
+                                tf32=0 if recurrent else mesh.size * cfg.n_layers)
     stats = _tp_step_stats_check(f"{tag} fp32 prefill {shape}", mesh, _fam_closed_forms(
         cfg, policy, shape, b, s, "prefill"))
     err = rel_l2(logits, ex)
@@ -4920,9 +4988,12 @@ def _fam_prefill_gate(cfg, params, batch, shape, layout, tag: str, smi) -> dict:
            "s": secs, "launches": launches, "stats": stats, "rank_spread": spread,
            "route": route}
     line = (f"[{tag}] {cfg.name} at {cfg.n_layers} layers, {layout} on (data, model) = {shape}, "
-            f"fp32 prefill {b} x {s} through tf32 ({route}): last logits vs the fp64 run rel_l2 "
-            f"{err:.3e} (tol max({FP32_TOL}, the plain chunked prefill's {floor:.3e})); the "
-            f"unsharded tf32 prefill's {rec['unsharded_vs_fp64']:.3e}; ranks sharing rows within "
+            f"fp32 prefill {b} x {s} {'(no kernel)' if recurrent else 'through tf32'} ({route}): "
+            f"last logits vs the fp64 run rel_l2 {err:.3e} (tol max({FP32_TOL}, "
+            f"{f'{REC_FLOOR_FACTOR} x the unsharded' if recurrent else 'the plain chunked'} "
+            f"prefill's {floor:.3e})); the "
+            f"unsharded {'plain' if recurrent else 'tf32'} prefill's "
+            f"{rec['unsharded_vs_fp64']:.3e}; ranks sharing rows within "
             f"{spread:.3e}; {secs:.3f}s; launches {launches}; CommStats a rank "
             f"{json.dumps(stats)} (closed forms)"
             + (" (the fp64 run's routing replayed)" if moe_log is not None else ""))
@@ -4944,11 +5015,12 @@ def _route_of(cfg, policy, shape, batch: int) -> str:
     return "gather" if hs is None else f"pair ({hs.rows} row x {hs.kv_heads} kv heads)"
 
 
-def _fam_bf16_serve(cfg, params, batches, tag: str, smi, decode: bool) -> dict:
+def _fam_bf16_serve(cfg, params, batches, tag: str, smi, decode: bool, calls: int = 3) -> dict:
     """bf16 on FAM_SHAPE: the unsharded prefill of each batch of ``batches`` (name ->
     batch), then the weights cut into the ranks' blocks (the whole tree freed a
-    leaf at a time) and the TP prefill of each through sm90, one warm-up and two
-    timed calls, the last logits against the unsharded ones (reported), launches
+    leaf at a time) and the TP prefill of each through sm90 (the SSM and hybrid
+    families: no kernel), one warm-up and ``calls - 1`` timed calls, the last
+    logits against the unsharded ones (reported), launches
     and ``CommStats`` against the closed forms; with ``decode`` the TP decode loop
     (FAM_PROMPT teacher-forced, FAM_DECODE greedy) after it."""
     policy = _fam_policy(cfg, "tp")
@@ -4970,12 +5042,13 @@ def _fam_bf16_serve(cfg, params, batches, tag: str, smi, decode: bool) -> dict:
     for name, batch in batches.items():
         b, s = batch["tokens"].shape
         secs = []
-        for i in range(3):
+        for i in range(calls):
             mesh.stats.reset()
             _reset_counts()
             logits, t, spread = _tp_prefill(cfg, mesh, blocks, batch, policy=policy)
-            launches = _expect_launches(f"[{tag}] bf16 TP prefill {name}",
-                                        sm90=mesh.size * cfg.n_layers)
+            launches = _expect_launches(
+                f"[{tag}] bf16 TP prefill {name}",
+                sm90=0 if cfg.family in RECURRENT else mesh.size * cfg.n_layers)
             if i == 0:
                 stats = _tp_step_stats_check(f"{tag} bf16 {name}", mesh, _fam_closed_forms(
                     cfg, policy, FAM_SHAPE, b, s, "prefill", dtype=torch.bfloat16))
@@ -4991,7 +5064,8 @@ def _fam_bf16_serve(cfg, params, batches, tag: str, smi, decode: bool) -> dict:
                "route": _route_of(cfg, policy, FAM_SHAPE, b)}
         log(f"[{tag}] {cfg.name} bf16 whole ({cfg.n_layers} layers), {name}: TP prefill "
             f"{b} x {s} on (data, model) = {FAM_SHAPE}, {rec['route']}: "
-            f"{rec['s']:.3f}s median of 2 after a warm-up ({', '.join(f'{t:.3f}' for t in secs)}"
+            f"{rec['s']:.3f}s median of {calls - 1} after a warm-up "
+            f"({', '.join(f'{t:.3f}' for t in secs)}"
             f" s; unsharded {r_s:.3f}s; no speed claim: 16 ranks share one card); vs the "
             f"unsharded prefill rel_l2 {rec['rel_l2_vs_unsharded']:.3e}, argmax agreement "
             f"{rec['argmax_agree']:.2f}, beside two unsharded bf16 paths' distance (the plain "
@@ -5130,6 +5204,214 @@ def phase_tp_families(smi) -> dict:
     return out
 
 
+# The SSM and hybrid families' sharded layout (phase_tp_recurrent), on 16 rank
+# threads of the card.  Neither family reaches a kernel, in JAX or here: every
+# flash and RMSNorm count on these paths is 0.
+RECURRENT = ("ssm", "hybrid")
+# Their fp32 gates hold a sharded path within max(FP32_TOL, REC_FLOOR_FACTOR x the
+# unsharded fp32 path's own distance from fp64), as phase_hybrid's accuracy gate
+# holds the decode: an RG-LRU decay a near 1 scales its input's rounding by
+# ~1/(1 - a) in sqrt(1 - a^2), so two fp32 summation orders (the sharded row sums,
+# the unsharded matmuls) land ~1e-2 from fp64 at the hybrid's 5 layers, either
+# one the nearer.
+REC_FLOOR_FACTOR = 2
+
+
+def _gate_bound(cfg, floor: float) -> float:
+    """max(FP32_TOL, floor), the floor doubled for the SSM and hybrid families."""
+    return max(FP32_TOL, (REC_FLOOR_FACTOR if cfg.family in RECURRENT else 1) * floor)
+# recurrentgemma-9b's fp32 prefill gates at HYBRID_LAYERS (a block and the
+# tail): (route, (data, model), B, S); 16 rows of 512 take the pair route on
+# (1, 16) (1 row a rank with the lone kv head), 4 of 2048 the gather route on (2, 8)
+REC_PREFILL = (("pair", (1, 16), 16, 512), ("gather", (2, 8), 4, 2048))
+REC_DECODE_PROMPT, REC_DECODE_STEPS = 4, 3  # the fp32 decode gates: teacher-forced, greedy
+# The training gate's depth: one (rec, rec, attn) block, the least that runs both
+# layer kinds.  Reckoned before the first run, in GB: at HYBRID_LAYERS (3.22G
+# params) the fp64 run holds 25.8 of weights, 25.8 of gradients and ~25 of
+# logits, their fp32 copy and the loss's gradient (B 2 x 2048 x 256000), beside
+# 12.9 of fp32 weights: over 80.  At 3 layers (2.75G) the weights move to the
+# host first: 22 + 22 + ~25 = ~69 for the fp64 run; the 16 ranks' step then
+# holds 11 of blocks, 22 of moments, 11 of gradients and the ranks'
+# activations: reckoned ~8, measured 71.08 GiB on (1, 16) and 56.56 on (2, 8)
+# (an H100 80GB HBM3 at 700 W): 2 rows do not tile 16 ranks, so each rank attends
+# every head of its rows, (2, 16, 2048, 2048) fp32 scores kept for the backward.
+REC_TRAIN_LAYERS = 3
+# The hybrid's training runs: TP alone, and with FSDP.  The ring over data (blocks
+# whole over data) is not run on one card: its 16 ranks hold two copies of the
+# 2.75G parameters, with their moments and gradients, 32 B a parameter: 88 GB,
+# and 67 GB for the embeddings alone at any depth (on an 80 GB H100: out of
+# memory).  The CPU tests run it (tests/test_torch_tp_recurrent_train.py).
+REC_TRAIN_RUNS = (("auto", (1, 16)), ("auto", (2, 8)))
+REC_SSM_BATCH = (16, 512)  # mamba2-130m: one row a rank under layout="fsdp"
+REC_DRYRUN_PEAK_RTOL = 0.01  # the dry-run's hybrid rank: its peak against the card's
+# its tokens and mesh: the ranks past 0 train full-width blocks on the host (B 1 x 256
+# on (1, 4): a 38.7 s step; x 64: 25.0 s, on an H100 80GB HBM3 at 700 W)
+REC_DRYRUN_LEN, REC_DRYRUN_SHAPE = 64, (1, 2)
+REC_SSM_SHAPE = (2, 8)
+# The collectives GSPMD puts in the JAX package's jitted prefill for one
+# (rec, rec, attn) block of recurrentgemma-9b on (data, model) = (1, 16) host
+# devices, B 4 x 2048, from ``PYTHONPATH=src python
+# benchmarks/gspmd_tp_collectives.py --arch recurrentgemma-9b --layers 3`` (jax
+# 0.9.0 on the CPU, whose backend upcasts bf16 dots: the f32 is not evidence
+# about a TPU).
+GSPMD_HYBRID_BLOCK = (
+    "each recurrent layer: 1 all-gather f32[4,2048,4096] (the conv output, whole "
+    "over model for w_a and w_i), 2 all-reduce f32[4,2048,4096] (w_out, w_down); the "
+    "attention layer: all-gathers f32[4,2048,1,256] of k and of v (the lone kv head "
+    "split on head_dim), 4 collective-permutes and 3 all-to-alls re-laying out the "
+    "heads, 2 all-reduces; decode all-gathers the whole f32[4,2048,1,256] window of "
+    "k and of v in each attention layer")
+
+
+def _rec_decode_gate(cfg, params, prompts, shape, layout, tag: str, smi) -> dict:
+    """fp32: the sharded decode loop (REC_DECODE_PROMPT teacher-forced steps, then
+    REC_DECODE_STEPS - 1 greedy ones) on ``shape`` under ``layout``: each prompt
+    step's logits against the unsharded prefill of the prompt up to that step on
+    the weights in fp64 (the SSM's decode state stays fp32 by design), within
+    ``_gate_bound``'s bound on the unsharded fp32 decode's own distance from
+    it; launches (none) and ``CommStats`` against the closed
+    forms (a prefill's at one token, a step)."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.models import get_model, layers
+
+    policy = _fam_policy(cfg, layout)
+    p64 = tree_lib.tree_map(lambda t: t.double(), params)
+    with torch.no_grad():
+        ex = torch.cat([(get_model(cfg).forward(cfg, p64, prompts[:, :t], return_hidden=True)[0]
+                         [:, -1:] @ layers.unembed(p64)).float()
+                        for t in range(1, prompts.shape[1] + 1)], 1)
+    del p64
+    torch.cuda.empty_cache()
+    plain = _tp_decode(cfg, None, params, prompts, 1, policy)[0]
+    floor = rel_l2(plain, ex)
+    bound = _gate_bound(cfg, floor)
+    mesh, _, blocks = _tp_shard(cfg, params, shape, policy)
+    mesh.stats.reset()
+    _reset_counts()
+    got, toks, sec = _tp_decode(cfg, mesh, blocks, prompts, REC_DECODE_STEPS, policy)
+    label = f"[{tag}] {cfg.name} {layout} fp32 decode on (data, model) = {shape}"
+    launches = _expect_launches(label)
+    b, steps = prompts.shape[0], prompts.shape[1] + REC_DECODE_STEPS - 1
+    step = _fam_closed_forms(cfg, policy, shape, b, 1, "prefill")
+    want = {k: ({"calls": v["calls"] * steps, "bytes": v["bytes"] * steps}
+                if isinstance(v, dict) else v) for k, v in step.items()}
+    stats = _tp_step_stats_check(label, mesh, want)
+    err = rel_l2(got, ex)
+    route = _route_of(cfg, policy, shape, b)
+    line = (f"{label}, batch {b}: {prompts.shape[1]} teacher-forced and "
+            f"{REC_DECODE_STEPS - 1} greedy steps ({route}), {sec * 1e3:.1f} ms a step; the "
+            f"prompt steps' logits vs the fp64 prefills rel_l2 {err:.3e} (tol max({FP32_TOL}, "
+            f"{REC_FLOOR_FACTOR} x the unsharded fp32 decode's {floor:.3e})); tokens "
+            f"{toks[0].tolist()}; launches "
+            f"{launches}; CommStats a rank {json.dumps(stats)} (closed forms, {steps} steps)")
+    log(line + f" [{smi}]")
+    if not (err <= bound and torch.isfinite(got).all()
+            and ((toks >= 0) & (toks < cfg.vocab)).all()):
+        raise AssertionError(f"{line}: over the bound")
+    del blocks, mesh
+    return {"vs_fp64": err, "floor": floor, "bound": bound, "ms_step": sec * 1e3,
+            "route": route, "launches": launches, "stats": stats}
+
+
+def _block_collectives(cfg, shape, batch: int, seq: int, dtype) -> str:
+    """One (rec, rec, attn) block's collectives a rank of the TP prefill, from the
+    closed forms (``_fam_closed_forms`` of two blocks less one's)."""
+    period = max(1, cfg.attention_period)
+    a, b = (_fam_closed_forms(dataclasses.replace(cfg, n_layers=k * period),
+                              _fam_policy(cfg, "tp"), shape, batch, seq, "prefill", dtype=dtype)
+            for k in (2, 1))
+    return ", ".join(f"{k} {a[k]['calls'] - b[k]['calls']} calls "
+                     f"{a[k]['bytes'] - b[k]['bytes']} B"
+                     for k in ("psum", "all_gather", "all_to_all", "reduce_scatter"))
+
+
+def phase_tp_recurrent(smi) -> dict:
+    """The sharded layout of the SSM and hybrid families on 16 rank threads of the
+    card (``parallel/tensor_parallel.py``), each rank computing from its blocks
+    under ``sanitize_specs(param_specs(policy))``:
+
+    * recurrentgemma-9b TP over ``model`` (the recurrent layers on Dr / 16 channels,
+      the conv output all-gathered for ``w_a`` and ``w_i``; MQA on whole heads) and
+      FSDP over ``data``, in fp32 at the 38-layer init's scale: the prefill gate
+      at HYBRID_LAYERS (a block and the tail) on the pair route ((1, 16), 16 x
+      512) and the gather route ((2, 8), 4 x 2048), the decode gate on (1, 16);
+      the training gate at REC_TRAIN_LAYERS (2 x 2048; (1, 16), (2, 8); the ring
+      does not fit one card, REC_TRAIN_RUNS), ``lambda_p``'s gradient among the
+      leaves; then bf16 whole: the TP
+      prefill (4 x 2048) and a few decode steps against the unsharded run
+      (reported: bf16 at depth is chaotic);
+    * mamba2-130m whole under its ``default_policy`` (``tp=False``) and
+      ``layout="fsdp"`` on (2, 8), 16 x 512: the prefill, decode and training
+      gates.
+
+    Gates as ``phase_tp_families``'; no launch on any path; ``CommStats`` a rank
+    against the closed forms (``_fam_closed_forms``), GSPMD's collectives for the
+    hybrid's block beside the port's."""
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    out = {"parts_s": {}}
+
+    def part(name):  # the seconds since the last part ended
+        now = time.perf_counter()
+        out["parts_s"][name] = now - sum(out["parts_s"].values()) - t_phase
+
+    # -- recurrentgemma-9b: fp32 gates, then bf16 whole
+    full, cfg, params = _hybrid_fp32_model()
+    out["hybrid_prefill"] = {}
+    for route, shape, b, s in REC_PREFILL:
+        batch = {k: v for k, v in _fam_batch(cfg, b, s).items() if k != "labels"}
+        out["hybrid_prefill"][route] = _fam_prefill_gate(cfg, params, batch, shape, "tp",
+                                                         "tp-hybrid", smi)
+    prompts = _fam_batch(cfg, 16, REC_DECODE_PROMPT)["tokens"]
+    part("hybrid_prefill")
+    out["hybrid_decode"] = _rec_decode_gate(cfg, params, prompts, (1, 16), "tp", "tp-hybrid",
+                                            smi)
+    part("hybrid_decode")
+    cfg = dataclasses.replace(cfg, n_layers=REC_TRAIN_LAYERS)
+    params.pop("tail")  # one block: blocks.rec (2) and blocks.attn (1)
+    _fam_free()
+    out["hybrid_train"] = _fam_train_gate(cfg, params, _fam_batch(cfg, *FAM_TRAIN),
+                                          [(sync, shape, "tp") for sync, shape in REC_TRAIN_RUNS],
+                                          "tp-hybrid", smi)
+    del params
+    _fam_free()
+    part("hybrid_train")
+    params, meta = _load_model(full, "tp-hybrid", torch.bfloat16, _hybrid_desc(full))
+    b, s = FAM_PREFILL
+    out["hybrid_bf16"] = {**meta, **_fam_bf16_serve(full, params, {
+        "gather": _fam_batch(full, b, s)}, "tp-hybrid", smi, decode=True, calls=2)}
+    del params
+    _fam_free()
+    port = _block_collectives(full, FAM_SHAPE, b, s, torch.bfloat16)
+    log(f"[tp-hybrid] one (rec, rec, attn) block of the bf16 TP prefill, B {b} x {s} on "
+        f"(data, model) = {FAM_SHAPE}, a rank (CommStats' closed forms, held above): {port}; "
+        f"GSPMD's for the same block (jax 0.9.0 on the CPU): {GSPMD_HYBRID_BLOCK}")
+    out["hybrid_block_collectives"] = {"port": port, "gspmd": GSPMD_HYBRID_BLOCK}
+    part("hybrid_bf16")
+
+    # -- mamba2-130m whole under both tp=False layouts
+    cfg = get_config(SSM_ARCH)
+    params, _ = _load_model(cfg, "tp-ssm", torch.float32)
+    batch = _fam_batch(cfg, *REC_SSM_BATCH)
+    out["ssm_prefill"] = {layout: _fam_prefill_gate(cfg, params, {
+        k: v for k, v in batch.items() if k != "labels"}, REC_SSM_SHAPE, layout, "tp-ssm", smi)
+        for layout in ("2d", "fsdp")}
+    prompts = batch["tokens"][:, :REC_DECODE_PROMPT].contiguous()
+    out["ssm_decode"] = {layout: _rec_decode_gate(cfg, params, prompts, REC_SSM_SHAPE, layout,
+                                                  "tp-ssm", smi) for layout in ("2d", "fsdp")}
+    out["ssm_train"] = _fam_train_gate(cfg, params, batch,
+                                       [("auto", REC_SSM_SHAPE, layout)
+                                        for layout in ("2d", "fsdp")], "tp-ssm", smi)
+    del params, batch
+    _fam_free()
+    part("ssm")
+    out["s"] = time.perf_counter() - t_phase
+    log(f"[tp-recurrent] phase {out['s']:.1f}s: "
+        + ", ".join(f"{k} {v:.1f}s" for k, v in out["parts_s"].items()))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5175,6 +5457,7 @@ def main() -> int:
     tp = phase_tp_serve(smi)
     tp_train = phase_tp_train(smi, train_loss)
     tp_fam = phase_tp_families(smi)
+    tp_rec = phase_tp_recurrent(smi)
 
     paths = {"prefill": prefill, "train_steps": train, "train_driver": driver,
              "train_sync": sync_train["launches"], "prefill_moe": moe_serve["launches"],
@@ -5195,7 +5478,17 @@ def main() -> int:
              **{f"prefill_fsdp_audio_{k}": r["launches"]
                 for k, r in tp_fam["audio_prefill"].items()},
              **{f"train_fsdp_audio_{k}": r["launches"]
-                for k, r in tp_fam["audio_train"]["runs"].items()}}
+                for k, r in tp_fam["audio_train"]["runs"].items()},
+             **{f"prefill_tp_hybrid_fp32_{k}": r["launches"]
+                for k, r in tp_rec["hybrid_prefill"].items()},
+             "decode_tp_hybrid_fp32": tp_rec["hybrid_decode"]["launches"],
+             **{f"train_tp_hybrid_{k}": r["launches"]
+                for k, r in tp_rec["hybrid_train"]["runs"].items()},
+             "prefill_tp_hybrid": tp_rec["hybrid_bf16"]["gather"]["launches"],
+             **{f"prefill_fsdp_ssm_{k}": r["launches"] for k, r in tp_rec["ssm_prefill"].items()},
+             **{f"decode_fsdp_ssm_{k}": r["launches"] for k, r in tp_rec["ssm_decode"].items()},
+             **{f"train_fsdp_ssm_{k}": r["launches"]
+                for k, r in tp_rec["ssm_train"]["runs"].items()}}
     for tag, fam in (("ssm", ssm), ("hybrid", hybrid), ("vlm", vlm), ("audio", audio)):
         paths.update({f"prefill_{tag}": fam["launches"], f"serve_{tag}": fam["serve"]["launches"],
                       f"train_{tag}": fam["train"]["launches"]})
@@ -5270,6 +5563,7 @@ def main() -> int:
     log(json.dumps({"tp_serve": {"device": smi, "arch": TP_ARCH, **tp}}))
     log(json.dumps({"tp_train": {"device": smi, "arch": TP_ARCH, **tp_train}}))
     log(json.dumps({"tp_families": {"device": smi, **tp_fam}}))
+    log(json.dumps({"tp_recurrent": {"device": smi, **tp_rec}}))
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(smi)
     print(json.dumps({"ok": True, "device": {

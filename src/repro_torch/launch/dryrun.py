@@ -16,20 +16,21 @@ For each cell this script:
      write, the rank's peak of live storages, and the collectives it calls
      with their bytes on the wire, into a JSON report.
 
-The port has no GSPMD.  In the cells of the dense, MoE, VLM and audio
-families (``tensor_parallel.sharded``) rank 0 runs the sharded step
-(``parallel/tensor_parallel.py``) on its blocks under ``param_specs``: FSDP
-gathers over ``data`` a layer at a time and, under a ``tp=True`` policy,
-Megatron's column and row products over ``model`` (the MoE's experts split on
-d_ff), attention on whole heads (the pair or the gather route); under a
-``tp=False`` one (whisper-tiny's ``default_policy``, ``--layout fsdp``) the
-layers run whole on the gathered weights.  In prefill and decode the logits of
+The port has no GSPMD.  In the cells that ``tensor_parallel.sharded`` admits
+(every family's under its ``default_policy`` and ``--layout fsdp``) rank 0 runs
+the sharded step (``parallel/tensor_parallel.py``) on its blocks under
+``param_specs``: FSDP gathers over ``data`` a layer at a time and, under a
+``tp=True`` policy, Megatron's column and row products over ``model`` (the MoE's
+experts split on d_ff, the hybrid's recurrent layers on their Dr channels),
+attention on whole heads (the pair or the gather route); under a ``tp=False``
+one (whisper-tiny's and mamba2-130m's ``default_policy``, ``--layout fsdp``)
+the layers run whole on the gathered weights.  In prefill and decode the logits of
 the last position, in training (``sync="auto"``) the vocab-parallel loss and
 the gradient route of ``make_tp_value_and_grad`` (the layers recomputed, every
 collective's transpose), the gradients reduce-scattered over ``data``, and
 AdamW on the rank's blocks and moments; ``auto_as`` records ``"tp"`` or
-``"fsdp"``.  Every other cell (the SSM and hybrid families, ``moe_mode`` ``ep``
-and ``gshard``, the sync modes) runs the whole model on the rank's data shard,
+``"fsdp"``.  Every other cell (``moe_mode`` ``ep`` and ``gshard``, the sync
+modes) runs the whole model on the rank's data shard,
 as JAX's sync modes do, and ``sync="auto"`` there is traced as a psum of the
 gradients (``auto_as`` ``"psum"``).  The FLOPs and collectives are the port's
 own, not XLA's.

@@ -18,6 +18,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.kernels import ops as kops
 
@@ -114,6 +115,56 @@ def unstack(tree, n: int) -> list[dict]:
         for i in range(n):
             out[i][k] = parts[i]
     return out
+
+
+def subtree(tree, path: str):
+    """The subtree of ``tree`` at the dotted ``path`` (``"blocks.rec"``)."""
+    for k in path.split("."):
+        tree = tree[k]
+    return tree
+
+
+def depth(stack) -> int:
+    """The layers of a layer-stacked tree: its leaves' leading dimension."""
+    while isinstance(stack, dict):
+        stack = next(iter(stack.values()))
+    return stack.shape[0]
+
+
+def run_sequence(cfg, seq, params, x, remat: bool = True, **kw) -> torch.Tensor:
+    """Hidden states x (B, S, d) through the layers of ``seq``, a model module's
+    ``layer_sequence`` ((stack, index, layer) in forward order), on the stacks of
+    ``params``: each stack unbound once (``unstack``), and with ``remat`` and
+    autograd on each layer under ``torch.utils.checkpoint``.  ``kw`` goes to
+    every layer (``positions``, ``tp``)."""
+    stacks: dict = {}
+    checkpointed = remat and torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for stack, i, layer in seq:
+        if stack not in stacks:
+            tree = subtree(params, stack)
+            stacks[stack] = unstack(tree, depth(tree))
+        lp = stacks[stack][i]
+        if checkpointed:
+            x, aux = torch.utils.checkpoint.checkpoint(layer, cfg, lp, x, aux,
+                                                       use_reentrant=False, **kw)
+        else:
+            x, aux = layer(cfg, lp, x, aux, **kw)
+    return x
+
+
+def head(cfg, params, x, tp=None, return_hidden: bool = False):
+    """(logits, 0.0) of the hidden states x (B, S, d) after the final norm: every
+    position's, or with ``tp`` (a rank's ``TensorParallel``) the last one's over
+    the whole vocab (``TensorParallel.logits``); with ``return_hidden`` the normed
+    states in place of the logits.  The recurrent families' ``forward`` ends here."""
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    if return_hidden:
+        return apply_norm(x, params["final_norm"], cfg.norm_type), zero
+    if tp is None:
+        return apply_norm(x, params["final_norm"], cfg.norm_type) @ unembed(params), zero
+    return tp.logits(params, apply_norm(x[:, -1:], params["final_norm"], cfg.norm_type),
+                     mask=True), zero
 
 
 def unembed(params) -> torch.Tensor:

@@ -8,16 +8,27 @@ stacked on a leading axis under ``params["layers"]``), so
 ``repro_torch.testing.bridge`` moves weights one-to-one.  The family has no
 attention, so ``forward`` accepts ``use_kernel`` and ignores it, as the JAX
 ``forward`` does through ``**_``.
+
+The family runs sharded under a ``tp=False`` policy (its ``default_policy``,
+and ``layout="fsdp"``): given the rank's ``Comm`` as ``act_specs["mesh"]`` and
+the ``Policy`` as ``act_specs["policy"]``, ``forward``, ``init_cache`` and
+``decode_step`` run one rank's rows on its blocks of the parameters
+(``parallel/tensor_parallel.py``): each layer's FSDP leaves (``w_in``'s rows,
+``w_out``'s columns) all-gathered over ``data`` as it runs and ``_mix`` on the
+whole weights, the embedding and unembedding gathered the same way.  The
+decode state is the rank's rows' whole state, where JAX's ``cache_specs``
+splits the SSM state's P and the conv channels over ``model``.  A ``tp=True``
+policy raises (ROADMAP item 14.5).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch.parallel import tensor_parallel as tp_lib
 
 
 def dims(cfg: ArchConfig):
@@ -145,33 +156,46 @@ def _mix(cfg: ArchConfig, lp, x, conv_state=None, ssm_state=None, single_step=Fa
     return y @ lp["w_out"], new_conv, new_state
 
 
-def forward(cfg: ArchConfig, params, tokens: torch.Tensor, remat: bool = True, **_):
+def _layer(cfg: ArchConfig, lp, h, aux, positions=None, enc=None, use_kernel=False, tp=None):
+    """One residual layer of ``layer_sequence``: (h, aux) -> (h + mix(norm(h)), aux);
+    with ``tp`` ``lp`` holds the rank's blocks, all-gathered over ``data`` here."""
+    if tp is not None:
+        lp = tp.layer(lp)
+    a = L.apply_norm(h, lp["norm"], cfg.norm_type)
+    y, _, _ = _mix(cfg, lp, a)
+    return h + y, aux
+
+
+def layer_sequence(cfg: ArchConfig) -> list:
+    """(stack, index, layer) of every layer in forward order (``transformer.
+    layer_sequence``'s signature): the ``layers`` stack's."""
+    return [("layers", i, _layer) for i in range(cfg.n_layers)]
+
+
+def forward(cfg: ArchConfig, params, tokens: torch.Tensor, remat: bool = True, act_specs=None,
+            return_hidden: bool = False, **_):
     """Full forward pass -> (logits, 0.0), tokens (B, S) integer.
 
     With ``remat`` and autograd on, each layer runs under
     ``torch.utils.checkpoint`` (the JAX version's ``jax.checkpoint``).  Other
-    keywords (``use_kernel``, ``positions``) are accepted and ignored.
-    """
-    x = params["embed"][tokens.long()]
-
-    def layer_fn(h, lp):
-        a = L.apply_norm(h, lp["norm"], cfg.norm_type)
-        y, _, _ = _mix(cfg, lp, a)
-        return h + y
-
-    checkpointed = remat and torch.is_grad_enabled()
-    for lp in L.unstack(params["layers"], cfg.n_layers):
-        if checkpointed:
-            x = torch.utils.checkpoint.checkpoint(layer_fn, x, lp, use_reentrant=False)
-        else:
-            x = layer_fn(x, lp)
-    x = L.apply_norm(x, params["final_norm"], cfg.norm_type)
-    logits = x @ params["unembed"]
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    keywords (``use_kernel``, ``positions``) are accepted and ignored.  With
+    ``return_hidden`` the final-norm hidden states come back in place of the
+    logits.  With a sharded ``act_specs`` (the module docstring) ``params`` are
+    the rank's blocks and ``tokens`` its rows; the logits come back for the last
+    position only, (B, 1, V)."""
+    tp = tp_lib.context(cfg, act_specs)
+    if tp is not None:
+        tp.check(params)
+    x = params["embed"][tokens.long()] if tp is None else tp.embed(params, tokens)
+    x = L.run_sequence(cfg, layer_sequence(cfg), params, x, remat, tp=tp)
+    return L.head(cfg, params, x, tp, return_hidden)
 
 
-def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16, device=None):
-    """Constant-size state: conv tail + SSM state per layer (``max_len`` is not needed)."""
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16, device=None,
+               act_specs=None):
+    """Constant-size state: conv tail + SSM state per layer (``max_len`` is not
+    needed).  With a sharded ``act_specs`` the rank's rows' whole state."""
+    tp_lib.context(cfg, act_specs)  # raises for a policy the family does not hold
     di, h, p, n = dims(cfg)
     conv_ch = di + 2 * n
     return {
@@ -182,15 +206,21 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16, 
     }
 
 
-def decode_step(cfg: ArchConfig, params, cache, tokens, positions=None):
+def decode_step(cfg: ArchConfig, params, cache, tokens, positions=None, act_specs=None):
     """One-token decode: tokens (B, 1) -> (logits (B,1,V), cache).
 
     As ``transformer.decode_step``, the new states are written into the
     cache passed in, which is the one returned, and ``cache["len"]`` is a
-    Python int.
+    Python int.  With a sharded ``act_specs`` ``params`` are the rank's blocks,
+    ``tokens`` its rows and ``cache`` its ``init_cache``.
     """
-    x = params["embed"][tokens.long()]
+    tp = tp_lib.context(cfg, act_specs)
+    if tp is not None:
+        tp.check(params)
+    x = params["embed"][tokens.long()] if tp is None else tp.embed(params, tokens)
     for i, lp in enumerate(L.unstack(params["layers"], cfg.n_layers)):
+        if tp is not None:
+            lp = tp.layer(lp)
         a = L.apply_norm(x, lp["norm"], cfg.norm_type)
         y, new_conv, new_ssm = _mix(cfg, lp, a, cache["conv"][i], cache["ssm"][i],
                                     single_step=True)
@@ -198,6 +228,6 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, positions=None):
         cache["ssm"][i].copy_(new_ssm)
         x = x + y
     x = L.apply_norm(x, params["final_norm"], cfg.norm_type)
-    logits = x @ params["unembed"]
+    logits = x @ L.unembed(params) if tp is None else tp.logits(params, x, mask=False)
     cache["len"] += 1
     return logits, cache

@@ -374,6 +374,14 @@ def forward_layers(cfg: ArchConfig, layers, x, positions=None, enc_out=None, rem
     return x, aux
 
 
+def layer_sequence(cfg: ArchConfig) -> list:
+    """(stack, index, layer) of every decoder layer in forward order: the
+    ``layers`` stack's, each run by ``decoder_layer``.  ``layer(cfg, lp, h, aux,
+    positions, enc, use_kernel, tp) -> (h, aux)`` is the signature every family's
+    sequence shares (``train/steps.py: make_tp_value_and_grad`` walks it)."""
+    return [("layers", i, decoder_layer) for i in range(cfg.n_layers)]
+
+
 def decoder_layer(cfg: ArchConfig, lp, h, aux, positions, enc=None, use_kernel=False,
                   act_specs=None, tp=None):
     """One decoder layer of ``forward_layers`` on its (unstacked) weights ``lp``:
@@ -413,7 +421,7 @@ def encoder_layer(cfg: ArchConfig, lp, h, tp=None):
     ``tp`` (a ``tp=False`` view: the audio family has no split over ``model``)
     ``lp`` holds the rank's blocks, all-gathered over ``data`` here."""
     if tp is not None:
-        lp = tp.layer(lp, "encoder")
+        lp = tp.layer(lp, "encoder.layers")
     a = L.apply_norm(h, lp["attn_norm"], cfg.norm_type)
     h = h + _attn_block(cfg, lp, a, _positions_default(h), causal=False, window=0)
     m = L.apply_norm(h, lp["mlp_norm"], cfg.norm_type)

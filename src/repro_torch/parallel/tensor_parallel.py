@@ -1,14 +1,16 @@
-"""Tensor parallelism over ``model`` and FSDP over ``data`` (the transformer families).
+"""Tensor parallelism over ``model`` and FSDP over ``data`` (every family).
 
 The JAX package has no counterpart module: it jits its train, prefill and decode
 steps with ``in_shardings`` from ``param_specs`` (``repro/launch/dryrun.py``),
 and GSPMD splits the compute.  Here each rank of a ``core.comm`` mesh runs the
 step on its own blocks of the parameters, under
 ``sanitize_specs(param_specs(...))``, and reaches the other ranks through its
-``Comm``.  ``models/transformer.py`` and ``train/steps.py`` take this path when
+``Comm``.  The model modules and ``train/steps.py`` take this path when
 ``act_specs`` holds the rank's ``Comm`` as ``"mesh"`` and a ``Policy`` as
-``"policy"``.  Under a ``tp=True`` policy (the dense, MoE and VLM families) a
-layer runs as Megatron's:
+``"policy"``.  A family's layers lie in stacks (``stacks``: the transformer's
+``layers``, the hybrid's ``blocks.rec``, ``blocks.attn`` and ``tail``), each
+leaf of a stack holding a layer on its leading axis.  Under a ``tp=True``
+policy (the dense, MoE, VLM and hybrid families) a layer runs as Megatron's:
 
 * FSDP: a leaf whose spec splits a dimension over ``data`` is all-gathered
   along it when its layer runs (``Comm.all_gather``), one layer at a time, as
@@ -41,7 +43,18 @@ layer runs as Megatron's:
     ``model`` to every head, the attention of every head of the rank's rows on
     every rank (so ``model``-fold the attention work), and the rank's own
     columns kept.
-* ``wo``, ``w_down`` row-parallel: the rank's rows, then a sum over ``model``
+* the hybrid's recurrent layer (``models/recurrentgemma.py``): ``w_gate_in``
+  and ``w_x_in`` column-parallel, giving the rank its Dr / n channels; the
+  causal conv on them with the rank's channels of ``conv_w`` (the conv is
+  channel-local); ``w_a`` and ``w_i`` contract over all of Dr, so the conv
+  output is all-gathered over ``model`` (``all_columns``), as GSPMD does, and
+  the rank takes its columns of the gates; the RG-LRU scan and the output gate
+  on the rank's channels; ``w_out`` row-parallel.  ``lambda_p`` is whole under
+  ``param_specs``, but each rank reads its channels of it only: it goes through
+  ``pvary``, whose transpose sums the ranks' parts of its gradient over
+  ``model`` (every other whole leaf, a norm scale, gets its whole gradient on
+  every model rank);
+* ``wo``, ``w_down``, ``w_out`` row-parallel: the rank's rows, then a sum over ``model``
   built as a ring all-reduce is: a ``Comm.reduce_scatter`` of the flat
   partial (an all-to-all and a sum in group order in float32), then an
   all-gather of the sums.  That moves a ring all-reduce's bytes and gives the
@@ -98,7 +111,8 @@ input detached, its output a fresh leaf), and the tape carries each cut's
 gradient across with the plain collective of its transpose.
 
 Under a ``tp=False`` policy with FSDP (whisper-tiny's and mamba2-130m's
-``default_policy``, every arch's ``layout="fsdp"``) the rank's view splits
+``default_policy``, every arch's ``layout="fsdp"``; the SSM family takes no
+other) the rank's view splits
 nothing over ``model``: each layer's FSDP leaves are all-gathered over ``data``
 as it runs and the family's own layer code runs on the whole weights.  With
 ``data_axes=("data",)`` the ranks along ``model`` hold the same rows and compute
@@ -109,11 +123,11 @@ over ``data`` only, and ``sum_over_data`` sums each leaf's gradient over the
 data axes that leave it whole.  The audio family's encoder layers are gathered
 the same way.
 
-Not ported, each raising with its ROADMAP item: the SSM family (item 14.1) and
-the hybrid family (14.2) under any sharded policy; ``ce_chunk`` under a
-``tp=True`` policy (14.3, ``train/steps.py``); ``moe_mode`` ``"ep"`` and
-``"gshard"`` (experts split over ``model``) and the audio family under a
-``tp=True`` policy (14.4).
+Not ported, each raising with its ROADMAP item: ``ce_chunk`` under a ``tp=True``
+policy (14.3, ``train/steps.py``); ``moe_mode`` ``"ep"`` and ``"gshard"``
+(experts split over ``model``) and the audio family under a ``tp=True`` policy
+(14.4); the SSM family under a ``tp=True`` policy (14.5: ``param_specs`` gives
+it no Megatron layout; ``_unported``).
 """
 
 from __future__ import annotations
@@ -156,10 +170,12 @@ def context(cfg: ArchConfig, act_specs) -> TensorParallel | None:
 
 def _unported(cfg: ArchConfig, policy) -> str | None:
     """Why ``cfg`` has no sharded path under ``policy``, or None."""
-    if cfg.family == "ssm":
-        return "the SSM family's sharded layout is ROADMAP item 14.1"
-    if cfg.family == "hybrid":
-        return "the hybrid family's sharded layout is ROADMAP item 14.2"
+    if cfg.family == "ssm" and policy.tp:
+        return ("the SSM family under a tp=True policy is ROADMAP item 14.5: param_specs "
+                "gives it no Megatron layout (w_in's z | x | B | C | dt columns, "
+                "2 d_inner + 2 d_state + n_heads of them, stay whole where they do not "
+                "divide model, and conv_w's channels split across the x | B | C boundary); "
+                "its default_policy has tp=False")
     if cfg.family == "moe" and cfg.moe_mode != "tp":
         return (f"moe_mode={cfg.moe_mode!r} under a sharded policy (experts split over "
                 "model) is ROADMAP item 14.4")
@@ -193,11 +209,33 @@ class _Leaf:
         self.axes = axes
 
 
+def stacks(cfg: ArchConfig) -> tuple[str, ...]:
+    """The dotted paths of ``cfg``'s layer stacks: the subtrees whose every leaf
+    holds one layer a row of its leading axis (a path the model does not have is
+    left out)."""
+    if cfg.family == "hybrid":
+        return tuple(p for p in ("blocks.rec", "blocks.attn", "tail")
+                     if p != "tail" or cfg.n_layers % max(1, cfg.attention_period))
+    return ("layers", "encoder.layers") if cfg.enc_layers else ("layers",)
+
+
+def _stacked(name: str, paths) -> bool:
+    return any(name.startswith(p + ".") for p in paths)
+
+
+# the products of a layer split over ``model`` under a tp=True policy, and the
+# dimension of the layer's block split there: the column-parallel ones (and the
+# hybrid's conv taps, on their channels) on 1, the row-parallel ones on 0
+_SPLIT_DIM = {**dict.fromkeys(("wq", "wk", "wv", "w_gate", "w_up", "w_gate_in", "w_x_in",
+                               "w_a", "w_i", "conv_w"), 1),
+              **dict.fromkeys(("wo", "w_down", "w_out"), 0)}
+
+
 class _Plan:
     """What every rank of one (config, policy, mesh shape) needs, computed once:
     each leaf's ``_Leaf`` from its sanitized spec, in flatten order (``leaves``),
-    and as a tree of ``params``' structure (``tree``) in which the leaves under a
-    ``layers`` key of any subtree are a layer's, without the layer axis."""
+    and as a tree of ``params``' structure (``tree``) in which the leaves of a
+    layer stack (``stacks``) are a layer's, without the layer axis."""
 
     def __init__(self, cfg, policy, axes, shape):
         mesh = _Shape(dict(zip(axes, shape)))
@@ -224,24 +262,30 @@ class _Plan:
             return _Leaf(name, tuple(dims), tuple(gathers), tuple(split), split_by)
 
         metas, structure = tree_lib.flatten(params)
+        paths = stacks(cfg)
         self.leaves = [leaf(n, m, sp) for n, m, sp in zip(
             _paths(params), metas, tree_lib.leaves(specs), strict=True)]
         self.tree = tree_lib.unflatten(structure, [
-            leaf(n, m, sp, lead=int("layers" in n.split(".")[:-1]))
+            leaf(n, m, sp, lead=int(_stacked(n, paths)))
             for n, m, sp in zip(_paths(params), metas, tree_lib.leaves(specs), strict=True)])
-        self.layer = self.tree["layers"]
+        self.layer = self.tree.get("layers")
         if policy.tp:  # the column- and row-parallel products need their split
-            want = [(self.layer, n, d) for n, d in (
-                ("wq", 1), ("wk", 1), ("wv", 1), ("w_gate", 1), ("w_up", 1), ("wo", 0),
-                ("w_down", 0)) if n in self.layer]
-            if "moe" in self.layer:  # the experts (E, D, F) and (E, F, D): F
-                want += [(self.layer["moe"], n, d)
-                         for n, d in (("w_gate", 2), ("w_up", 2), ("w_down", 1))]
+            want = []
+            for path in paths:
+                layer = self.stack(path)
+                want += [(layer, n, d) for n, d in _SPLIT_DIM.items() if n in layer]
+                if "moe" in layer:  # the experts (E, D, F) and (E, F, D): F
+                    want += [(layer["moe"], n, d)
+                             for n, d in (("w_gate", 2), ("w_up", 2), ("w_down", 1))]
             for tree, name, dim in want:
                 if not tree[name].split[dim]:
                     raise ValueError(f"{cfg.name}: {tree[name].name}'s spec leaves dimension "
                                      f"{dim} whole over {self.model!r} (it does not divide by "
                                      f"{mesh.shape[self.model]})")
+
+    def stack(self, path: str) -> dict:
+        """The plan of one layer of the stack at the dotted ``path``."""
+        return L.subtree(self.tree, path)
 
 
 _PLANS: dict = {}
@@ -348,14 +392,12 @@ class TensorParallel:
             block = parts.movedim(0, dim).reshape(shape)
         return block
 
-    def layer(self, lp: dict, *path: str) -> dict:
-        """One layer's weights (the per-layer trees ``layers.unstack`` gives) with
-        FSDP undone, each leaf checked against its block: a decoder layer's, or
-        with ``path`` the layers of that subtree (``"encoder"``)."""
-        plan = self.plan.tree
-        for k in path:
-            plan = plan[k]
-        return _map2(self._layer_leaf, lp, plan["layers"], plan["layers"])
+    def layer(self, lp: dict, stack: str = "layers") -> dict:
+        """One layer's weights (the per-layer trees ``layers.unstack`` gives) of the
+        stack at the dotted path ``stack`` (``stacks``) with FSDP undone, each leaf
+        checked against its block."""
+        plan = self.plan.stack(stack)
+        return _map2(self._layer_leaf, lp, plan, plan)
 
     def _layer_leaf(self, name, t, leaf, _):
         _check(self.cfg, leaf, t)
@@ -414,10 +456,7 @@ class TensorParallel:
         logits = x @ w
         if mask:
             logits = self._mask_tail(logits, split)
-        if not split:
-            return logits
-        parts = self.gather(logits, self.axis)  # (n, B, 1, V/n)
-        return parts.movedim(0, -2).reshape(*logits.shape[:-1], -1)
+        return self.all_columns(logits) if split else logits
 
     def loss(self, params, hidden: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
         """The mean cross-entropy of the rank's rows (float32), the same on every
@@ -458,6 +497,13 @@ class TensorParallel:
         total = self.comm.reduce_scatter(comm_lib.pieces(partial, self.n), self.axis)
         whole = self.comm.all_gather(total.to(partial.dtype), self.axis)
         return whole.reshape(-1)[:partial.numel()].reshape(partial.shape)
+
+    def all_columns(self, x: torch.Tensor) -> torch.Tensor:
+        """The rank's columns (..., c) of a tensor split on its last dimension over
+        ``model`` -> every column (..., n·c), on every rank; the transpose
+        reduce-scatters the gradient."""
+        parts = self.gather(x, self.axis)  # (n, ..., c)
+        return parts.movedim(0, -2).reshape(*x.shape[:-1], -1)
 
     def mlp(self, lp: dict, x: torch.Tensor) -> torch.Tensor:
         """SwiGLU on the rank's columns of ``w_gate``/``w_up`` and rows of

@@ -16,8 +16,8 @@ feature):
 * ``compress_k > 0`` with a sync mode: top-k sparsified gradient sync (paper
   Appendix A) over the first data axis, in the reference's stateless form.
 
-The sharded path (the dense, MoE, VLM and audio families;
-``parallel/tensor_parallel.py``): with the rank's ``Comm`` as
+The sharded path (every family; ``parallel/tensor_parallel.py``): with the
+rank's ``Comm`` as
 ``act_specs["mesh"]`` and a ``Policy`` as ``act_specs["policy"]`` the train
 step runs on one rank inside ``Mesh.run``, on its blocks of the parameters and
 moments and its rows of the batch, as JAX's step jitted with ``in_shardings``
@@ -198,7 +198,7 @@ def value_and_grad(loss_fn):
 
 
 def _check_tp_options(tp, options: TrainOptions) -> None:
-    if options.ce_chunk and tp.tp:
+    if options.ce_chunk and tp.tp and tp.cfg.family in ("dense", "moe", "vlm"):
         raise ValueError(f"{tp.cfg.name}: ce_chunk under tensor parallelism is ROADMAP item "
                          "14.3 (the vocab-parallel loss holds a rank's vocab columns only)")
 
@@ -242,12 +242,15 @@ def make_tp_value_and_grad(cfg: ArchConfig, options: TrainOptions, act_specs):
     rank's blocks, ``batch`` its rows (with the VLM's positions and the audio
     family's encoder frames), ``grads`` the value's gradient with respect to
     each block (a tree of the same structure), which is ``value_and_grad``'s
-    on the autograd route.  The steps (``parallel/pipeline.py:
-    make_pipelined_value_and_grad``'s, inside a layer):
+    on the autograd route.  The layers are the family's ``layer_sequence``
+    ((stack, index, layer) in forward order: the transformer's and mamba2's
+    ``layers``, the hybrid's blocks of recurrent and attention layers, then its
+    tail).  The steps (``parallel/pipeline.py: make_pipelined_value_and_grad``'s,
+    inside a layer):
 
-    1. the encoder's layers (audio), the embed and the decoder layers forward
-       under ``no_grad``, keeping each layer's input (what remat keeps) and
-       summing the layers' MoE aux losses;
+    1. the encoder's layers (audio), the embed and the layers of the sequence
+       forward under ``no_grad``, keeping each layer's input (what remat keeps)
+       and summing the layers' MoE aux losses;
     2. the final norm and the loss under a ``Tape``, then its backward: the
        graph from the loss to its leaves, then each cut in reverse, its
        output's gradient carried to its input by the plain collective of its
@@ -275,6 +278,8 @@ def make_tp_value_and_grad(cfg: ArchConfig, options: TrainOptions, act_specs):
     tp = tp_lib.context(cfg, act_specs)
     _check_tp_options(tp, options)
     aux_seed = options.moe_aux_weight / cfg.n_layers / _aux_share(tp, options)
+    seq = get_model(cfg).layer_sequence(cfg)
+    paths = list(dict.fromkeys(stack for stack, _, _ in seq))
 
     def layer_grads_into(dst, lp, i):
         for d, leaf in zip(tree_lib.leaves(dst), tree_lib.leaves(lp), strict=True):
@@ -288,14 +293,13 @@ def make_tp_value_and_grad(cfg: ArchConfig, options: TrainOptions, act_specs):
         positions = extras.get("positions")
         if positions is None:
             positions = T.default_positions(cfg, tokens)
-        rest = {k: v for k, v in params.items() if k != "layers"}
+        stacks = {p: L.subtree(params, p) for p in paths}
+        rest = _without(params, paths)
         enc_stacks = None
         if "encoder" in rest:
             enc_stacks = rest["encoder"]["layers"]
             rest["encoder"] = {k: v for k, v in rest["encoder"].items() if k != "layers"}
         top = tree_lib.tree_map(_grad_leaf, rest)
-        stacks = params["layers"]
-        n = stacks["attn_norm"]["scale"].shape[0]
         aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
         tape = tp_lib.Tape()
         try:
@@ -309,10 +313,12 @@ def make_tp_value_and_grad(cfg: ArchConfig, options: TrainOptions, act_specs):
                     enc_inputs.append(e)  # the final norm's input
                     enc = L.apply_norm(e, top["encoder"]["final_norm"], cfg.norm_type)
                 x = T.embed(cfg, top, tokens, tp)
-                for lp in L.unstack(stacks, n):
+                unstacked = {p: L.unstack(t, L.depth(t)) for p, t in stacks.items()}
+                for stack, i, layer in seq:
                     inputs.append(x)
-                    x, aux = T.decoder_layer(cfg, lp, x, aux, positions, enc,
-                                             use_kernel=options.use_kernel, tp=tp)
+                    x, aux = layer(cfg, unstacked[stack][i], x, aux, positions, enc,
+                                   use_kernel=options.use_kernel, tp=tp)
+                del unstacked
                 aux = _tp_aux(tp, options, aux / cfg.n_layers)
             tp.tape = tape
             with torch.enable_grad():
@@ -326,20 +332,21 @@ def make_tp_value_and_grad(cfg: ArchConfig, options: TrainOptions, act_specs):
             del h
             if enc is not None:
                 enc.requires_grad_(True)
-            layer_grads = tree_lib.tree_map(torch.zeros_like, stacks)
+            layer_grads = {p: tree_lib.tree_map(torch.zeros_like, t) for p, t in stacks.items()}
             zero = torch.zeros_like(aux)
-            for i in reversed(range(n)):
-                lp = tree_lib.tree_map(lambda t, i=i: _grad_leaf(t[i]), stacks)
+            for j in reversed(range(len(seq))):
+                stack, i, layer = seq[j]
+                lp = tree_lib.tree_map(lambda t, i=i: _grad_leaf(t[i]), stacks[stack])
                 with torch.enable_grad():
-                    x_in = inputs[i].requires_grad_(True)
-                    y, a_loss = T.decoder_layer(cfg, lp, x_in, zero, positions, enc,
-                                                use_kernel=options.use_kernel, tp=tp)
+                    x_in = inputs[j].requires_grad_(True)
+                    y, a_loss = layer(cfg, lp, x_in, zero, positions, enc,
+                                      use_kernel=options.use_kernel, tp=tp)
                 if cfg.family == "moe":
                     tape.backward([y, a_loss], [grad, torch.full_like(a_loss, aux_seed)])
                 else:
                     tape.backward(y, grad)
-                grad, inputs[i] = x_in.grad, None
-                layer_grads_into(layer_grads, lp, i)
+                grad, inputs[j] = x_in.grad, None
+                layer_grads_into(layer_grads[stack], lp, i)
                 del y, a_loss, lp, x_in
             enc_grads = None
             if enc is not None:
@@ -369,12 +376,37 @@ def make_tp_value_and_grad(cfg: ArchConfig, options: TrainOptions, act_specs):
             tp.tape = None
         grads = tree_lib.tree_map(
             lambda t: torch.zeros_like(t) if t.grad is None else t.grad, top)
-        grads["layers"] = layer_grads
+        for p, g in layer_grads.items():
+            _put(grads, p, g)
         if enc_grads is not None:
             grads["encoder"]["layers"] = enc_grads
         return (value, (loss, aux)), grads
 
     return f
+
+
+def _without(tree: dict, paths) -> dict:
+    """A copy of the nested dict ``tree`` (its leaves shared) without the subtrees
+    at the dotted ``paths``; a dict left empty goes too."""
+    out = {}
+    for k, v in tree.items():
+        inner = [p[len(k) + 1:] for p in paths if p.startswith(k + ".")]
+        if k in paths:
+            continue
+        if inner and isinstance(v, dict):
+            v = _without(v, inner)
+            if not v:
+                continue
+        out[k] = v
+    return out
+
+
+def _put(tree: dict, path: str, value) -> None:
+    """``tree`` at the dotted ``path`` set to ``value`` (dicts made on the way)."""
+    *parents, last = path.split(".")
+    for k in parents:
+        tree = tree.setdefault(k, {})
+    tree[last] = value
 
 
 def _grad_leaf(t: torch.Tensor) -> torch.Tensor:
@@ -454,7 +486,7 @@ def make_train_step(cfg: ArchConfig, ocfg: opt.AdamWConfig, options: TrainOption
     once, with the synced gradients, and returns them.  ``act_specs`` goes to
     ``make_loss_fn``.
 
-    The sharded path (the dense, MoE, VLM and audio families): with
+    The sharded path (every family; ``tensor_parallel.context``): with
     ``act_specs["policy"]`` a ``Policy`` and ``act_specs["mesh"]`` the rank's
     ``Comm``, the step runs on one rank inside ``Mesh.run`` and reads neither
     ``policy`` nor ``mesh``:

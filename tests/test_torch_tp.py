@@ -342,13 +342,13 @@ def test_vocab_parallel_embed_is_the_lookup_bit_for_bit(case, dtype):
 @pytest.mark.parametrize("family_arch", ["moonshot-v1-16b-a3b", "mamba2-130m",
                                          "recurrentgemma-9b", "qwen2-vl-7b", "whisper-tiny"])
 def test_tp_policy_on_another_family_raises(family_arch):
-    """What the sharded path does not hold raises, naming its ROADMAP item: the SSM
-    (14.1) and hybrid (14.2) families under any policy, ``ce_chunk`` under a
-    ``tp=True`` policy (14.3; the VLM's case here), ``moe_mode`` ``"ep"`` and
-    ``"gshard"`` and the audio family under a ``tp=True`` policy (14.4).  The MoE
-    (``moe_mode="tp"``) and the VLM under ``Policy()`` and the audio family under
-    its ``default_policy`` (``tp=False``) take the sharded path
-    (``test_torch_tp_families.py``)."""
+    """What the sharded path does not hold raises, naming its ROADMAP item:
+    ``ce_chunk`` under a ``tp=True`` policy (14.3; the VLM's case here), ``moe_mode``
+    ``"ep"`` and ``"gshard"`` and the audio family under a ``tp=True`` policy
+    (14.4), the SSM family under a ``tp=True`` policy (14.5).  The MoE
+    (``moe_mode="tp"``), the VLM and the hybrid under ``Policy()``, and the audio
+    and SSM families under their ``default_policy`` (``tp=False``), take the
+    sharded path (``test_torch_tp_families.py``, ``test_torch_tp_recurrent.py``)."""
     cfg = get_config(family_arch, smoke=True)
     mesh = TraceMesh((1, 4), AXES)
 
@@ -362,9 +362,7 @@ def test_tp_policy_on_another_family_raises(family_arch):
 
     raising = {"moonshot-v1-16b-a3b": [(dataclasses.replace(cfg, moe_mode=m), POLICY, "14.4")
                                        for m in ("ep", "gshard")],
-               "mamba2-130m": [(cfg, POLICY, "14.1"), (cfg, sh.default_policy(cfg), "14.1")],
-               "recurrentgemma-9b": [(cfg, POLICY, "14.2"),
-                                     (cfg, sh.default_policy(cfg), "14.2")],
+               "mamba2-130m": [(cfg, POLICY, "14.5")],
                "whisper-tiny": [(cfg, POLICY, "14.4")]}
     for c, policy, item in raising.get(family_arch, []):
         for make in steps(c, policy):
@@ -373,8 +371,11 @@ def test_tp_policy_on_another_family_raises(family_arch):
     if family_arch == "qwen2-vl-7b":
         with pytest.raises(ValueError, match=r"ce_chunk.*ROADMAP item 14\.3"):
             TS.make_loss_fn(cfg, TS.TrainOptions(ce_chunk=4), act_specs=act(POLICY))
-    if family_arch in ("moonshot-v1-16b-a3b", "qwen2-vl-7b"):
+    if family_arch in ("moonshot-v1-16b-a3b", "qwen2-vl-7b", "recurrentgemma-9b"):
         assert tp_lib.context(cfg, act(POLICY)).tp
+    if family_arch in ("mamba2-130m", "recurrentgemma-9b", "whisper-tiny"):
+        view = tp_lib.context(cfg, act(sh.default_policy(cfg)))
+        assert view is not None and not view.tp
     # no policy: today's unsharded path; the smoke archs' default_policy (tp=False)
     assert not sh.default_policy(cfg).tp
     assert tp_lib.context(cfg, {"mesh": Comm(mesh, 0)}) is None

@@ -597,15 +597,15 @@ def test_step_updates_blocks_in_place_and_checks_them():
 
 def test_other_families_and_options_raise():
     """What the sharded training path does not hold raises, naming its ROADMAP
-    item: the SSM and hybrid families (14.1, 14.2), ``moe_mode`` ``"ep"`` and
-    ``"gshard"`` and the audio family under a ``tp=True`` policy (14.4), and
-    ``ce_chunk`` under one (14.3)."""
+    item: the SSM family under a ``tp=True`` policy (14.5), ``moe_mode`` ``"ep"``
+    and ``"gshard"`` and the audio family under one (14.4), and ``ce_chunk``
+    under one (14.3).  The hybrid family under ``Policy()`` takes the path, and
+    reads no ``ce_chunk`` there, as its unsharded loss does not."""
     mesh = TraceMesh((1, 4), AXES)
     act = {"mesh": Comm(mesh, 0), "policy": sh.Policy()}
     ocfg = opt.AdamWConfig()
     moe = get_config("moonshot-v1-16b-a3b", smoke=True)
-    for cfg, item in ((get_config("mamba2-130m", smoke=True), "14.1"),
-                      (get_config("recurrentgemma-9b", smoke=True), "14.2"),
+    for cfg, item in ((get_config("mamba2-130m", smoke=True), "14.5"),
                       (dataclasses.replace(moe, moe_mode="ep"), "14.4"),
                       (dataclasses.replace(moe, moe_mode="gshard"), "14.4"),
                       (get_config("whisper-tiny", smoke=True), "14.4")):
@@ -617,6 +617,8 @@ def test_other_families_and_options_raise():
         cfg = get_config(arch)
         with pytest.raises(ValueError, match=r"ce_chunk.*ROADMAP item 14\.3"):
             TS.make_train_step(cfg, ocfg, TS.TrainOptions(ce_chunk=4), act_specs=act)
+    hybrid = get_config("recurrentgemma-9b", smoke=True)
+    assert TS.make_tp_value_and_grad(hybrid, TS.TrainOptions(ce_chunk=4), act) is not None
     cfg = get_config(LLAMA)
     with pytest.raises(ValueError, match="needs two data axes"):
         TS.make_train_step(cfg, ocfg, TS.TrainOptions(sync="torus"), act_specs=act)
