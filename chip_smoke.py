@@ -143,8 +143,8 @@ MoE, VLM and audio families in their sharded layouts:
    through ``Comm.ppermute``'s backward on 4 rank threads of the card at
    ``check_pipeline_parallel``'s size, which the ranks' shared autograd
    thread deadlocks until the barrier's timeout (recorded, not gated); then
-   llama3.2-3b at full width and depth in fp32, its 28 layers as 4 stages of
-   7 on 4 rank threads, 4 microbatches of 1 x 2048 (the embedded tokens),
+   llama3.2-3b at full width in fp32, PIPE_LAYERS of its 28 layers as 4
+   stages on 4 rank threads, 4 microbatches of 1 x 2048 (the embedded tokens),
    through ``make_pipelined_value_and_grad`` with the tf32 kernel in every
    stage: the loss and each stage's gradient leaves against the sequential
    run of the same layers, weights and microbatches within max(FP32_TOL,
@@ -194,8 +194,8 @@ MoE, VLM and audio families in their sharded layouts:
    all_gather and all_to_all calls and input bytes, the all-to-all's sends
    by rank pair) against closed forms from the shapes, GSPMD's collectives
    for the same layer (``benchmarks/gspmd_tp_collectives.py``) printed for
-   the record; the bf16 decode loop (16 teacher-forced, 4 greedy: 16 rank
-   threads share one GIL) beside the unsharded one, token agreement
+   the record; the bf16 decode loop (TP_PROMPT_BF16 teacher-forced, TP_DECODE
+   greedy: 16 rank threads share one GIL) beside the unsharded one, token agreement
    reported; then fp32 through tf32: the TP prefill's last logits on (1, 16)
    and on (2, 8) (FSDP gathers over data) and the decode's prompt steps'
    logits on (1, 16) against the fp64 run of the same weights and tokens,
@@ -225,7 +225,14 @@ MoE, VLM and audio families in their sharded layouts:
    layers: the prefill and training gates; whisper-tiny whole under its
    ``default_policy`` (``tp=False``) and ``layout="fsdp"`` on (2, 8), 16 x
    512: the prefill and training gates.  Gates as 25's, launches and
-   ``CommStats`` against closed forms (``_fam_closed_forms``);
+   ``CommStats`` against closed forms (``_fam_closed_forms``).  The fifteenth
+   slice adds moonshot with its experts split on E over ``model``
+   (``moe_mode`` "gshard" and "ep"): fp32 prefill and decode gates at 4 layers
+   on (1, 16) and (2, 8) (64 tf32 launches a prefill), training gates at 1
+   layer on both (EP's fp64 runs route each data row as one group), bf16
+   whole on (2, 8), reported; and llama3.2-3b at 4 layers trained with
+   ``ce_chunk`` 512 against the same step without it (loss and leaves within
+   the gate, a lower peak up to the gradient);
 27. one JSON line on every kernel (launches by path, the MoE, SSM, hybrid,
    VLM, audio, pipeline, EP, TP and sharded-family paths included), one each
    on the sync, MoE, SSM, hybrid, VLM, audio, pipeline, EP-model, sharding,
@@ -2951,7 +2958,11 @@ def phase_audio(smi) -> dict:
 # ---------------------------------------------------------------------------
 
 PIPE_ARCH = "llama3.2-3b"
-PIPE_STAGES, PIPE_MICRO, PIPE_MB = 4, 4, 1  # 28 layers as 7 a stage; 4 microbatches of 1 x 2048
+PIPE_STAGES, PIPE_MICRO, PIPE_MB = 4, 4, 1  # 4 stages; 4 microbatches of 1 x 2048
+# the pipeline's depth, at the 28-layer init's scale: 2 layers a stage (28, 7 a
+# stage, once: 86.2 s of the whole script's 1186.1 s, measured on one H100;
+# cut so that the fifteenth slice's phases fit the script's time limit)
+PIPE_LAYERS = 8
 # autograd through the rank threads' ppermutes on one card, probed at
 # check_pipeline_parallel's size: each wait at a collective ends after this
 # many seconds, and a wait that nothing else can end (a deadlock) then raises
@@ -3048,8 +3059,9 @@ def _sequential_grads(cfg, params, x, labels, final_fn, use_kernel: bool,
 
 
 def phase_pipeline(smi) -> dict:
-    """llama3.2-3b at full width and depth in fp32, its 28 layers as 4 stages of 7 on
-    a ("pipe",) LocalMesh of 4 rank threads on cuda:0, 4 microbatches of 1 x 2048,
+    """llama3.2-3b at full width in fp32, PIPE_LAYERS of its 28 layers (the 28-layer
+    init's scale) as 4 stages on a ("pipe",) LocalMesh of 4 rank threads on
+    cuda:0, 4 microbatches of 1 x 2048,
     through ``make_pipelined_value_and_grad`` (the tf32 kernel in every stage): the
     loss and every stage's gradient against the sequential run of the same layers
     on the same weights and microbatches, within max(FP32_TOL, floor) (the floor:
@@ -3067,10 +3079,12 @@ def phase_pipeline(smi) -> dict:
     from repro_torch.train import optimizer as opt
 
     probe = _pipeline_probe(smi)
-    cfg = get_config(PIPE_ARCH)
+    full = get_config(PIPE_ARCH)
+    cfg = dataclasses.replace(full, n_layers=PIPE_LAYERS)
     p, m, ls = PIPE_STAGES, PIPE_MICRO, cfg.n_layers // PIPE_STAGES
     ticks = m + p - 1
     params, meta = _load_model(cfg, "pipeline", torch.float32)
+    _rescale_stacks(params["layers"], cfg.n_layers, full.n_layers)
     batch = make_batch(cfg, TRAIN_LEN, m * PIPE_MB)
     tokens = torch.from_numpy(batch["tokens"]).cuda()
     labels = torch.from_numpy(batch["labels"]).cuda().reshape(m, PIPE_MB, TRAIN_LEN)
@@ -3791,10 +3805,11 @@ TP_DEVICE = "cuda"  # the TP phases' ranks' device ("cpu" rehearses them at smok
 # The TP decode loops: teacher-forced prompt, then greedy steps.  16 rank threads
 # share one GIL, so a TP decode step costs 16 ranks' host work (1.1-1.9 s on the
 # H100's host): the fp32 gate's loop is cut from the serve phase's 128 + 32 to
-# 16 + 4 (64 + 8 before the SSM and hybrid phases took ~150 s of the script's
-# time), the bf16 loop (reported, not gated) to 16 + 4.
-TP_PROMPT, TP_DECODE = 16, 4
-TP_PROMPT_BF16 = 16
+# 8 + 2 (64 + 8 before the SSM and hybrid phases took ~150 s of the script's
+# time, 16 + 4 before the fifteenth slice's ~170 s), the bf16 loop (reported,
+# not gated) to 8 + 2.
+TP_PROMPT, TP_DECODE = 8, 2
+TP_PROMPT_BF16 = 8
 # The collectives GSPMD puts in the JAX package's jitted steps for one layer of
 # llama3.2-3b on (data, model) = (1, 16) host devices, B 4 (prefill x 2048), from
 # ``PYTHONPATH=src python benchmarks/gspmd_tp_collectives.py`` (jax 0.9.0 on the
@@ -3884,10 +3899,44 @@ def _tp_heads(mesh, policy) -> list[int]:
     return [first[i] for i in range(len(first))]
 
 
-def _rank_slice(mesh, policy, batch, comm) -> slice:
+def _rank_slice(mesh, policy, batch, comm, cfg=None) -> slice:
+    """What a rank claims of a replayed routing log's dispatch (``_replayed_routing``):
+    its rows (one dispatch group a row), or under ``moe_mode="ep"`` its group, the
+    rank's rows as one (a data row's: ``_ep_groups``)."""
     n, i = mesh.axis_size(policy.data_axes), comm.axis_index(policy.data_axes)
+    if cfg is not None and cfg.family == "moe" and cfg.moe_mode == "ep":
+        return slice(i, i + 1)
     rows = batch["tokens"].shape[0] // n
     return slice(i * rows, (i + 1) * rows)
+
+
+@contextlib.contextmanager
+def _ep_groups(groups: int):
+    """The unsharded model's EP layer (``moe_mode="ep"`` and no mesh) as the sharded
+    path routes it under ``Policy()``: the batch's rows in ``groups`` groups of
+    consecutive rows (the data rows), each group's tokens one dispatch group, as
+    ``moe_apply_ep`` routes a rank's; every group in one dispatch, the aux loss
+    their mean (the mean over data of the ranks' aux losses)."""
+    from unittest import mock
+
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+
+    real = T._moe_block
+
+    def block(cfg, mp, x, act_specs=None, tp=None):
+        if tp is not None or cfg.moe_mode != "ep":
+            return real(cfg, mp, x, act_specs, tp)
+        b, s, d = x.shape
+        xg = x.reshape(groups, b // groups * s, d)
+        cap = moe.capacity(xg.shape[1], cfg.top_k, cfg.n_experts, cfg.capacity_factor)
+        gates, experts, aux = moe._route(xg, mp["router"], cfg.top_k)
+        y = moe._group_dispatch(xg, gates, experts, mp["w_gate"], mp["w_up"], mp["w_down"],
+                                cap)
+        return y.reshape(b, s, d), torch.mean(aux)
+
+    with mock.patch.object(T, "_moe_block", block):
+        yield
 
 
 def _tp_prefill(cfg, mesh, blocks, batch, use_kernel=True, policy=None, replay=None) -> tuple:
@@ -3903,7 +3952,7 @@ def _tp_prefill(cfg, mesh, blocks, batch, use_kernel=True, policy=None, replay=N
     def fn(comm, p):
         rows = _tp_rows(mesh, policy, batch, comm)
         if claim is not None:
-            claim(_rank_slice(mesh, policy, batch, comm))
+            claim(_rank_slice(mesh, policy, batch, comm, cfg))
         return st.make_prefill_step(cfg, st.TrainOptions(use_kernel=use_kernel),
                                     act_specs={"mesh": comm, "policy": policy})(p, rows)
 
@@ -3921,12 +3970,13 @@ def _tp_prefill(cfg, mesh, blocks, batch, use_kernel=True, policy=None, replay=N
     return torch.cat([outs[h] for h in heads]), secs, spread
 
 
-def _tp_decode(cfg, mesh, blocks, prompts, steps: int, policy=None) -> tuple:
+def _tp_decode(cfg, mesh, blocks, prompts, steps: int, policy=None, replay=None) -> tuple:
     """Teacher-force ``prompts`` through ``decode_step`` on every rank under ``policy``
     (``_tp_policy()`` by default), then ``steps`` greedy tokens through
     ``make_decode_step``: (the prompt steps' logits (B, P, V) in batch order, the
     greedy tokens (B, steps), seconds a step).  ``mesh`` None: the unsharded model
-    on ``blocks`` (the whole weights)."""
+    on ``blocks`` (the whole weights).  Where ``replay`` holds a routing log of the
+    same steps, the MoE takes its experts (each rank its rows)."""
     from repro_torch.models import get_model
     from repro_torch.train import steps as st
 
@@ -3934,11 +3984,14 @@ def _tp_decode(cfg, mesh, blocks, prompts, steps: int, policy=None) -> tuple:
     p_len = prompts.shape[1]
     heads = [0] if mesh is None else _tp_heads(mesh, policy)
     T = get_model(cfg)
+    claim = None
 
     def fn(comm, p):
         act = None if comm is None else {"mesh": comm, "policy": policy}
         toks = prompts if comm is None else _tp_rows(mesh, policy, {"tokens": prompts},
                                                       comm)["tokens"]
+        if claim is not None and comm is not None:
+            claim(_rank_slice(mesh, policy, {"tokens": prompts}, comm))
         keep = comm is None or comm.rank in heads  # one rank of those sharing rows
         cache = T.init_cache(cfg, toks.shape[0], p_len + steps, dtype=p["embed"].dtype,
                              device=TP_DEVICE, act_specs=act)
@@ -3958,7 +4011,9 @@ def _tp_decode(cfg, mesh, blocks, prompts, steps: int, policy=None) -> tuple:
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    outs = [fn(None, blocks)] if mesh is None else mesh.run(fn, blocks)
+    with (_replayed_routing(replay, per_rank=mesh is not None) if replay is not None
+          else contextlib.nullcontext()) as claim:
+        outs = [fn(None, blocks)] if mesh is None else mesh.run(fn, blocks)
     torch.cuda.synchronize()
     secs = (time.perf_counter() - t0) / (p_len + steps - 1)
     return (torch.cat([outs[r][0] for r in heads]), torch.cat([outs[r][1] for r in heads]),
@@ -4338,19 +4393,21 @@ def _no_autograd_collectives():
         yield
 
 
-def _tp_train_step(cfg, ocfg, mesh, blocks, batch, sync, policy=None, replay=None) -> dict:
+def _tp_train_step(cfg, ocfg, mesh, blocks, batch, sync, policy=None, replay=None,
+                   ce_chunk: int = 0) -> dict:
     """One sharded train step (AdamW from the init state) of every rank's ``blocks``
     under ``policy`` (``_tp_policy()`` by default; the rows by ``batch_specs``),
     through the tf32 kernel, which it takes over (the list is emptied), with an
-    unsharded run's MoE routing replayed where ``replay`` holds its log: every
-    rank's updated blocks and first moment, its metrics, the step's seconds and
-    peak memory; the launches and CommStats are left in the counters."""
+    unsharded run's MoE routing replayed where ``replay`` holds its log, the loss
+    chunked with ``ce_chunk``: every rank's updated blocks and first moment, its
+    metrics, the step's seconds and peak memory; the launches and CommStats are
+    left in the counters."""
     from repro_torch import tree as tree_lib
     from repro_torch.train import optimizer as opt
     from repro_torch.train import steps as st
 
     policy = policy or _tp_policy()
-    opts = st.TrainOptions(sync=sync, use_kernel=True, remat=True)
+    opts = st.TrainOptions(sync=sync, use_kernel=True, remat=True, ce_chunk=ce_chunk)
     per_rank = list(blocks)
     blocks.clear()
     claim = None
@@ -4359,9 +4416,50 @@ def _tp_train_step(cfg, ocfg, mesh, blocks, batch, sync, policy=None, replay=Non
         step = st.make_train_step(cfg, ocfg, opts, act_specs={"mesh": comm, "policy": policy})
         rows = _tp_rows(mesh, policy, batch, comm)
         if claim is not None:
-            claim(_rank_slice(mesh, policy, batch, comm))
+            claim(_rank_slice(mesh, policy, batch, comm, cfg))
         p, state, m = step(p, opt.init(p), rows)
         return p, state.m, {k: float(v) for k, v in m.items()}
+
+    from unittest import mock
+
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel import tensor_parallel as tp_lib
+
+    # the loss's peak: from the first rank's entry into the loss (the peak reset
+    # there, the one before kept) to the last rank's first layer recomputed after
+    # it (every rank's loss and its backward done; the transformer families)
+    lock = threading.Lock()
+    marks = {"pre": 0, "base": None, "ranks": set(), "loss_peak": None}
+
+    def entered(real):
+        def loss(*args, **kwargs):
+            with lock:
+                if marks["base"] is None:
+                    torch.cuda.synchronize()
+                    marks["pre"] = torch.cuda.max_memory_allocated()
+                    marks["base"] = torch.cuda.memory_allocated()
+                    torch.cuda.reset_peak_memory_stats()
+            return real(*args, **kwargs)
+        return loss
+
+    real_layer = T.decoder_layer
+
+    def decoder_layer(*args, **kwargs):
+        if torch.is_grad_enabled() and marks["base"] is not None:
+            with lock:
+                marks["ranks"].add(threading.get_ident())
+                if len(marks["ranks"]) == mesh.size and marks["loss_peak"] is None:
+                    torch.cuda.synchronize()
+                    marks["loss_peak"] = torch.cuda.max_memory_allocated() - marks["base"]
+        return real_layer(*args, **kwargs)
+
+    # the peak up to the gradient: read as each rank enters the clipping norm
+    # (every rank's gradient is done when the last does; AdamW follows its psum)
+    grad_peaks, real_norm = [], tp_lib.TensorParallel.global_norm
+
+    def global_norm(self, grads):
+        grad_peaks.append(torch.cuda.max_memory_allocated())
+        return real_norm(self, grads)
 
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -4371,18 +4469,23 @@ def _tp_train_step(cfg, ocfg, mesh, blocks, batch, sync, policy=None, replay=Non
     t0 = time.perf_counter()
     replayed = (_replayed_routing(replay, per_rank=True) if replay is not None
                 else contextlib.nullcontext())
-    with _no_autograd_collectives(), replayed as claim:
+    with _no_autograd_collectives(), replayed as claim, \
+            mock.patch.object(tp_lib.TensorParallel, "global_norm", global_norm), \
+            mock.patch.object(st, "_tp_loss", entered(st._tp_loss)), \
+            mock.patch.object(st, "_tp_chunked_loss_cut", entered(st._tp_chunked_loss_cut)), \
+            mock.patch.object(T, "decoder_layer", decoder_layer):
         outs = mesh.run(fn, per_rank)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
+    peak = max(marks["pre"], torch.cuda.max_memory_allocated())
     del per_rank
     if not all(t.device.type == TP_DEVICE for t in tree_lib.leaves(outs[0][0])):
         raise AssertionError("[tp] the step's blocks left the card")
     metrics = [o[2] for o in outs]
     if any(m != metrics[0] for m in metrics):
         raise AssertionError(f"[tp] the ranks' metrics differ: {metrics}")
-    return {"outs": outs, "metrics": metrics[0], "s": secs, "peak": peak}
+    return {"outs": outs, "metrics": metrics[0], "s": secs, "peak": peak,
+            "grad_peak": max([marks["pre"]] + grad_peaks[-1:]), "loss_peak": marks["loss_peak"]}
 
 
 def phase_tp_train(smi, train_loss: dict) -> dict:
@@ -4649,7 +4752,9 @@ FAM_VLM_LAYERS = 4  # qwen2-vl-7b's: 8.1 GB (8 layers would hold 82 GB of fp64
 FAM_MOE_RUNS = (("auto", (1, 16)), ("auto", (2, 8)), ("ring", (2, 8)))
 FAM_SHAPE = (1, 16)  # the bf16 serving mesh, and qwen2-vl-7b's fp32 gate's
 FAM_AUDIO_SHAPE = (2, 8)
-FAM_PROMPT, FAM_DECODE = 2, 3  # moonshot's bf16 TP decode: teacher-forced, then greedy
+# moonshot's bf16 TP decode: teacher-forced, then greedy (2, 3 once: 7.35 s
+# a step of 48 layers on 16 rank threads, measured on one H100)
+FAM_PROMPT, FAM_DECODE = 1, 2
 FAM_GATHER_BATCH = 2  # qwen2-vl-7b's gather-route prefill: 2 rows x 4 kv heads over 16
 # whisper-tiny under both tp=False layouts: 16 rows (one a rank under layout="fsdp")
 # of 512 tokens; at 2048 its fp64 reference's logits alone would be 13.6 GB
@@ -4670,14 +4775,19 @@ def _fam_policy(cfg, layout: str):
 
 
 def _fam_closed_forms(cfg, policy, shape, batch: int, seq: int, kind: str, sync: str = "auto",
-                      dtype=torch.float32) -> dict:
-    """What one rank of a sharded prefill step (a decode step: ``seq`` 1), or train
-    step (``make_tp_value_and_grad`` then AdamW), calls and moves, from the
-    shapes and the specs: calls and input bytes by collective.  A train step runs
-    each layer, the embed and the encoder's input twice (no-grad, then recomputed
-    under the tape), the unembed once, and each cut's transpose once.  The
-    hybrid's attention layers are one a block; its recurrent layers gather their
-    conv output over ``model``."""
+                      dtype=torch.float32, ce_chunk: int = 0) -> dict:
+    """What one rank of a sharded prefill step, decode step (``kind`` "decode",
+    ``seq`` 1), or train step (``make_tp_value_and_grad`` then AdamW), calls and
+    moves, from the shapes and the specs: calls and input bytes by collective.  A
+    train step runs each layer, the embed and the encoder's input twice (no-grad,
+    then recomputed under the tape), the unembed once, and each cut's transpose
+    once.  The hybrid's attention layers are one a block; its recurrent layers
+    gather their conv output over ``model``.  The MoE by ``moe_mode`` (under a
+    ``tp=True`` policy): "tp" and "gshard" sum y over ``model`` as a row sum, and
+    pvary the buffer (gshard: the tokens) and the gates in training; "ep" moves
+    its (E, C, D) slabs in two all-to-alls a pass (C the capacity of the rank's
+    rows as one group), and their transposes in training, and in decode takes
+    gshard's rule."""
     from repro_torch import tree as tree_lib
     from repro_torch.configs import abstract_params
     from repro_torch.core.comm import TraceMesh
@@ -4687,6 +4797,7 @@ def _fam_closed_forms(cfg, policy, shape, batch: int, seq: int, kind: str, sync:
     from repro_torch.parallel import tensor_parallel as tp_lib
 
     train = kind == "train"
+    ep = cfg.family == "moe" and cfg.moe_mode == "ep" and kind != "decode"
     if train and sync != "auto":  # the data axes manual: blocks whole over them
         policy = dataclasses.replace(policy, fsdp=False)
     mesh = TraceMesh(shape, TP_AXES)
@@ -4721,9 +4832,10 @@ def _fam_closed_forms(cfg, policy, shape, batch: int, seq: int, kind: str, sync:
         if "data" in axes:  # FSDP: a stacked leaf a layer at a time, else whole
             per = x.shape[0] if tp_lib._stacked(name, stacks) else 1
             times = 1 if name == "unembed" else passes
-            add("all_gather", times * per, times * block * elt)
+            lelt = 4 if x.dtype == torch.float32 else elt  # the MoE router: fp32 in any model
+            add("all_gather", times * per, times * block * lelt)
             if train:  # the transposes: each layer's gradient, reduce-scattered
-                add("reduce_scatter", per, dp * block * elt)
+                add("reduce_scatter", per, dp * block * lelt)
         if train and sync == "auto" and any(
                 mesh.shape[a] > 1 and a not in axes for a in policy.data_axes):
             add("psum", 1, block * elt)  # sum_over_data
@@ -4731,11 +4843,12 @@ def _fam_closed_forms(cfg, policy, shape, batch: int, seq: int, kind: str, sync:
         h, kv = cfg.n_heads, cfg.n_kv_heads
         if split["embed"][0]:  # the vocab-parallel lookup's psum
             add("psum", passes, passes * act * elt)
-        # the row sums (attention's, the MLP's or the experts'): a reduce-scatter of
-        # the fp32 partial in n pieces, an all-gather of the sums
+        # the row sums (attention's, the MLP's or the experts' but EP's): a
+        # reduce-scatter of the fp32 partial in n pieces, an all-gather of the sums
         piece = -(-act // n)
-        add("reduce_scatter", 2 * n_l * passes, 2 * n_l * passes * piece * n * 4)
-        add("all_gather", 2 * n_l * passes, 2 * n_l * passes * piece * elt)
+        sums = (1 if ep else 2) * n_l * passes
+        add("reduce_scatter", sums, sums * piece * n * 4)
+        add("all_gather", sums, sums * piece * elt)
         qkv, o = tok * (h + 2 * kv) * hd // n, tok * h * hd // n
         if sh.head_split(rows, kv, n) is None:  # the gather route
             add("all_gather", n_att * passes, n_att * passes * qkv * elt)
@@ -4756,19 +4869,28 @@ def _fam_closed_forms(cfg, policy, shape, batch: int, seq: int, kind: str, sync:
             # the loss: the row max (fp32), its exp-sums and the label's logit, the
             # hidden states' pvary; each layer's pvarys: attention's input, and the
             # MLP's input or the MoE's capacity buffer and gates
-            add("all_gather", 1, tok * 4)
-            add("psum", 3, 2 * tok * 4 + act * elt)
+            # with ce_chunk: each chunk's max and two psums, in the forward and again
+            # in its recompute (the psums' transposes pass the gradient)
+            nc = -(-seq // ce_chunk) if ce_chunk else 0
+            add("all_gather", 2 * nc or 1, (2 if nc else 1) * tok * 4)
+            add("psum", 4 * nc + 1 if nc else 3, (4 if nc else 2) * tok * 4 + act * elt)
             add("psum", n_l, n_l * act * elt)
             # the recurrent layers' lambda_p (fp32), whole, read at the rank's channels
             add("psum", n_rec, n_rec * cfg.d_model * 4)
-            if cfg.family == "moe":
+            if cfg.family == "moe" and cfg.moe_mode == "tp":
                 group = min(moe.GROUP_TOKENS, seq)
                 g = rows * -(-seq // group)
                 cap = moe.capacity(group, cfg.top_k, cfg.n_experts, cfg.capacity_factor)
                 add("psum", 2 * n_l, n_l * (g * cfg.n_experts * cap * cfg.d_model * elt
                                             + tok * cfg.top_k * 4))
+            elif cfg.family == "moe":  # the tokens and the gates
+                add("psum", 2 * n_l, n_l * (act * elt + tok * cfg.top_k * 4))
             else:
                 add("psum", n_l, n_l * act * elt)
+    if ep:  # the slabs there and back; in training recomputed, and their transposes
+        cap = moe.capacity(tok, cfg.top_k, cfg.n_experts, cfg.capacity_factor)
+        k = 3 if train else 1
+        add("all_to_all", 2 * n_l * k, 2 * n_l * k * cfg.n_experts * cap * cfg.d_model * elt)
     if train:
         if sync == "auto" and nd > 1:  # the loss's (and the MoE aux's) mean over data
             add("psum", 1 + (cfg.family == "moe"), 4 + 4 * (cfg.family == "moe"))
@@ -4782,7 +4904,10 @@ def _fam_closed_forms(cfg, policy, shape, batch: int, seq: int, kind: str, sync:
 
 
 def _fam_train_gate(cfg, params, batch, runs, tag: str, smi) -> dict:
-    """``phase_tp_train``'s gate for ``runs`` ((sync, shape, layout) each) of ``cfg``:
+    """``phase_tp_train``'s gate for ``runs`` ((sync, shape, layout) each, and a
+    dict of ``ce_chunk`` and ``moe_mode`` where a run takes them: a MoE mode of
+    the same function on this batch as ``cfg``'s, whose fp64 run they share) of
+    ``cfg``:
     one AdamW step from the init state on 16 rank threads, through the cut route
     (no collective under autograd) and the tf32 kernel, against the unsharded model
     in fp64 (plain attention): the loss, ``grad_norm`` and every leaf's clipped
@@ -4856,22 +4981,34 @@ def _fam_train_gate(cfg, params, batch, runs, tag: str, smi) -> dict:
         f"{max(floor['leaves'].values()):.2e} from it"
         + (" (every run replays the fp64 run's routing)" if moe_log is not None else "")
         + f" [{smi}]")
-    for sync, shape, layout in runs:
+    chunked_runs = any(len(r) > 3 and "ce_chunk" in r[3] for r in runs)
+    kept = {}  # with a ce_chunk run: every run's clipped gradient, on the host
+    for sync, shape, layout, *opt in runs:
+        opt = opt[0] if opt else {}
+        ce_chunk, mode = opt.get("ce_chunk", 0), opt.get("moe_mode")
+        run_cfg = dataclasses.replace(cfg, moe_mode=mode) if mode else cfg
         policy = _fam_policy(cfg, layout)
-        label = f"[{tag}] {cfg.name} {layout} {sync} on (data, model) = {shape}"
+        label = (f"[{tag}] {cfg.name} {layout} {sync} on (data, model) = {shape}"
+                 + (f", moe_mode {mode!r}" if mode else "")
+                 + (f", ce_chunk {ce_chunk}" if ce_chunk else ""))
         grad_policy = policy if sync == "auto" else dataclasses.replace(policy, fsdp=False)
-        mesh, specs, blocks = _tp_shard(cfg, params, shape, grad_policy)
-        run = _tp_train_step(cfg, ocfg, mesh, blocks, batch, sync, policy, moe_log)
+        mesh, specs, blocks = _tp_shard(run_cfg, params, shape, grad_policy)
+        run = _tp_train_step(run_cfg, ocfg, mesh, blocks, batch, sync, policy, moe_log, ce_chunk)
         outs, m = run["outs"], run["metrics"]
         launches = _expect_launches(label, tf32=0 if recurrent else mesh.size * 2 * cfg.n_layers)
-        stats = _tp_step_stats_check(label, mesh, _fam_closed_forms(cfg, policy, shape, b, s,
-                                                                "train", sync))
+        stats = _tp_step_stats_check(label, mesh, _fam_closed_forms(
+            run_cfg, policy, shape, b, s, "train", sync, ce_chunk=ce_chunk))
+        key = (f"{layout}_{sync}_{shape[0]}x{shape[1]}" + (f"_{mode}" if mode else "")
+               + (f"_ce{ce_chunk}" if ce_chunk else ""))
+        kept[key] = {}
         spec_of = dict(zip(names, tree_lib.leaves(specs)))
         leaf_err, excess = {}, -1.0
         for i, (n, p0) in enumerate(_named_leaves(params)):
             gt = _tp_whole(mesh, spec_of[n], p0.shape, [tree_lib.leaves(o[1])[i] for o in outs])
             pt = _tp_whole(mesh, spec_of[n], p0.shape, [tree_lib.leaves(o[0])[i] for o in outs])
             gt /= 1 - ocfg.b1  # the clipped gradient the step applied
+            if chunked_runs:
+                kept[key][n] = gt.cpu()
             sq = sq_ref = 0.0
             for sl in _row_chunks(p0.shape):
                 g, p = gt[sl].double(), pt[sl].double()
@@ -4902,20 +5039,44 @@ def _fam_train_gate(cfg, params, batch, runs, tag: str, smi) -> dict:
                 f"{floor['leaves'][worst]:.2e})); "
                 f"params within rtol {SYNC_STEP_TOL['rtol']} atol {SYNC_STEP_TOL['atol']} + "
                 f"lr*|du| (excess {excess:.3e}); aux {m['aux']:.6f}; step {run['s']:.2f}s, "
-                f"peak {run['peak'] / 2**30:.2f} GiB; launches {launches}; CommStats a rank "
+                f"peak {run['peak'] / 2**30:.2f} GiB (to the gradient "
+                f"{run['grad_peak'] / 2**30:.2f}); launches {launches}; CommStats a rank "
                 f"{json.dumps(stats)} (closed forms)")
         log(line + f" [{smi}]")
         for n in names:
-            log(f"[{tag}] {layout}_{sync}_{shape[0]}x{shape[1]} leaf {n:28s} clipped gradient "
+            log(f"[{tag}] {key} leaf {n:28s} clipped gradient "
                 f"vs fp64 rel_l2 {leaf_err[n]:.2e} (tol {bound['leaves'][n]:.2e})")
         if bad or excess > 0 or loss_err > bound["loss"] or norm_err > bound["norm"] \
                 or not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])):
             raise AssertionError(f"{line}: over the bound ({bad})")
-        out["runs"][f"{layout}_{sync}_{shape[0]}x{shape[1]}"] = {
+        out["runs"][key] = {
             "loss": m["loss"], "aux": m["aux"], "grad_norm": m["grad_norm"],
             "loss_vs_fp64": loss_err, "norm_vs_fp64": norm_err, "leaf_vs_fp64": leaf_err,
             "param_excess": excess, "s": run["s"], "peak_bytes": run["peak"],
+            "grad_peak_bytes": run["grad_peak"], "loss_peak_bytes": run["loss_peak"],
             "launches": launches, "stats": stats}
+    for key in [k for k in kept if "_ce" in k]:  # the chunked loss against the unchunked
+        base = key[:key.index("_ce")]
+        got, ref_run = out["runs"][key], out["runs"][base]
+        loss_d = abs(got["loss"] - ref_run["loss"]) / abs(ref_run["loss"])
+        leaf_d = {n: rel_l2(kept[key][n].to(TP_DEVICE), kept[base][n].to(TP_DEVICE))
+                  for n in names}
+        worst = max(leaf_d, key=leaf_d.get)
+        bad = [n for n, e in leaf_d.items() if e > bound["leaves"][n]]
+        line = (f"[{tag}] {cfg.name} {key} against {base}: loss {loss_d:.2e} (tol "
+                f"{bound['loss']:.2e}), clipped gradient leaves up to {leaf_d[worst]:.2e} "
+                f"({worst}; tol {bound['leaves'][worst]:.2e}); the 16 ranks' loss, forward "
+                f"and backward, peaked {got['loss_peak_bytes'] / 2**30:.3f} GiB above what "
+                f"was live as it began, against {ref_run['loss_peak_bytes'] / 2**30:.3f} "
+                f"(the step's peak to its gradient {got['grad_peak_bytes'] / 2**30:.2f} and "
+                f"{ref_run['grad_peak_bytes'] / 2**30:.2f} GiB, the whole step's "
+                f"{got['peak_bytes'] / 2**30:.2f} and {ref_run['peak_bytes'] / 2**30:.2f}: "
+                "set by the layers' backward, not the loss)")
+        log(line + f" [{smi}]")
+        got.update({"loss_vs_unchunked": loss_d, "leaf_vs_unchunked": leaf_d})
+        if bad or loss_d > bound["loss"] or not (
+                got["loss_peak_bytes"] < ref_run["loss_peak_bytes"]):
+            raise AssertionError(f"{line}: over the bound, or no lower peak ({bad})")
     return out
 
 
@@ -5015,28 +5176,31 @@ def _route_of(cfg, policy, shape, batch: int) -> str:
     return "gather" if hs is None else f"pair ({hs.rows} row x {hs.kv_heads} kv heads)"
 
 
-def _fam_bf16_serve(cfg, params, batches, tag: str, smi, decode: bool, calls: int = 3) -> dict:
-    """bf16 on FAM_SHAPE: the unsharded prefill of each batch of ``batches`` (name ->
-    batch), then the weights cut into the ranks' blocks (the whole tree freed a
-    leaf at a time) and the TP prefill of each through sm90 (the SSM and hybrid
-    families: no kernel), one warm-up and ``calls - 1`` timed calls, the last
-    logits against the unsharded ones (reported), launches
-    and ``CommStats`` against the closed forms; with ``decode`` the TP decode loop
-    (FAM_PROMPT teacher-forced, FAM_DECODE greedy) after it."""
+def _fam_bf16_serve(cfg, params, batches, tag: str, smi, decode: bool, calls: int = 3,
+                    shape=FAM_SHAPE, around=contextlib.nullcontext) -> dict:
+    """bf16 on ``shape``: the unsharded prefill of each batch of ``batches`` (name ->
+    batch), each in the context ``around()`` (EP's grouping, ``_ep_groups``), then
+    the weights cut into the ranks' blocks (the whole tree freed a leaf at a time)
+    and the TP prefill of each through sm90 (the SSM and hybrid families: no
+    kernel), one warm-up and ``calls - 1`` timed calls (one call: that one), the
+    last logits against the unsharded ones (reported), launches and ``CommStats``
+    against the closed forms; with ``decode`` the TP decode loop (FAM_PROMPT
+    teacher-forced, FAM_DECODE greedy) after it."""
     policy = _fam_policy(cfg, "tp")
     ref = {}
     for name, batch in batches.items():  # the unsharded prefill, and two bf16 paths' floor
         extras = {k: v for k, v in batch.items() if k != "tokens"}
-        logits, t = _prefill(cfg, params, batch["tokens"], True, extras=extras)
-        logits = logits.clone()
-        chunked, _ = _prefill(dataclasses.replace(cfg, attn_chunk=FLOOR_CHUNK), params,
-                              batch["tokens"], False, extras=extras)
+        with around():
+            logits, t = _prefill(cfg, params, batch["tokens"], True, extras=extras)
+            logits = logits.clone()
+            chunked, _ = _prefill(dataclasses.replace(cfg, attn_chunk=FLOOR_CHUNK), params,
+                                  batch["tokens"], False, extras=extras)
         ref[name] = (logits, t, rel_l2(chunked.float(), logits.float()))
         del chunked
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    mesh, _, blocks = _tp_shard(cfg, params, FAM_SHAPE, policy, free=True)
+    mesh, _, blocks = _tp_shard(cfg, params, shape, policy, free=True)
     shard_s = time.perf_counter() - t0
     out = {"shard_s": shard_s}
     for name, batch in batches.items():
@@ -5051,20 +5215,22 @@ def _fam_bf16_serve(cfg, params, batches, tag: str, smi, decode: bool, calls: in
                 sm90=0 if cfg.family in RECURRENT else mesh.size * cfg.n_layers)
             if i == 0:
                 stats = _tp_step_stats_check(f"{tag} bf16 {name}", mesh, _fam_closed_forms(
-                    cfg, policy, FAM_SHAPE, b, s, "prefill", dtype=torch.bfloat16))
+                    cfg, policy, shape, b, s, "prefill", dtype=torch.bfloat16))
             secs.append(t)
         if logits.shape != (b, 1, cfg.vocab) or not torch.isfinite(logits).all():
             raise AssertionError(f"[{tag}] bf16 TP logits {tuple(logits.shape)} not finite or "
                                  "misshapen")
         r, r_s, floor = ref[name]
-        rec = {"s": statistics.median(secs[1:]), "s_runs": secs, "unsharded_s": r_s,
+        rec = {"s": statistics.median(secs[1:] or secs), "s_runs": secs, "unsharded_s": r_s,
                "rel_l2_vs_unsharded": rel_l2(logits.float(), r.float()), "bf16_floor": floor,
                "argmax_agree": float((logits.argmax(-1) == r.argmax(-1)).float().mean()),
                "launches": launches, "stats": stats, "rank_spread": spread,
-               "route": _route_of(cfg, policy, FAM_SHAPE, b)}
-        log(f"[{tag}] {cfg.name} bf16 whole ({cfg.n_layers} layers), {name}: TP prefill "
-            f"{b} x {s} on (data, model) = {FAM_SHAPE}, {rec['route']}: "
-            f"{rec['s']:.3f}s median of {calls - 1} after a warm-up "
+               "route": _route_of(cfg, policy, shape, b)}
+        mode = f" (moe_mode {cfg.moe_mode!r})" if cfg.family == "moe" else ""
+        log(f"[{tag}] {cfg.name}{mode} bf16 whole ({cfg.n_layers} "
+            f"layers), {name}: TP prefill {b} x {s} on (data, model) = {shape}, "
+            f"{rec['route']}: {rec['s']:.3f}s "
+            f"{f'median of {calls - 1} after a warm-up' if calls > 1 else 'one call'} "
             f"({', '.join(f'{t:.3f}' for t in secs)}"
             f" s; unsharded {r_s:.3f}s; no speed claim: 16 ranks share one card); vs the "
             f"unsharded prefill rel_l2 {rec['rel_l2_vs_unsharded']:.3e}, argmax agreement "
@@ -5081,7 +5247,7 @@ def _fam_bf16_serve(cfg, params, batches, tag: str, smi, decode: bool, calls: in
         if not (torch.isfinite(dl).all() and ((toks >= 0) & (toks < cfg.vocab)).all()):
             raise AssertionError(f"[{tag}] the bf16 TP decode gave bad logits or tokens")
         out["decode_ms"] = dsec * 1e3
-        log(f"[{tag}] {cfg.name} bf16 TP decode on {FAM_SHAPE}, batch {prompts.shape[0]}: "
+        log(f"[{tag}] {cfg.name} bf16 TP decode on {shape}, batch {prompts.shape[0]}: "
             f"{FAM_PROMPT} teacher-forced and {FAM_DECODE} greedy steps, {dsec * 1e3:.1f} ms a "
             f"step (16 ranks' host work under one GIL), tokens {toks[0].tolist()} [{smi}]")
     del blocks, mesh
@@ -5114,6 +5280,177 @@ def _fam_free() -> None:
     torch.cuda.empty_cache()
 
 
+# The fifteenth slice: moonshot's experts split over model (moe_mode "ep" and
+# "gshard") and the chunked loss under TP, in phase_tp_families.  Bytes reckoned
+# before the first run, in GB: the fp32 gates run on the tp-mode gates' weights
+# (4 layers: 11.8, fp64 23.6; 1 layer: 4.96).  EP's prefill on (1, 16) routes
+# the 4 rows x 2048 as one group: C = 960, a rank's slabs (64, 960, 2048) fp32
+# 0.50 GB, each of slabs, received slabs, expert outputs and returned slabs alive
+# at the exchanges: ~2 GB a rank, 32 over 16 ranks, beside 11.8 of blocks; on
+# (2, 8) half.  gshard's dispatch and combine tensors (4, 12288, 4, 240) fp32,
+# 0.19 GB each a rank, 6 over 16.  Training at 1 layer, B 2 x 2048: EP's slabs
+# 0.25 GB a rank ((1, 16), C 480) alive in the recompute with their gradients,
+# ~16 over 16 ranks, beside ~40 for the tp mode.  bf16 whole on (2, 8):
+# 56.1 of blocks, EP's slabs (64, 480, 2048) 0.13 GB and its other exchange
+# buffers ~0.6 a rank (~10), a layer's gathered experts 0.14 a rank (2.2):
+# ~70, under the 79 GiB card.
+FAM_MOE_MODES = ("gshard", "ep")
+# the training gate's runs under the new modes that share the tp mode's fp64 run
+# (the same function at B 2 x 2048: gshard's groups are the rows, as moe_apply's,
+# and on (2, 8) each data row holds one row, EP's group); EP on (1, 16), where a
+# data row holds both rows as one group, takes a gate of its own
+FAM_MOE_MODE_RUNS = (("auto", (1, 16), "tp", {"moe_mode": "gshard"}),
+                     ("auto", (2, 8), "tp", {"moe_mode": "gshard"}),
+                     ("auto", (2, 8), "tp", {"moe_mode": "ep"}))
+FAM_MOE_EP_OWN = ((1, 16),)
+FAM_MOE_MODE_BF16_SHAPE = (2, 8)
+FAM_MOE_PROMPT, FAM_MOE_GREEDY = 4, 3  # the fp32 decode gates: teacher-forced, greedy
+# llama3.2-3b's chunked loss under TP at TP_TRAIN_LAYERS, on (1, 16): its vocab
+# split 16 ways, 8016 columns a rank; a rank's (2, 2048, 8016) fp32 logits 0.13 GB
+# at once unchunked, a chunk's 32 MB at 512
+FAM_CE_CHUNK = 512
+FAM_CE_SHAPE = (1, 16)
+
+
+def _fam_moe_decode_gate(cfg, params, prompts, shape, tag: str, smi) -> dict:
+    """fp32: the sharded decode loop on ``shape`` under ``Policy()``
+    (FAM_MOE_PROMPT teacher-forced steps, then FAM_MOE_GREEDY - 1 greedy ones; the
+    MoE by ``_moe_view``'s decode rule, ``moe_apply``'s function: for experts split
+    on E the gshard rule, each rank's experts and one sum over ``model``) against
+    the unsharded decode loop of the weights in fp64, within max(FP32_TOL, the
+    unsharded fp32 loop's own distance from it), every run replaying the fp64
+    loop's routing (each rank its rows); launches (none: decode attends plainly)
+    and ``CommStats`` against the closed forms, a step each."""
+    from repro_torch import tree as tree_lib
+
+    policy = _fam_policy(cfg, "tp")
+    p64 = tree_lib.tree_map(lambda t: t.double(), params)
+    with _routing_log() as log_:
+        ex = _tp_decode(cfg, None, p64, prompts, FAM_MOE_GREEDY, policy)[0]
+    moe_log = list(log_)
+    del p64
+    torch.cuda.empty_cache()
+    plain = _tp_decode(cfg, None, params, prompts, FAM_MOE_GREEDY, policy, replay=moe_log)[0]
+    floor = rel_l2(plain, ex)
+    bound = max(FP32_TOL, floor)
+    mesh, _, blocks = _tp_shard(cfg, params, shape, policy)
+    mesh.stats.reset()
+    _reset_counts()
+    got, toks, sec = _tp_decode(cfg, mesh, blocks, prompts, FAM_MOE_GREEDY, policy,
+                                replay=moe_log)
+    label = f"[{tag}] {cfg.name} (moe_mode {cfg.moe_mode!r}) fp32 decode on (data, model) = {shape}"
+    launches = _expect_launches(label)
+    b, steps = prompts.shape[0], prompts.shape[1] + FAM_MOE_GREEDY - 1
+    step = _fam_closed_forms(cfg, policy, shape, b, 1, "decode")
+    want = {k: ({"calls": v["calls"] * steps, "bytes": v["bytes"] * steps}
+                if isinstance(v, dict) else v) for k, v in step.items()}
+    stats = _tp_step_stats_check(label, mesh, want)
+    err = rel_l2(got, ex)
+    route = _route_of(cfg, policy, shape, b)
+    line = (f"{label} at {cfg.n_layers} layers, batch {b}: {prompts.shape[1]} teacher-forced "
+            f"and {FAM_MOE_GREEDY - 1} greedy steps ({route}), {sec * 1e3:.1f} ms a step; the "
+            f"prompt steps' logits vs the fp64 loop rel_l2 {err:.3e} (tol max({FP32_TOL}, the "
+            f"unsharded fp32 loop's {floor:.3e})); tokens {toks[0].tolist()}; launches "
+            f"{launches}; CommStats a rank {json.dumps(stats)} (closed forms, {steps} steps; "
+            "the fp64 loop's routing replayed)")
+    log(line + f" [{smi}]")
+    if not (err <= bound and torch.isfinite(got).all()
+            and ((toks >= 0) & (toks < cfg.vocab)).all()):
+        raise AssertionError(f"{line}: over the bound")
+    del blocks, mesh
+    return {"vs_fp64": err, "floor": floor, "bound": bound, "ms_step": sec * 1e3,
+            "route": route, "launches": launches, "stats": stats}
+
+
+def _ep_grouping(cfg, shape):
+    """The context of an unsharded reference run of ``cfg`` against the sharded path
+    on ``shape`` under ``Policy()``: EP's data rows as its groups, else none."""
+    return _ep_groups(shape[0]) if cfg.moe_mode == "ep" else contextlib.nullcontext()
+
+
+def _fam_moe_mode_gates(cfg, params, smi) -> dict:
+    """moonshot at FAM_MOE_PREFILL_LAYERS layers in fp32 (the tp mode's gate
+    weights) under each of FAM_MOE_MODES: the prefill gate (``_fam_prefill_gate``,
+    64 tf32 launches a call) and the decode gate on each of FAM_MOE_PREFILL_SHAPES;
+    EP's fp64 and unsharded runs route each data row's tokens as one group
+    (``_ep_groups``), as its ranks do."""
+    out = {"prefill": {}, "decode": {}}
+    batch = _fam_batch(cfg, *FAM_PREFILL)
+    prompts = batch["tokens"][:, :FAM_MOE_PROMPT].contiguous()
+    for mode in FAM_MOE_MODES:
+        c = dataclasses.replace(cfg, moe_mode=mode)
+        for shape in FAM_MOE_PREFILL_SHAPES:
+            key = f"{mode}_{shape[0]}x{shape[1]}"
+            with _ep_grouping(c, shape):
+                out["prefill"][key] = _fam_prefill_gate(c, params, batch, shape, "tp",
+                                                        f"tp-moe-{mode}", smi)
+            out["decode"][key] = _fam_moe_decode_gate(c, params, prompts, shape,
+                                                      f"tp-moe-{mode}", smi)
+            _fam_free()
+    return out
+
+
+def _fam_moe_mode_train(cfg, params, smi) -> dict:
+    """The training gate (``_fam_train_gate``, the cut route) of moonshot at
+    FAM_MOE_LAYERS in fp32 under ``moe_mode="ep"`` on each of FAM_MOE_EP_OWN,
+    where a data row holds more than one row of the batch: against an fp64 run
+    that routes each data row's rows as one group (``_ep_groups``), as EP's ranks
+    do.  The gate leaves ``params`` on the host; each takes them back to the card."""
+    from repro_torch import tree as tree_lib
+
+    out = {}
+    batch = _fam_batch(cfg, *FAM_TRAIN)
+    c = dataclasses.replace(cfg, moe_mode="ep")
+    for shape in FAM_MOE_EP_OWN:
+        params = tree_lib.tree_map(lambda t: t.to(TP_DEVICE), params)
+        with _ep_grouping(c, shape):
+            gate = _fam_train_gate(c, params, batch, [("auto", shape, "tp")], "tp-moe-ep", smi)
+        for key, run in gate.pop("runs").items():
+            out[f"ep_{key}"] = {**run, **{f"gate_{k}": v for k, v in gate.items()
+                                          if k != "floor"}}
+        _fam_free()
+    return out
+
+
+def _fam_moe_mode_bf16(smi) -> dict:
+    """moonshot bf16 at full width and depth under each of FAM_MOE_MODES on
+    FAM_MOE_MODE_BF16_SHAPE: the TP prefill (B 4 x 2048, 768 sm90 launches) against
+    the unsharded one of its grouping, reported, not gated (bf16 at depth is
+    chaotic); the weights drawn anew for each (a mode's blocks are cut from
+    the whole tree, which they free)."""
+    from repro_torch.configs import get_config
+
+    out = {}
+    for mode in FAM_MOE_MODES:
+        full = dataclasses.replace(get_config(MOE_ARCH), moe_mode=mode)
+        params, meta = _load_model(full, f"tp-moe-{mode}", torch.bfloat16)
+        out[mode] = {**meta, **_fam_bf16_serve(
+            full, params, {"text": _fam_batch(full, *FAM_PREFILL)}, f"tp-moe-{mode}", smi,
+            decode=False, calls=1, shape=FAM_MOE_MODE_BF16_SHAPE,
+            around=lambda c=full: _ep_grouping(c, FAM_MOE_MODE_BF16_SHAPE))}
+        del params
+        _fam_free()
+    return out
+
+
+def _fam_ce_chunk(smi) -> dict:
+    """llama3.2-3b at TP_TRAIN_LAYERS in fp32 (the 28-layer init's scale) trained
+    under ``Policy()`` on FAM_CE_SHAPE with ``ce_chunk`` FAM_CE_CHUNK and without
+    (``_fam_train_gate``): each within max(FP32_TOL, floor) of the fp64 run, and
+    the chunked step's loss and gradient leaves within the same bounds of the
+    unchunked step's, and the 16 ranks' loss (forward and backward) at a lower
+    peak above what was live as it began (``_tp_train_step``'s ``loss_peak``;
+    the whole step's peak is set by the layers' backward, whatever the loss)."""
+    cfg, params = _fam_fp32_model(TP_ARCH, TP_TRAIN_LAYERS)
+    out = _fam_train_gate(cfg, params, _fam_batch(cfg, *FAM_TRAIN),
+                          [("auto", FAM_CE_SHAPE, "tp"),
+                           ("auto", FAM_CE_SHAPE, "tp", {"ce_chunk": FAM_CE_CHUNK})],
+                          "tp-ce", smi)
+    del params
+    _fam_free()
+    return out
+
+
 def phase_tp_families(smi) -> dict:
     """The sharded layout of the MoE, VLM and audio families on 16 rank threads of
     the card (``parallel/tensor_parallel.py``), each rank computing from its blocks
@@ -5132,7 +5469,16 @@ def phase_tp_families(smi) -> dict:
       (the gather route) on (1, 16);
     * whisper-tiny whole, on weights scaled to 1/sqrt(input width) as
       ``phase_audio``'s gates: under its ``default_policy`` (``tp=False``) and
-      ``layout="fsdp"`` on (2, 8), B 16 x 512, the fp32 prefill and training gates.
+      ``layout="fsdp"`` on (2, 8), B 16 x 512, the fp32 prefill and training gates;
+    * the fifteenth slice: moonshot with its experts split on E over ``model``
+      (``moe_mode`` "gshard" and "ep"): the fp32 prefill and decode gates at
+      FAM_MOE_PREFILL_LAYERS layers on (1, 16) and (2, 8) and the training gate
+      at FAM_MOE_LAYERS on both, EP's references routing each data row as one
+      group (``_ep_groups``: EP's own training gate on (1, 16); its (2, 8) run
+      and gshard's share the tp mode's, FAM_MOE_MODE_RUNS); bf16 whole on
+      FAM_MOE_MODE_BF16_SHAPE, reported;
+      and llama3.2-3b at TP_TRAIN_LAYERS trained with ``ce_chunk`` FAM_CE_CHUNK
+      against the same step without it (``_fam_ce_chunk``).
 
     Gates as ``phase_tp_train``'s; launches by variant and ``CommStats`` a rank
     against closed forms (``_fam_closed_forms``); the peak reported.  Forward and
@@ -5143,26 +5489,31 @@ def phase_tp_families(smi) -> dict:
     t_phase = time.perf_counter()
     out = {}
 
-    # -- moonshot-v1-16b-a3b: fp32 gates, then bf16 whole
+    # -- moonshot-v1-16b-a3b: fp32 gates (moe_mode "tp", then "gshard" and "ep" on
+    # the same weights), then bf16 whole
     cfg, params = _fam_fp32_model(MOE_ARCH, FAM_MOE_PREFILL_LAYERS)
     batch = _fam_batch(cfg, *FAM_PREFILL)
     out["moe_prefill"] = {f"{d}x{m}": _fam_prefill_gate(cfg, params, batch, (d, m), "tp",
                                                         "tp-moe", smi)
                           for d, m in FAM_MOE_PREFILL_SHAPES}
-    del params, batch
+    del batch
+    out["moe_modes"] = _fam_moe_mode_gates(cfg, params, smi)
+    del params
     _fam_free()
     cfg, params = _fam_fp32_model(MOE_ARCH, FAM_MOE_LAYERS)
     out["moe_train"] = _fam_train_gate(cfg, params, _fam_batch(cfg, *FAM_TRAIN),
-                                       [(sync, shape, "tp") for sync, shape in FAM_MOE_RUNS],
-                                       "tp-moe", smi)
+                                       [(sync, shape, "tp") for sync, shape in FAM_MOE_RUNS]
+                                       + list(FAM_MOE_MODE_RUNS), "tp-moe", smi)
+    out["moe_modes"]["train"] = _fam_moe_mode_train(cfg, params, smi)
     del params
     _fam_free()
     full = get_config(MOE_ARCH)
     params, meta = _load_model(full, "tp-moe", torch.bfloat16)
     out["moe_bf16"] = {**meta, **_fam_bf16_serve(full, params, {
-        "text": _fam_batch(full, *FAM_PREFILL)}, "tp-moe", smi, decode=True)}
+        "text": _fam_batch(full, *FAM_PREFILL)}, "tp-moe", smi, decode=True, calls=2)}
     del params
     _fam_free()
+    out["moe_modes"]["bf16"] = _fam_moe_mode_bf16(smi)
 
     # -- qwen2-vl-7b: bf16 whole at image positions (pair and gather), fp32 gates
     full = get_config(VLM_ARCH)
@@ -5199,6 +5550,9 @@ def phase_tp_families(smi) -> dict:
                                           for layout in ("2d", "fsdp")], "tp-audio", smi)
     del params, batch
     _fam_free()
+
+    # -- llama3.2-3b: the chunked loss under TP
+    out["ce_chunk"] = _fam_ce_chunk(smi)
     out["s"] = time.perf_counter() - t_phase
     log(f"[tp-families] phase {out['s']:.1f}s")
     return out
@@ -5412,6 +5766,14 @@ def phase_tp_recurrent(smi) -> dict:
     return out
 
 
+def _timed(phase, *args):
+    """``phase(*args)``, its seconds logged (the script's time by phase)."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    log(f"[time] {phase.__name__} {time.perf_counter() - t0:.1f}s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5420,44 +5782,44 @@ def main() -> int:
     from repro_torch.models import get_model
 
     t_start = time.perf_counter()
-    smi = phase_device()
-    phase_build()
-    sass = phase_sass()
-    flash = phase_kernel_checks()
-    rms_kernel = phase_rmsnorm_checks()
+    smi = _timed(phase_device)
+    _timed(phase_build)
+    sass = _timed(phase_sass)
+    flash = _timed(phase_kernel_checks)
+    rms_kernel = _timed(phase_rmsnorm_checks)
 
     cfg = get_config("llama3.2-3b")
     params = get_model(cfg).init_params(cfg, torch.Generator("cuda").manual_seed(0))
-    prefill = phase_prefill(cfg, params, smi)
-    params32 = phase_e2e_fp32(cfg)
-    phase_serve(cfg, params, params32, smi)
+    prefill = _timed(phase_prefill, cfg, params, smi)
+    params32 = _timed(phase_e2e_fp32, cfg)
+    _timed(phase_serve, cfg, params, params32, smi)
     del params, params32  # 7.2 + 14.4 GB, before training takes the card
     torch.cuda.empty_cache()
-    train, train_loss = phase_train(cfg, smi)
-    driver = phase_train_driver()
-    pipeline = phase_pipeline(smi)
-    sharding = phase_sharding(smi)
-    sync = phase_sync_collectives(smi)
-    sync_train = phase_sync_train(smi)
-    torchrun = phase_torchrun(smi)
-    moe_serve, moe_bf16 = phase_moe_serve(smi)
-    moe_ep_prefill = phase_moe_ep_prefill(moe_bf16, smi)
+    train, train_loss = _timed(phase_train, cfg, smi)
+    driver = _timed(phase_train_driver)
+    pipeline = _timed(phase_pipeline, smi)
+    sharding = _timed(phase_sharding, smi)
+    sync = _timed(phase_sync_collectives, smi)
+    sync_train = _timed(phase_sync_train, smi)
+    torchrun = _timed(phase_torchrun, smi)
+    moe_serve, moe_bf16 = _timed(phase_moe_serve, smi)
+    moe_ep_prefill = _timed(phase_moe_ep_prefill, moe_bf16, smi)
     del moe_bf16
-    moe_cfg, moe_params, moe_fp32 = phase_moe_fp32(smi)
-    moe_ep_gate = phase_moe_ep_gate(moe_cfg, moe_params, smi)
-    moe_train = phase_moe_train(moe_cfg, moe_params, smi)
+    moe_cfg, moe_params, moe_fp32 = _timed(phase_moe_fp32, smi)
+    moe_ep_gate = _timed(phase_moe_ep_gate, moe_cfg, moe_params, smi)
+    moe_train = _timed(phase_moe_train, moe_cfg, moe_params, smi)
     del moe_params
-    moe_ep = phase_moe_ep(smi)
-    ssm = phase_ssm(smi)
-    hybrid = phase_hybrid(smi)
-    vlm = phase_vlm(smi)
-    audio = phase_audio(smi)
-    dryrun = phase_dryrun(smi)
-    flowsim = phase_flowsim(smi)
-    tp = phase_tp_serve(smi)
-    tp_train = phase_tp_train(smi, train_loss)
-    tp_fam = phase_tp_families(smi)
-    tp_rec = phase_tp_recurrent(smi)
+    moe_ep = _timed(phase_moe_ep, smi)
+    ssm = _timed(phase_ssm, smi)
+    hybrid = _timed(phase_hybrid, smi)
+    vlm = _timed(phase_vlm, smi)
+    audio = _timed(phase_audio, smi)
+    dryrun = _timed(phase_dryrun, smi)
+    flowsim = _timed(phase_flowsim, smi)
+    tp = _timed(phase_tp_serve, smi)
+    tp_train = _timed(phase_tp_train, smi, train_loss)
+    tp_fam = _timed(phase_tp_families, smi)
+    tp_rec = _timed(phase_tp_recurrent, smi)
 
     paths = {"prefill": prefill, "train_steps": train, "train_driver": driver,
              "train_sync": sync_train["launches"], "prefill_moe": moe_serve["launches"],
@@ -5470,6 +5832,16 @@ def main() -> int:
                 for k, r in tp_fam["moe_prefill"].items()},
              **{f"train_tp_moe_{k}": r["launches"]
                 for k, r in tp_fam["moe_train"]["runs"].items()},
+             **{f"prefill_tp_moe_{k}_fp32": r["launches"]
+                for k, r in tp_fam["moe_modes"]["prefill"].items()},
+             **{f"decode_tp_moe_{k}_fp32": r["launches"]
+                for k, r in tp_fam["moe_modes"]["decode"].items()},
+             **{f"train_tp_moe_{k}": r["launches"]
+                for k, r in tp_fam["moe_modes"]["train"].items()},
+             **{f"prefill_tp_moe_{k}": r["text"]["launches"]
+                for k, r in tp_fam["moe_modes"]["bf16"].items()},
+             **{f"train_tp_ce_{k}": r["launches"]
+                for k, r in tp_fam["ce_chunk"]["runs"].items()},
              **{f"prefill_tp_vlm_{k}": tp_fam["vlm_bf16"][k]["launches"]
                 for k in ("pair", "gather")},
              "prefill_tp_vlm_fp32": tp_fam["vlm_prefill"]["launches"],

@@ -14,6 +14,9 @@ the JAX package:
 * ``moe_apply_tp``: ``moe_apply`` on one rank of tensor parallelism over
   ``model`` with the experts split on d_ff (``parallel/tensor_parallel.py``),
   the "operator parallelism" of the JAX docstring.
+* ``moe_apply_gshard_tp``: ``moe_apply_gshard`` on one rank whose view splits
+  the experts over ``model`` (``moe_mode`` "ep" or "gshard" under a
+  ``tp=True`` policy): the rank's E / n experts, one sum over ``model``.
 * ``moe_apply_ep``: *expert parallelism* over a ``core.comm`` mesh.  Each
   rank holds ``E / n`` experts; the token slabs move with
   ``Comm.all_to_all``, the MoE all-to-all traffic the paper analyses for
@@ -179,6 +182,22 @@ def moe_apply_tp(tp, x, params, top_k: int, capacity_factor: float = 1.25):
     return tp.sum(y), torch.mean(aux)
 
 
+def _one_hots(flat_e, pos_c, keep, gates, cap: int, dt, n: int, lo=None):
+    """The dispatch and combine tensors (G, T·k, n, C) of the n experts (``gates``
+    (G, T, k)): each kept pair's one-hot at its expert and slot, the combine's
+    weighted by its gate.  With ``lo``, of experts [lo, lo + n) out of more:
+    the other experts' pairs drop out."""
+    local = flat_e
+    if lo is not None:
+        local = flat_e - lo
+        keep = keep & (local >= 0) & (local < n)
+        local = local.clamp(0, n - 1)
+    disp = (F.one_hot(local, n).to(dt)[..., None]
+            * F.one_hot(pos_c, cap).to(dt)[..., None, :]
+            * keep.to(dt)[..., None, None])  # (G, T·k, n, C)
+    return disp, disp * gates.reshape(gates.shape[0], -1)[..., None, None].to(dt)
+
+
 def moe_apply_gshard(x, params, top_k: int, capacity_factor: float, expert_spec=None):
     """GShard-style einsum dispatch: one-hot (G, T·k, E, C) dispatch and combine
     tensors in place of the scatter and gather.
@@ -193,16 +212,49 @@ def moe_apply_gshard(x, params, top_k: int, capacity_factor: float, expert_spec=
     cap = capacity(group, top_k, e, capacity_factor)
     gates, experts, aux = _route(xg, params["router"], top_k)
     flat_e, pos_c, keep = _slots(experts, e, cap)
-    dt = xg.dtype
-    disp = (F.one_hot(flat_e, e).to(dt)[..., None]
-            * F.one_hot(pos_c, cap).to(dt)[..., None, :]
-            * keep.to(dt)[..., None, None])  # (G, T·k, E, C)
-    comb = disp * gates.reshape(gates.shape[0], -1)[..., None, None].to(dt)
+    disp, comb = _one_hots(flat_e, pos_c, keep, gates, cap, xg.dtype, e)
     xrep = torch.repeat_interleave(xg, top_k, dim=1)  # (G, T·k, D)
     buf = torch.einsum("gtec,gtd->gecd", disp, xrep)
     out = _experts_ffn(buf, params["w_gate"], params["w_up"], params["w_down"])
     y = torch.einsum("gtec,gecd->gtd", comb, out)
     return _gshard_regroup(y, b, n_groups, group, top_k, d, pad, s), torch.mean(aux)
+
+
+def moe_apply_gshard_tp(tp, x, params, top_k: int, capacity_factor: float = 1.25):
+    """``moe_apply_gshard`` on one rank of a view whose experts are split over
+    ``model``: x (B, S, D) replicated over ``model``; params the router (D, E)
+    and the rank's E / n whole experts, w_gate/w_up (E/n, D, F), w_down (E/n, F,
+    D) (FSDP undone), the rank holding experts [i·E/n, (i+1)·E/n) at
+    ``tp.index`` i.
+
+    1. The rank routes every token (``_route``, ``_slots``): the same bits on
+       every rank along ``model``.
+    2. It builds the dispatch and combine tensors of its experts only, (G, T·k,
+       E/n, C), its buffers (G, E/n, C, D), and runs its experts on them.
+    3. It combines their outputs (linear in them): its experts' part of y,
+       regrouped to (B, S, D).
+    4. The parts are summed over ``model`` once (``tp.sum``, the row sum): the
+       "(T, D) combine psum" of the JAX docstring; no buffer crosses ranks.
+
+    x and the gates enter the rank's own products through ``tp.pvary``, whose
+    transpose psums their gradients over ``model``, so the router's and x's
+    gradients are whole on every rank, and each expert's is its owner's.  The
+    aux loss is the mean over the rank's groups, the same on every rank along
+    ``model``.  In groups of one token (decode) this is ``moe_apply``'s
+    function, as ``moe_apply_gshard``'s is."""
+    b, s, d = x.shape
+    xg, n_groups, group, pad = _groups(x)
+    e, el = params["router"].shape[1], params["w_gate"].shape[0]
+    cap = capacity(group, top_k, e, capacity_factor)
+    gates, experts, aux = _route(xg, params["router"], top_k)
+    flat_e, pos_c, keep = _slots(experts, e, cap)
+    disp, comb = _one_hots(flat_e, pos_c, keep, tp.pvary(gates), cap, xg.dtype, el,
+                           tp.index * el)
+    xrep = torch.repeat_interleave(tp.pvary(xg), top_k, dim=1)  # (G, T·k, D)
+    buf = torch.einsum("gtec,gtd->gecd", disp, xrep)  # (G, E/n, C, D)
+    out = _experts_ffn(buf, params["w_gate"], params["w_up"], params["w_down"])
+    y = torch.einsum("gtec,gecd->gtd", comb, out)
+    return tp.sum(_gshard_regroup(y, b, n_groups, group, top_k, d, pad, s)), torch.mean(aux)
 
 
 def _gshard_regroup(y, b, n_groups, group, top_k, d, pad, s):
@@ -214,7 +266,8 @@ def _gshard_regroup(y, b, n_groups, group, top_k, d, pad, s):
     return y
 
 
-def moe_apply_ep(comm, x, params, top_k: int, capacity_factor: float, axis: str = "model"):
+def moe_apply_ep(comm, x, params, top_k: int, capacity_factor: float, axis: str = "model",
+                 exchange=None, vary=None):
     """Expert-parallel MoE on one rank of a mesh (the body of JAX's shard_map).
 
     ``params`` holds the full router (D, E) and this rank's ``E / n`` experts
@@ -225,21 +278,28 @@ def moe_apply_ep(comm, x, params, top_k: int, capacity_factor: float, axis: str 
     receives the slabs of its own experts from every peer, computed, and
     exchanged back.  The exchange has a backward (the same exchange), so
     gradients flow to the local experts from every rank's tokens.
+
+    ``exchange`` replaces the all-to-all over ``axis`` (a sharded view's, which
+    keeps it out of autograd on the cut route), and ``vary`` is applied to the
+    tokens the slabs take and to the gates the combine takes (a view's
+    ``pvary`` where the tokens are the same on every rank along ``axis``).
     """
     b, s, d = x.shape
     n_dev = comm.axis_size(axis)
     e_local = params["w_gate"].shape[0]
     e = e_local * n_dev
     t = b * s
+    exchange = exchange or (lambda slabs: comm.all_to_all(slabs, axis))
+    vary = vary or (lambda v: v)
     xt = x.reshape(1, t, d)
     gates, experts, aux = _route(xt, params["router"], top_k)
     cap = capacity(t, top_k, e, capacity_factor)
     flat_e, pos_c, keep = _slots(experts, e, cap)
-    slabs = _scatter(xt, flat_e, pos_c, keep, e, cap, top_k)[0]  # (E, C, D)
+    slabs = _scatter(vary(xt), flat_e, pos_c, keep, e, cap, top_k)[0]  # (E, C, D)
     # exchange: (E, C, D) -> (n_dev, e_local, C, D) -> all-to-all over dim 0
-    recv = comm.all_to_all(slabs.reshape(n_dev, e_local, cap, d), axis)
+    recv = exchange(slabs.reshape(n_dev, e_local, cap, d))
     # recv: (n_dev, e_local, C, D): token slabs from every peer for MY experts
     out = _experts_ffn(recv, params["w_gate"], params["w_up"], params["w_down"])
-    back = comm.all_to_all(out, axis).reshape(1, e, cap, d)
-    y = _gather(back, flat_e, pos_c, keep, gates, top_k)
+    back = exchange(out).reshape(1, e, cap, d)
+    y = _gather(back, flat_e, pos_c, keep, vary(gates), top_k)
     return y.reshape(b, s, d), aux[0]

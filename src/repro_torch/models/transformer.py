@@ -26,9 +26,10 @@ parameters (``parallel/tensor_parallel.py``), through the same
 ``decoder_layer``, ``_attn_block``, ``_mlp_block`` and encoder, where JAX's
 jitted steps leave the split to GSPMD; under autograd too (training,
 ``train/steps.py``).  Under a ``tp=True`` policy (dense, MoE, VLM) the layers
-split over ``model`` (the MoE's experts on d_ff, ``moe.moe_apply_tp``); under a
-``tp=False`` one (every family here, audio included) they gather their FSDP
-leaves and run whole.
+split over ``model`` (the MoE's experts on d_ff, ``moe.moe_apply_tp``, or under
+``moe_mode`` "ep" and "gshard" on E: ``_moe_view``); under a ``tp=False`` one
+(every family here, audio included) they gather their FSDP leaves and run whole,
+but for EP, which cuts the rank's E / n experts.
 """
 
 from __future__ import annotations
@@ -219,10 +220,9 @@ def _moe_ep(cfg: ArchConfig, mp, x, comm):
 
 def _moe_block(cfg: ArchConfig, mp, x, act_specs=None, tp=None):
     """(y, aux) of one MoE layer in the forward pass, by ``cfg.moe_mode``; with
-    ``tp`` (a view that splits over ``model``) the experts' F columns of the
-    rank, summed over ``model``."""
+    ``tp`` (the rank's view) on the rank's experts (``_moe_view``)."""
     if tp is not None:
-        return moe_lib.moe_apply_tp(tp, x, mp, cfg.top_k, cfg.capacity_factor)
+        return _moe_view(cfg, tp, mp, x)
     if cfg.moe_mode == "ep":
         comm = (act_specs or {}).get("mesh")
         if comm is None:
@@ -233,6 +233,57 @@ def _moe_block(cfg: ArchConfig, mp, x, act_specs=None, tp=None):
         return moe_lib.moe_apply_gshard(x, mp, cfg.top_k, cfg.capacity_factor,
                                         expert_spec=(act_specs or {}).get("experts"))
     return moe_lib.moe_apply(x, mp, cfg.top_k, cfg.capacity_factor)
+
+
+def _moe_view(cfg: ArchConfig, tp, mp, x, decode: bool = False):
+    """(y, aux) of one MoE layer on a rank's view, ``mp`` its layer's experts with
+    FSDP undone (``TensorParallel.layer``):
+
+    * ``moe_mode="tp"`` under a ``tp=True`` policy: the experts split on d_ff,
+      ``moe.moe_apply_tp``;
+    * experts split on E over ``model`` (``"ep"`` or ``"gshard"`` under a
+      ``tp=True`` policy, E dividing ``model``): ``moe.moe_apply_gshard_tp`` for
+      gshard, and in decode for both;
+    * ``"ep"`` in the forward pass: ``_moe_ep_view``, on the rank's E / n
+      experts (split at rest, or cut from whole ones as the layer is gathered);
+    * else (every expert whole on the rank: a ``tp=False`` policy, or E not
+      dividing ``model``) the family's own layer on them: ``moe_apply_gshard``
+      for gshard, ``moe_apply`` otherwise, nothing summed over ``model``.
+
+    In ``decode`` JAX runs ``moe_apply`` whatever ``moe_mode``: the gshard-TP
+    rule computes its function, and whole experts run it."""
+    k, cf = cfg.top_k, cfg.capacity_factor
+    if cfg.moe_mode == "tp" and tp.tp:
+        return moe_lib.moe_apply_tp(tp, x, mp, k, cf)
+    if tp.plan.experts_split and (decode or cfg.moe_mode == "gshard"):
+        return moe_lib.moe_apply_gshard_tp(tp, x, mp, k, cf)
+    if cfg.moe_mode == "ep" and not decode:
+        return _moe_ep_view(cfg, tp, mp, x)
+    if cfg.moe_mode == "gshard" and not decode:
+        return moe_lib.moe_apply_gshard(x, mp, k, cf)
+    return moe_lib.moe_apply(x, mp, k, cf)
+
+
+def _moe_ep_view(cfg: ArchConfig, tp, mp, x):
+    """``moe.moe_apply_ep`` among the ranks along ``model`` on a view: ``mp`` the
+    router and the rank's E / n experts, ``x`` the rank's rows, routed as one
+    group.  Its all-to-alls are the view's (``TensorParallel.exchange``: cuts
+    of the tape on the cut route, their own transpose).
+
+    Where the tokens are the same on every rank along ``model`` (``model`` not
+    a data axis: the 2d layout, JAX's ``in_specs=P()``), every rank routes them
+    alike and runs its experts on ``model`` identical copies of their slabs, as
+    the reference's shard_map body does; the output goes out as replicated
+    (``Comm.replicated_out``: its gradient divided by ``model``, so that the
+    copies' gradients add up to one), and the slabs' tokens and the gates
+    enter through ``pvary``, whose transpose sums the ranks' parts, so that x's
+    and the router's gradients are whole on every rank.  Under
+    ``layout="fsdp"`` (``model`` a data axis) each rank routes its own tokens."""
+    replicated = tp.axis not in tp.data_axes
+    y, aux = moe_lib.moe_apply_ep(tp.comm, x, mp, cfg.top_k, cfg.capacity_factor, tp.axis,
+                                  exchange=lambda t: tp.exchange(t, None),
+                                  vary=tp.pvary if replicated else None)
+    return (tp.comm.replicated_out(y, tp.axis) if replicated else y), aux
 
 
 def forward(
@@ -272,7 +323,7 @@ def forward(
     ``encoder_frames`` its rows under ``batch_specs``; the logits come back for
     the last position only, (B, 1, V), the whole vocab on every rank along
     ``model``; with ``return_hidden`` the final-norm hidden states of every
-    position, which ``TensorParallel.loss`` takes.  ``remat`` acts as above, the
+    position, which ``TensorParallel.loss_sum`` takes.  ``remat`` acts as above, the
     recomputed layer running its collectives again (``train/steps.py:
     make_tp_value_and_grad`` is the route that keeps every collective out of
     autograd).
@@ -400,7 +451,7 @@ def decoder_layer(cfg: ArchConfig, lp, h, aux, positions, enc=None, use_kernel=F
         h = h + _attn_block(cfg, xp, xa, positions, causal=False, window=0, kv_seq=enc)
     m = L.apply_norm(h, lp["mlp_norm"], cfg.norm_type)
     if cfg.family == "moe":
-        y, a_loss = _moe_block(cfg, lp["moe"], m, act_specs, split_tp)
+        y, a_loss = _moe_block(cfg, lp["moe"], m, act_specs, tp)
         aux = aux + a_loss
     else:
         y = _mlp_block(cfg, lp, m, split_tp)
@@ -491,8 +542,10 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, positions=None, act_spec
 
     With a sharded ``act_specs`` (``forward``) ``params`` are the rank's blocks,
     ``tokens`` its rows and ``cache`` its ``init_cache``; the logits are the
-    whole vocab's on every rank along ``model``.  Under a ``tp=True`` policy the
-    MoE runs ``moe.moe_apply_tp``, in groups of one token too.
+    whole vocab's on every rank along ``model``.  The MoE runs ``_moe_view``'s
+    decode rule, in groups of one token: ``moe.moe_apply_tp`` for experts split on
+    d_ff, ``moe.moe_apply_gshard_tp`` for experts split on E (``moe_mode`` "ep" and
+    "gshard"), ``moe.moe_apply`` on whole ones.
     """
     tp = tp_lib.context(cfg, act_specs)
     split_tp = None if tp is None else tp.model_view
@@ -514,7 +567,7 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, positions=None, act_spec
         x = x + pos_embed[min(pos, pos_embed.shape[0] - 1)]
     for i, lp in enumerate(L.unstack(params["layers"], cfg.n_layers)):
         if tp is not None:
-            lp = tp.layer(lp)
+            lp = tp.layer(lp, whole_experts=True)
         a = L.apply_norm(x, lp["attn_norm"], cfg.norm_type)
         if split_tp is None:
             q = (a @ lp["wq"]).reshape(b, 1, h_, hd)
@@ -538,9 +591,8 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, positions=None, act_spec
             o = L.attention_decode(qx, cache["xk"][i], cache["xv"][i], cfg.enc_seq)
             x = x + o.reshape(b, 1, h_ * hd) @ lp["xwo"]
         m = L.apply_norm(x, lp["mlp_norm"], cfg.norm_type)
-        if cfg.family == "moe" and split_tp is not None:
-            y, _ = moe_lib.moe_apply_tp(split_tp, m, lp["moe"], cfg.top_k,
-                                        cfg.capacity_factor)
+        if cfg.family == "moe" and tp is not None:
+            y, _ = _moe_view(cfg, tp, lp["moe"], m, decode=True)
         elif cfg.family == "moe":
             y, _ = moe_lib.moe_apply(m, lp["moe"], cfg.top_k, cfg.capacity_factor)
         else:

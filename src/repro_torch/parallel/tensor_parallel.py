@@ -27,6 +27,19 @@ policy (the dense, MoE, VLM and hybrid families) a layer runs as Megatron's:
   partial outputs and sums them over ``model`` (``models/moe.py:
   moe_apply_tp``): the row sum carries the (B, S, D) output, where XLA psums
   the (E, C, D) capacity buffer, top_k x capacity_factor times its bytes.
+  Under ``moe_mode`` ``"ep"`` and ``"gshard"`` they are split on E
+  (P(None, mp, fs, None), the router P(None, fs, None)): the rank holds E / n
+  whole experts (``_Plan.experts_split``).  gshard routes every token, runs
+  its experts on their buffers only and sums its part of y over ``model`` once
+  (``moe.moe_apply_gshard_tp``); EP exchanges token slabs among the ranks
+  along ``model`` (``moe.moe_apply_ep``, ``models/transformer.py:
+  _moe_ep_view``), the tokens the same on every one of them in the 2d layout,
+  so that each runs its experts on ``model`` identical copies of the slabs, as
+  the reference's shard_map body does.  Where E does not divide ``model``
+  ``sanitize_specs`` leaves the experts whole: gshard runs every expert on
+  every rank, nothing summed, and EP raises (``context``), as shard_map does.
+  Under a ``tp=False`` policy the experts are whole at rest, and EP cuts the
+  rank's E / n of them before the layer's FSDP gather (``layer``).
 * attention on whole heads.  The flat column split cuts heads (llama3.2-3b's
   192 columns of ``wq`` a rank of 16 are 1.5 heads), and RoPE rotates column
   i with column i + hd/2, so q, k and v move from the rank's columns to whole
@@ -67,10 +80,13 @@ policy (the dense, MoE, VLM and hybrid families) a layer runs as Megatron's:
   the padded tail masked by global index in the prefill (not in decode, as in
   the reference), then all-gathered over ``model`` so that the greedy argmax
   sees the whole vocab with ``jnp.argmax``'s tie rule.  In training no rank
-  holds (B, S, V) logits: the cross-entropy is vocab-parallel (``loss``): the
+  holds (B, S, V) logits: the cross-entropy is vocab-parallel (``loss_sum``): the
   row max all-gathered over ``model``, the exp-sums and the label's logit
   (from the rank whose columns hold it) ``psum``'d, the padded tail masked by
-  global index; JAX's one-hot form gives GSPMD the same reductions.
+  global index; JAX's one-hot form gives GSPMD the same reductions.  With
+  ``ce_chunk`` (``train/steps.py: _tp_loss``) the loss runs a sequence chunk
+  of the rank's rows at a time, (rows, chunk, V / n) logits each, recomputed
+  in the backward.
 
 Decode keeps a cache of the rank's rows and kv heads only: under the pair route
 (L, rows, S, kv_heads, hd), the bytes of ``cache_specs``' block, laid out by
@@ -90,6 +106,9 @@ Training.  Each exchange has the backward that matches how its output is used
 * the row sum: the identity backward (``_RowSum``), as ``Comm.psum``'s: its
   output is replicated over ``model``, and the all-gather's transpose there
   would multiply the gradient by ``model``;
+* EP's all-to-alls: the same exchange; where its tokens are the same on every
+  rank along ``model``, its output's gradient divided by ``model``
+  (``Comm.replicated_out``) and its slabs' tokens and gates through ``pvary``;
 * the pair route's all-to-alls: the same exchange (their own inverse); the
   gather route's all-gather over ``model``: the reduce-scatter over ``model``;
 * the vocab-parallel embed's and the loss's psums: the gradient passes.
@@ -123,11 +142,9 @@ over ``data`` only, and ``sum_over_data`` sums each leaf's gradient over the
 data axes that leave it whole.  The audio family's encoder layers are gathered
 the same way.
 
-Not ported, each raising with its ROADMAP item: ``ce_chunk`` under a ``tp=True``
-policy (14.3, ``train/steps.py``); ``moe_mode`` ``"ep"`` and ``"gshard"``
-(experts split over ``model``) and the audio family under a ``tp=True`` policy
-(14.4); the SSM family under a ``tp=True`` policy (14.5: ``param_specs`` gives
-it no Megatron layout; ``_unported``).
+Not ported, each raising with its ROADMAP item (``_unported``): the SSM family
+under a ``tp=True`` policy (14.5: ``param_specs`` gives it no Megatron layout)
+and the audio family under one (14.6).
 """
 
 from __future__ import annotations
@@ -165,6 +182,11 @@ def context(cfg: ArchConfig, act_specs) -> TensorParallel | None:
                          f"{policy.model_axis!r} axis")
     if policy.tp and (cfg.act != "swiglu" or cfg.rope_type not in ("rope", "mrope")):
         raise ValueError(f"{cfg.name}: tensor parallelism takes SwiGLU and RoPE or M-RoPE")
+    n = comm.axis_size(policy.model_axis)
+    if cfg.family == "moe" and cfg.moe_mode == "ep" and cfg.n_experts % n:
+        raise ValueError(f"{cfg.name}: moe_mode='ep' splits the {cfg.n_experts} experts over "
+                         f"the {n} ranks of {policy.model_axis!r}, and {cfg.n_experts} does not "
+                         f"divide by {n} (JAX's shard_map requires it too)")
     return TensorParallel(cfg, comm, policy)
 
 
@@ -176,12 +198,10 @@ def _unported(cfg: ArchConfig, policy) -> str | None:
                 "2 d_inner + 2 d_state + n_heads of them, stay whole where they do not "
                 "divide model, and conv_w's channels split across the x | B | C boundary); "
                 "its default_policy has tp=False")
-    if cfg.family == "moe" and cfg.moe_mode != "tp":
-        return (f"moe_mode={cfg.moe_mode!r} under a sharded policy (experts split over "
-                "model) is ROADMAP item 14.4")
     if cfg.family == "audio" and policy.tp:
-        return ("the audio family under a tp=True policy is ROADMAP item 14.4 (its "
-                "cross-attention weights match no rule of param_specs)")
+        return ("the audio family under a tp=True policy is ROADMAP item 14.6 (its gelu "
+                "MLP with biases and learned positions are not the SwiGLU and RoPE the "
+                "Megatron layer takes; its default_policy has tp=False)")
     return None
 
 
@@ -207,6 +227,7 @@ class _Leaf:
     def __init__(self, name, block, gathers, split, axes):
         self.name, self.block, self.gathers, self.split = name, block, gathers, split
         self.axes = axes
+        self.expert = False  # an expert stack of a MoE layer that EP cuts on E (``_Plan``)
 
 
 def stacks(cfg: ArchConfig) -> tuple[str, ...]:
@@ -269,12 +290,21 @@ class _Plan:
             leaf(n, m, sp, lead=int(_stacked(n, paths)))
             for n, m, sp in zip(_paths(params), metas, tree_lib.leaves(specs), strict=True)])
         self.layer = self.tree.get("layers")
+        # the MoE's experts under moe_mode "ep" or "gshard": split on E over model
+        # (P(None, mp, fs, None)) where E divides it under a tp=True policy, else
+        # whole; EP takes the rank's E / n of whole ones as its layer is gathered
+        moe = self.layer.get("moe") if self.layer else None
+        self.experts_split = bool(moe) and moe["w_gate"].split[0]
+        self.slice_experts = bool(moe) and cfg.moe_mode == "ep" and not self.experts_split
+        if self.slice_experts:
+            for name in ("w_gate", "w_up", "w_down"):
+                moe[name].expert = True
         if policy.tp:  # the column- and row-parallel products need their split
             want = []
             for path in paths:
                 layer = self.stack(path)
                 want += [(layer, n, d) for n, d in _SPLIT_DIM.items() if n in layer]
-                if "moe" in layer:  # the experts (E, D, F) and (E, F, D): F
+                if "moe" in layer and cfg.moe_mode == "tp":  # experts (E, D, F), (E, F, D): F
                     want += [(layer["moe"], n, d)
                              for n, d in (("w_gate", 2), ("w_up", 2), ("w_down", 1))]
             for tree, name, dim in want:
@@ -329,6 +359,9 @@ class TensorParallel:
         self.axis = policy.model_axis
         self.n = comm.axis_size(self.axis) if self.tp else 1
         self.index = comm.axis_index(self.axis) if self.tp else 0
+        # the model axis as EP's group, whatever the policy: the rank holds (or
+        # cuts from whole stacks) experts [index·E/n, (index+1)·E/n)
+        self.ep_n, self.ep_index = comm.axis_size(self.axis), comm.axis_index(self.axis)
         self.data_axes = tuple(policy.data_axes)
         missing = [a for a in self.data_axes if a not in comm.mesh.shape]
         if missing:
@@ -392,15 +425,21 @@ class TensorParallel:
             block = parts.movedim(0, dim).reshape(shape)
         return block
 
-    def layer(self, lp: dict, stack: str = "layers") -> dict:
+    def layer(self, lp: dict, stack: str = "layers", whole_experts: bool = False) -> dict:
         """One layer's weights (the per-layer trees ``layers.unstack`` gives) of the
         stack at the dotted path ``stack`` (``stacks``) with FSDP undone, each leaf
-        checked against its block."""
+        checked against its block.  Where EP runs on experts whole at rest
+        (``_Plan.slice_experts``) the rank's E / n of them are cut before the
+        gather, unless ``whole_experts`` (decode, which runs every expert)."""
         plan = self.plan.stack(stack)
-        return _map2(self._layer_leaf, lp, plan, plan)
+        cut = self.plan.slice_experts and not whole_experts
+        return _map2(lambda _, t, leaf, __: self._layer_leaf(t, leaf, cut), lp, plan, plan)
 
-    def _layer_leaf(self, name, t, leaf, _):
+    def _layer_leaf(self, t, leaf, cut):
         _check(self.cfg, leaf, t)
+        if cut and leaf.expert:
+            el = t.shape[0] // self.ep_n
+            t = t.narrow(0, self.ep_index * el, el)
         return self.full(t, leaf)
 
     def whole(self, t: torch.Tensor, *path: str) -> torch.Tensor:
@@ -458,19 +497,24 @@ class TensorParallel:
             logits = self._mask_tail(logits, split)
         return self.all_columns(logits) if split else logits
 
-    def loss(self, params, hidden: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-        """The mean cross-entropy of the rank's rows (float32), the same on every
-        rank along ``model``, from the final-norm hidden states (rows, S, d): on
-        the rank's vocab columns where the spec splits the vocab (the module
-        docstring), else on every column."""
+    def unembed_input(self, params, hidden: torch.Tensor):
+        """(hidden, w, split) for ``loss_sum``: the final-norm hidden states (rows, S,
+        d), through ``pvary`` where the rank's unembedding columns are a part of the
+        vocab (``split``), and the rank's (d, columns) unembedding, FSDP undone."""
         w, split = self._unembed(params)
-        if split:
-            hidden = self.pvary(hidden)
+        return (self.pvary(hidden) if split else hidden), w, split
+
+    def loss_sum(self, hidden: torch.Tensor, w: torch.Tensor, split: bool,
+                 labels: torch.Tensor) -> torch.Tensor:
+        """The cross-entropy summed over the tokens of ``hidden`` (rows, s, d)
+        (float32), the same on every rank along ``model``: on the rank's vocab
+        columns where ``split`` (the module docstring), else on every column.  A
+        sequence chunk of ``unembed_input``'s output gives that chunk's sum."""
         logits = self._mask_tail(hidden @ w, split).float()
         labels = labels.long()
         if not split:
             lse = torch.logsumexp(logits, dim=-1)
-            return torch.mean(lse - torch.gather(logits, -1, labels[..., None])[..., 0])
+            return torch.sum(lse - torch.gather(logits, -1, labels[..., None])[..., 0])
         width = logits.shape[-1]
         with torch.no_grad():  # the max only steadies the exponent
             top = self.comm.all_gather(logits.amax(-1), self.axis).amax(0)
@@ -479,7 +523,7 @@ class TensorParallel:
         hit = (local >= 0) & (local < width)
         own = torch.gather(logits, -1, local.clamp(0, width - 1)[..., None])[..., 0]
         label = self.psum(torch.where(hit, own, torch.zeros((), device=own.device)), self.axis)
-        return torch.mean(top + torch.log(sums) - label)
+        return torch.sum(top + torch.log(sums) - label)
 
     # -- column and row products -------------------------------------------
 

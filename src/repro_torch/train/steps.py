@@ -99,20 +99,19 @@ def make_loss_fn(cfg: ArchConfig, options: TrainOptions, act_specs=None):
 
     On the sharded path (``act_specs``' policy) ``params`` are the rank's
     blocks and ``batch`` its rows; the loss is the vocab-parallel cross-entropy
-    (``TensorParallel.loss``): under ``sync="auto"`` the whole batch's mean,
+    (``TensorParallel.loss_sum``): under ``sync="auto"`` the whole batch's mean,
     psum'd over the data axes from each rank's share (its rows' mean / their
     size: the seed of 1/dp), under a sync mode the rank's rows' mean.  The MoE
     aux loss is the mean over the rank's dispatch groups, under ``sync="auto"``
     psum'd over the data axes the same way (every data rank holds as many
-    groups), as JAX averages it over every group.  Every collective is
+    groups), as JAX averages it over every group.  With ``ce_chunk`` the loss
+    runs a sequence chunk at a time (``_tp_loss``).  Every collective is
     differentiable: the autograd route, one autograd engine thread a rank (the
-    CPU, one process a rank).  ``ce_chunk`` raises under a ``tp=True`` policy
-    (ROADMAP item 14.3).
+    CPU, one process a rank).
     """
     model = get_model(cfg)
     tp = tp_lib.context(cfg, act_specs)  # raises for a family without the path
     if tp is not None:
-        _check_tp_options(tp, options)
 
         def tp_loss_fn(params, batch):
             hidden, aux = model.forward(cfg, params, batch["tokens"], remat=options.remat,
@@ -126,7 +125,7 @@ def make_loss_fn(cfg: ArchConfig, options: TrainOptions, act_specs=None):
 
     def loss_fn(params, batch):
         extras = model_extras(batch)
-        if options.ce_chunk and cfg.family in ("dense", "moe", "vlm"):
+        if _ce_chunk(cfg, options):
             hidden, aux = model.forward(
                 cfg, params, batch["tokens"], remat=options.remat,
                 use_kernel=options.use_kernel, act_specs=act_specs, return_hidden=True,
@@ -197,32 +196,85 @@ def value_and_grad(loss_fn):
     return f
 
 
-def _check_tp_options(tp, options: TrainOptions) -> None:
-    if options.ce_chunk and tp.tp and tp.cfg.family in ("dense", "moe", "vlm"):
-        raise ValueError(f"{tp.cfg.name}: ce_chunk under tensor parallelism is ROADMAP item "
-                         "14.3 (the vocab-parallel loss holds a rank's vocab columns only)")
+def _ce_chunk(cfg: ArchConfig, options: TrainOptions) -> int:
+    """The sequence chunk of the cross-entropy, or 0 for the whole sequence: JAX
+    reads ``ce_chunk`` for the dense, MoE and VLM families only."""
+    return options.ce_chunk if cfg.family in ("dense", "moe", "vlm") else 0
+
+
+def _chunks(s: int, chunk: int) -> list[tuple[int, int]]:
+    """The [start, end) spans of S in chunks of ``chunk`` (S itself where 0): the
+    last one shorter where ``chunk`` does not divide S, where JAX pads it and
+    masks the padding out of the sum, the same terms."""
+    step = chunk or s
+    return [(c0, min(c0 + step, s)) for c0 in range(0, s, step)]
+
+
+def _loss_share(tp, options: TrainOptions) -> int:
+    """What the rank's loss is divided by before its psum over the data axes:
+    their size under ``sync="auto"``, else 1 (no psum)."""
+    dp = tp.comm.axis_size(tp.data_axes)
+    return dp if options.sync == "auto" and dp > 1 else 1
+
+
+def _tp_share(tp, options: TrainOptions, loss):
+    """The whole batch's loss from the rank's rows' mean: psum'd over the data axes
+    from its share under ``sync="auto"``; the rank's own under a sync mode."""
+    share = _loss_share(tp, options)
+    return tp.psum(loss / share, tp.data_axes) if share > 1 else loss
 
 
 def _tp_loss(tp, options: TrainOptions, params, hidden, labels):
-    """The rank's loss: its rows' mean cross-entropy, vocab-parallel (chunked with
-    ``ce_chunk`` under a ``tp=False`` view, whose rank holds the whole vocab);
-    under ``sync="auto"`` psum'd over the data axes from its share of the mean."""
-    if options.ce_chunk and tp.cfg.family in ("dense", "moe", "vlm"):  # as make_loss_fn
-        loss = chunked_cross_entropy(hidden, tp._unembed(params)[0], labels, tp.cfg.vocab,
-                                     options.ce_chunk)
-    else:
-        loss = tp.loss(params, hidden, labels)
-    dp = tp.comm.axis_size(tp.data_axes)
-    if options.sync == "auto" and dp > 1:
-        loss = tp.psum(loss / dp, tp.data_axes)
-    return loss
+    """The rank's loss: its rows' mean cross-entropy, vocab-parallel
+    (``TensorParallel.loss_sum``), summed a sequence chunk at a time with
+    ``ce_chunk`` (``chunked_cross_entropy``'s sum on the rank's vocab columns:
+    each chunk's logits (rows, chunk, V / n), its log-sum-exp and label logit
+    reduced over ``model``; every column where the vocab does not divide
+    ``model``), under autograd each chunk run again in the backward
+    (``torch.utils.checkpoint``, as JAX's scan body's ``jax.checkpoint``); under
+    ``sync="auto"`` psum'd over the data axes from its share of the mean."""
+    hidden, w, split = tp.unembed_input(params, hidden)
+    chunk = _ce_chunk(tp.cfg, options)
+    remat = chunk and torch.is_grad_enabled()
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for a, b in _chunks(hidden.shape[1], chunk):
+        args = (hidden[:, a:b], w, split, labels[:, a:b])
+        part = (torch.utils.checkpoint.checkpoint(tp.loss_sum, *args, use_reentrant=False)
+                if remat else tp.loss_sum(*args))
+        total = total + part
+    return _tp_share(tp, options, total / labels.numel())
+
+
+def _tp_chunked_loss_cut(tp, options: TrainOptions, params, hidden, labels):
+    """``_tp_loss`` with ``ce_chunk`` on the cut route (``make_tp_value_and_grad``,
+    under its tape): the sum of every chunk under ``no_grad``, then each chunk
+    recomputed under a tape of its own and its gradient carried back at once,
+    seeded with d(loss) / d(sum) = 1 / (tokens · share), so that no rank holds
+    more than one chunk's (rows, chunk, V / n) logits or their gradient.  The
+    chunks' gradients add up in the outputs of the caller tape's cuts (the
+    unembedding's FSDP gather, the hidden states' ``pvary``), whose transposes
+    run in that tape's backward, after."""
+    hidden, w, split = tp.unembed_input(params, hidden)
+    spans = _chunks(hidden.shape[1], _ce_chunk(tp.cfg, options))
+    with torch.no_grad():
+        total = sum(tp.loss_sum(hidden[:, a:b], w, split, labels[:, a:b]) for a, b in spans)
+    seed = 1.0 / (labels.numel() * _loss_share(tp, options))
+    outer = tp.tape
+    try:
+        for a, b in spans:
+            tp.tape = tp_lib.Tape()
+            part = tp.loss_sum(hidden[:, a:b], w, split, labels[:, a:b])
+            tp.tape.backward(part, torch.full_like(part, seed))
+            del part
+    finally:
+        tp.tape = outer
+    return _tp_share(tp, options, total / labels.numel())
 
 
 def _aux_share(tp, options: TrainOptions) -> int:
     """What the rank's MoE aux loss is divided by before its psum over the data
-    axes: their size under ``sync="auto"``, else 1 (no psum)."""
-    dp = tp.comm.axis_size(tp.data_axes)
-    return dp if options.sync == "auto" and dp > 1 and tp.cfg.family == "moe" else 1
+    axes, as the loss is (``_loss_share``); 1 (no psum) for the other families."""
+    return _loss_share(tp, options) if tp.cfg.family == "moe" else 1
 
 
 def _tp_aux(tp, options: TrainOptions, aux):
@@ -276,7 +328,7 @@ def make_tp_value_and_grad(cfg: ArchConfig, options: TrainOptions, act_specs):
         raise ValueError(f"{cfg.name}: make_tp_value_and_grad needs the rank's Comm and a "
                          "sharded policy in act_specs")
     tp = tp_lib.context(cfg, act_specs)
-    _check_tp_options(tp, options)
+    loss_fn = _tp_chunked_loss_cut if _ce_chunk(cfg, options) else _tp_loss
     aux_seed = options.moe_aux_weight / cfg.n_layers / _aux_share(tp, options)
     seq = get_model(cfg).layer_sequence(cfg)
     paths = list(dict.fromkeys(stack for stack, _, _ in seq))
@@ -323,8 +375,8 @@ def make_tp_value_and_grad(cfg: ArchConfig, options: TrainOptions, act_specs):
             tp.tape = tape
             with torch.enable_grad():
                 h = x.requires_grad_(True)
-                loss = _tp_loss(tp, options, top, L.apply_norm(h, top["final_norm"],
-                                                               cfg.norm_type), labels)
+                loss = loss_fn(tp, options, top, L.apply_norm(h, top["final_norm"],
+                                                              cfg.norm_type), labels)
                 value = loss + options.moe_aux_weight * aux
             tape.backward(value, torch.ones_like(value))
             # the loss's graph goes now, not with ``f``'s locals after the layers

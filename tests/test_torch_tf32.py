@@ -49,20 +49,36 @@ def _qkv(b, sq, sk, h, kv, d, seed=42):
             rng.standard_normal((b, sk, kv, d), dtype=np.float32))
 
 
+def _tf32_mm(a, b):
+    """a @ b of tf32 values, rounded to fp32 once: each product of two 11-bit
+    significands is exact in float64, and so is their sum over these shapes'
+    K but for float64's own rounding, far below fp32's.  The result does not
+    depend on the order or the kernel in which the CPU's GEMM adds the
+    products, as an fp32 GEMM's does."""
+    return (a.double() @ b.double()).float()
+
+
 def _product(a, b, terms):
     """a @ b with both operands split into tf32 hi and lo parts; ``terms`` 3 sums
-    a_hi b_hi + a_hi b_lo + a_lo b_hi, 1 keeps a_hi b_hi alone.  Products of
-    tf32 values are exact in fp32; the sums are fp32, as the tensor cores keep them."""
+    a_hi b_hi + a_hi b_lo + a_lo b_hi, 1 keeps a_hi b_hi alone.  Each product is
+    formed exactly and rounded to fp32 (``_tf32_mm``); the three are added in
+    fp32, as the tensor cores' fp32 accumulators keep them."""
     a_hi, b_hi = tfa.tf32_round(a), tfa.tf32_round(b)
-    out = a_hi @ b_hi
+    out = _tf32_mm(a_hi, b_hi)
     if terms == 3:
-        out = out + a_hi @ tfa.tf32_round(b - b_hi) + tfa.tf32_round(a - a_hi) @ b_hi
+        out = (out + _tf32_mm(a_hi, tfa.tf32_round(b - b_hi))
+               + _tf32_mm(tfa.tf32_round(a - a_hi), b_hi))
     return out
 
 
 def _emulated_attention(q, k, v, causal, window, terms):
     """The tf32 kernel's arithmetic in fp32: S and P V through ``_product``, the
-    softmax unnormalised (P <= 1) until the end, masked scores -1e30."""
+    softmax unnormalised (P <= 1) until the end, masked scores -1e30.  P's
+    exponentials and their row sums are formed in float64 and rounded to fp32
+    once (``_exp``), so that they do not depend on the CPU's exp: in a process
+    that had run XLA, torch's fp32 exp now and then (1 run in 4) gave P 1.05e-4
+    from its values on the next call, which put 299 of 32768 outputs past the
+    tolerance."""
     b, sq, h, d = q.shape
     sk, g = k.shape[1], h // k.shape[2]
     qh = q.permute(0, 2, 1, 3)
@@ -76,9 +92,14 @@ def _emulated_attention(q, k, v, causal, window, terms):
     if window:
         keep &= kpos > qpos - window
     s = torch.where(keep, s, torch.tensor(-1e30))
-    p = torch.exp(s - s.amax(-1, keepdim=True))
-    o = _product(p, vh, terms) / p.sum(-1, keepdim=True)
+    p = _exp(s - s.amax(-1, keepdim=True))
+    o = _product(p, vh, terms) / p.double().sum(-1, keepdim=True).float()
     return o.permute(0, 2, 1, 3)
+
+
+def _exp(x):
+    """fp32 ``exp(x)``, formed in float64 and rounded once."""
+    return torch.exp(x.double()).float()
 
 
 def _err_over_tol(got, want):

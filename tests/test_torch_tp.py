@@ -342,35 +342,42 @@ def test_vocab_parallel_embed_is_the_lookup_bit_for_bit(case, dtype):
 @pytest.mark.parametrize("family_arch", ["moonshot-v1-16b-a3b", "mamba2-130m",
                                          "recurrentgemma-9b", "qwen2-vl-7b", "whisper-tiny"])
 def test_tp_policy_on_another_family_raises(family_arch):
-    """What the sharded path does not hold raises, naming its ROADMAP item:
-    ``ce_chunk`` under a ``tp=True`` policy (14.3; the VLM's case here), ``moe_mode``
-    ``"ep"`` and ``"gshard"`` and the audio family under a ``tp=True`` policy
-    (14.4), the SSM family under a ``tp=True`` policy (14.5).  The MoE
-    (``moe_mode="tp"``), the VLM and the hybrid under ``Policy()``, and the audio
-    and SSM families under their ``default_policy`` (``tp=False``), take the
-    sharded path (``test_torch_tp_families.py``, ``test_torch_tp_recurrent.py``)."""
+    """What the sharded path does not hold raises, naming its ROADMAP item: the
+    SSM family under a ``tp=True`` policy (14.5) and the audio family under one
+    (14.6).  The MoE under every ``moe_mode`` (``"ep"`` and ``"gshard"`` split
+    the experts on E: ``test_torch_tp_moe_ep.py``), the VLM with ``ce_chunk``
+    (``test_torch_tp_ce_chunk.py``) and the hybrid under ``Policy()``, and the
+    audio and SSM families under their ``default_policy`` (``tp=False``), take
+    the sharded path (``test_torch_tp_families.py``, ``test_torch_tp_recurrent.py``).
+    EP raises where the experts do not divide ``model``, naming the divisibility."""
     cfg = get_config(family_arch, smoke=True)
     mesh = TraceMesh((1, 4), AXES)
 
-    def act(policy):
-        return {"mesh": Comm(mesh, 0), "policy": policy}
+    def act(policy, m=mesh):
+        return {"mesh": Comm(m, 0), "policy": policy}
 
-    def steps(c, policy):
-        return (lambda: TS.make_prefill_step(c, TS.TrainOptions(), act_specs=act(policy)),
-                lambda: TS.make_decode_step(c, act_specs=act(policy)),
-                lambda: TS.make_loss_fn(c, TS.TrainOptions(), act_specs=act(policy)))
+    def steps(c, policy, m=mesh):
+        return (lambda: TS.make_prefill_step(c, TS.TrainOptions(), act_specs=act(policy, m)),
+                lambda: TS.make_decode_step(c, act_specs=act(policy, m)),
+                lambda: TS.make_loss_fn(c, TS.TrainOptions(), act_specs=act(policy, m)))
 
-    raising = {"moonshot-v1-16b-a3b": [(dataclasses.replace(cfg, moe_mode=m), POLICY, "14.4")
-                                       for m in ("ep", "gshard")],
-               "mamba2-130m": [(cfg, POLICY, "14.5")],
-               "whisper-tiny": [(cfg, POLICY, "14.4")]}
+    raising = {"mamba2-130m": [(cfg, POLICY, "14.5")],
+               "whisper-tiny": [(cfg, POLICY, "14.6")]}
     for c, policy, item in raising.get(family_arch, []):
         for make in steps(c, policy):
             with pytest.raises(ValueError, match=f"ROADMAP item {item}"):
                 make()
+    if family_arch == "moonshot-v1-16b-a3b":
+        for m in ("ep", "gshard"):
+            c = dataclasses.replace(cfg, moe_mode=m)
+            assert all(make() is not None for make in steps(c, POLICY))
+            assert tp_lib.context(c, act(POLICY)).plan.experts_split
+        ep = dataclasses.replace(cfg, moe_mode="ep")  # 8 experts over 16 ranks
+        for make in steps(ep, POLICY, TraceMesh((1, 16), AXES)):
+            with pytest.raises(ValueError, match="8 does not divide by 16"):
+                make()
     if family_arch == "qwen2-vl-7b":
-        with pytest.raises(ValueError, match=r"ce_chunk.*ROADMAP item 14\.3"):
-            TS.make_loss_fn(cfg, TS.TrainOptions(ce_chunk=4), act_specs=act(POLICY))
+        assert TS.make_loss_fn(cfg, TS.TrainOptions(ce_chunk=4), act_specs=act(POLICY))
     if family_arch in ("moonshot-v1-16b-a3b", "qwen2-vl-7b", "recurrentgemma-9b"):
         assert tp_lib.context(cfg, act(POLICY)).tp
     if family_arch in ("mamba2-130m", "recurrentgemma-9b", "whisper-tiny"):
