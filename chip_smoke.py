@@ -183,7 +183,10 @@ MoE, VLM and audio families in their sharded layouts:
 23. the flow simulator's torch backend (``repro_torch.core.flowsim``): the
    max ECMP link load of uniform all-to-all on the paper's small Hx2Mesh
    (1,024 accelerators, 64 switches) and on a 6,400-accelerator one, on the
-   card against the NumPy engine on the host within 1e-5, both timed;
+   card against the NumPy engine on the host within 1e-5, both timed; and of
+   sparse demands (``core/traffic.py``: ``skewed-alltoall:h8:seed3`` and
+   ``bisection``) at 4,096 accelerators through the chunked pass, the same
+   way;
 24. tensor parallelism over ``model`` in serving (``phase_tp_serve``, after
    23): llama3.2-3b at full width and depth, its weights cut into each rank's
    blocks under ``sanitize_specs(param_specs)`` (``shard_tree``; the whole
@@ -229,8 +232,9 @@ MoE, VLM and audio families in their sharded layouts:
    slice adds moonshot with its experts split on E over ``model``
    (``moe_mode`` "gshard" and "ep"): fp32 prefill and decode gates at 4 layers
    on (1, 16) and (2, 8) (64 tf32 launches a prefill), training gates at 1
-   layer on both (EP's fp64 runs route each data row as one group), bf16
-   whole on (2, 8), reported; and llama3.2-3b at 4 layers trained with
+   layer on both (EP's fp64 runs route the whole batch as one group, as its
+   ranks do together), bf16 whole on (2, 8), reported;
+   and llama3.2-3b at 4 layers trained with
    ``ce_chunk`` 512 against the same step without it (loss and leaves within
    the gate, a lower peak up to the gradient);
 27. one JSON line on every kernel (launches by path, the MoE, SSM, hybrid,
@@ -1707,8 +1711,8 @@ def _routing_log():
 
     calls, real = [], moe._slots
 
-    def slots(experts, n_experts, cap):
-        flat_e, pos_c, keep = real(experts, n_experts, cap)
+    def slots(experts, n_experts, cap, *args):
+        flat_e, pos_c, keep = real(experts, n_experts, cap, *args)
         calls.append((flat_e, keep))
         return flat_e, pos_c, keep
 
@@ -3518,6 +3522,11 @@ FLOWSIM_RTOL = 1e-5  # the JAX backend's own tolerance against NumPy (float32)
 # switches), then the largest whose NumPy reference stays well inside 60 s on
 # the host (40 x 40: 6,400 accelerators; 48 x 48 is near 60 s)
 FLOWSIM_MESHES = ((2, 2, 16, 16), (2, 2, 40, 40))
+# sparse demands (core/traffic.py) through the chunked pass, at 4,096 accelerators
+# (32 x 32 boards): a non-symmetric token and bisection, whose NumPy references
+# take ~10 s each on the host
+FLOWSIM_SPARSE_MESH = (2, 2, 32, 32)
+FLOWSIM_SPARSE_TOKENS = ("skewed-alltoall:h8:seed3", "bisection")
 
 
 def _fake_batch_like(batch: dict):
@@ -3761,7 +3770,8 @@ def _dryrun_tp_rank(cfg, rtol: float, smi, tokens: int | None = None, shape=None
 
 def phase_flowsim(smi) -> dict:
     """The flow simulator's torch backend on the card against its NumPy engine on
-    the host: the max ECMP link load of uniform all-to-all on HxMesh planes."""
+    the host: the max ECMP link load of uniform all-to-all on HxMesh planes, then
+    of sparse demands at 4,096 accelerators (``_flowsim_sparse``)."""
     from repro_torch.core import flowsim as fs
 
     out = {}
@@ -3787,10 +3797,51 @@ def phase_flowsim(smi) -> dict:
             raise AssertionError(f"flowsim {tag}: torch {got} vs numpy {ref} (rel {rel:.2e})")
         out[tag] = {"endpoints": net.n_endpoints, "nodes": net.n_nodes, "numpy": ref,
                     "torch": got, "rel": rel, "numpy_s": numpy_s, "torch_s": torch_s}
+    out["sparse"] = _flowsim_sparse(smi)
     first = out[next(iter(out))]
     if (first["endpoints"], first["nodes"] - first["endpoints"]) != (1024, 64):
         raise AssertionError(f"the small Hx2Mesh has {first['endpoints']} accelerators and "
                              f"{first['nodes'] - first['endpoints']} switches, want 1024 and 64")
+    return out
+
+
+def _flowsim_sparse(smi) -> dict:
+    """The torch backend on a sparse ``Demand`` (a traffic token bound to the
+    fabric, its rows made a source chunk at a time) on the card against the NumPy
+    engine on the host, on FLOWSIM_SPARSE_MESH: the token itself (its demand
+    built in the call, the card's warm-up), then its ``Demand``."""
+    from repro_torch.core import flowsim as fs
+    from repro_torch.core import traffic as tr
+
+    a, b, x, y = FLOWSIM_SPARSE_MESH
+    net = fs.build_hxmesh(a, b, x, y)
+    if net.n_endpoints < 4096:
+        raise AssertionError(f"the sparse case has {net.n_endpoints} accelerators, want >= 4096")
+    out = {}
+    for token in FLOWSIM_SPARSE_TOKENS:
+        t0 = time.perf_counter()
+        dem = tr.demand(net, token)
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ref = fs.demand_max_link_load(net, dem)
+        numpy_s = time.perf_counter() - t0
+        got, torch_s = [], []
+        for traffic in (token, dem):
+            t0 = time.perf_counter()
+            got.append(fs.max_link_load(net, traffic, backend="torch"))
+            torch_s.append(time.perf_counter() - t0)
+        rel = max(abs(g - ref) / ref for g in got)
+        tag = f"hx{a}x{b}-{x}x{y} {token}"
+        log(f"[flowsim] {tag}: {net.n_endpoints} accelerators, sparse demand of "
+            f"{dem.n_sources} sources ({len(dem.dsts)} explicit entries, {len(dem.groups)} "
+            f"spread groups) built in {build_s:.3f}s; max link load numpy {ref:.9f} in "
+            f"{numpy_s:.2f}s (host, the chunked pass), torch {got[0]:.9f} from the token in "
+            f"{torch_s[0]:.3f}s (its demand built, warm-up) / {got[1]:.9f} from the Demand in "
+            f"{torch_s[1]:.3f}s (cuda, float32); rel {rel:.2e} (tol {FLOWSIM_RTOL}) [{smi}]")
+        if not rel <= FLOWSIM_RTOL:
+            raise AssertionError(f"flowsim {tag}: torch {got} vs numpy {ref} (rel {rel:.2e})")
+        out[token] = {"endpoints": net.n_endpoints, "numpy": ref, "torch": got, "rel": rel,
+                      "build_s": build_s, "numpy_s": numpy_s, "torch_s": torch_s}
     return out
 
 
@@ -3899,24 +3950,23 @@ def _tp_heads(mesh, policy) -> list[int]:
     return [first[i] for i in range(len(first))]
 
 
-def _rank_slice(mesh, policy, batch, comm, cfg=None) -> slice:
+def _rank_slice(mesh, policy, batch, comm, cfg=None):
     """What a rank claims of a replayed routing log's dispatch (``_replayed_routing``):
-    its rows (one dispatch group a row), or under ``moe_mode="ep"`` its group, the
-    rank's rows as one (a data row's: ``_ep_groups``)."""
+    its rows (one dispatch group a row), or under ``moe_mode="ep"`` its tokens'
+    (token, choice) pairs of the one group of the whole batch (``_ep_whole``)."""
     n, i = mesh.axis_size(policy.data_axes), comm.axis_index(policy.data_axes)
-    if cfg is not None and cfg.family == "moe" and cfg.moe_mode == "ep":
-        return slice(i, i + 1)
     rows = batch["tokens"].shape[0] // n
+    if cfg is not None and cfg.family == "moe" and cfg.moe_mode == "ep":
+        pairs = rows * batch["tokens"].shape[1] * cfg.top_k
+        return slice(None), slice(i * pairs, (i + 1) * pairs)
     return slice(i * rows, (i + 1) * rows)
 
 
 @contextlib.contextmanager
-def _ep_groups(groups: int):
+def _ep_whole():
     """The unsharded model's EP layer (``moe_mode="ep"`` and no mesh) as the sharded
-    path routes it under ``Policy()``: the batch's rows in ``groups`` groups of
-    consecutive rows (the data rows), each group's tokens one dispatch group, as
-    ``moe_apply_ep`` routes a rank's; every group in one dispatch, the aux loss
-    their mean (the mean over data of the ranks' aux losses)."""
+    path routes it: the whole batch's tokens one dispatch group, as JAX's
+    ``_moe_ep`` does and ``moe_apply_ep`` does on one rank."""
     from unittest import mock
 
     from repro_torch.models import moe
@@ -3928,12 +3978,12 @@ def _ep_groups(groups: int):
         if tp is not None or cfg.moe_mode != "ep":
             return real(cfg, mp, x, act_specs, tp)
         b, s, d = x.shape
-        xg = x.reshape(groups, b // groups * s, d)
-        cap = moe.capacity(xg.shape[1], cfg.top_k, cfg.n_experts, cfg.capacity_factor)
+        xg = x.reshape(1, b * s, d)
+        cap = moe.capacity(b * s, cfg.top_k, cfg.n_experts, cfg.capacity_factor)
         gates, experts, aux = moe._route(xg, mp["router"], cfg.top_k)
         y = moe._group_dispatch(xg, gates, experts, mp["w_gate"], mp["w_up"], mp["w_down"],
                                 cap)
-        return y.reshape(b, s, d), torch.mean(aux)
+        return y.reshape(b, s, d), aux[0]
 
     with mock.patch.object(T, "_moe_block", block):
         yield
@@ -4785,8 +4835,9 @@ def _fam_closed_forms(cfg, policy, shape, batch: int, seq: int, kind: str, sync:
     gather their conv output over ``model``.  The MoE by ``moe_mode`` (under a
     ``tp=True`` policy): "tp" and "gshard" sum y over ``model`` as a row sum, and
     pvary the buffer (gshard: the tokens) and the gates in training; "ep" moves
-    its (E, C, D) slabs in two all-to-alls a pass (C the capacity of the rank's
-    rows as one group), and their transposes in training, and in decode takes
+    its (E, C, D) slabs in two all-to-alls a pass (C: min(the rank's tokens, the
+    whole batch's capacity)) and gathers its counts over the data axes a pass
+    (the batch's one group), their transposes in training, and in decode takes
     gshard's rule."""
     from repro_torch import tree as tree_lib
     from repro_torch.configs import abstract_params
@@ -4888,9 +4939,18 @@ def _fam_closed_forms(cfg, policy, shape, batch: int, seq: int, kind: str, sync:
             else:
                 add("psum", n_l, n_l * act * elt)
     if ep:  # the slabs there and back; in training recomputed, and their transposes
-        cap = moe.capacity(tok, cfg.top_k, cfg.n_experts, cfg.capacity_factor)
+        # the whole batch one group: the ranks along the data axes (none under a
+        # sync mode, whose data axes are manual) gather their counts and router
+        # sums (3E fp32) a pass, and in training reduce-scatter their gradient
+        ng = nd if not train or sync == "auto" else 1
+        cap = moe.capacity(tok * ng, cfg.top_k, cfg.n_experts, cfg.capacity_factor)
+        slab = min(tok, cap) if ng > 1 else cap
         k = 3 if train else 1
-        add("all_to_all", 2 * n_l * k, 2 * n_l * k * cfg.n_experts * cap * cfg.d_model * elt)
+        add("all_to_all", 2 * n_l * k, 2 * n_l * k * cfg.n_experts * slab * cfg.d_model * elt)
+        if ng > 1:
+            add("all_gather", n_l * passes, n_l * passes * 3 * cfg.n_experts * 4)
+            if train:
+                add("reduce_scatter", n_l, n_l * ng * 3 * cfg.n_experts * 4)
     if train:
         if sync == "auto" and nd > 1:  # the loss's (and the MoE aux's) mean over data
             add("psum", 1 + (cfg.family == "moe"), 4 + 4 * (cfg.family == "moe"))
@@ -5179,7 +5239,7 @@ def _route_of(cfg, policy, shape, batch: int) -> str:
 def _fam_bf16_serve(cfg, params, batches, tag: str, smi, decode: bool, calls: int = 3,
                     shape=FAM_SHAPE, around=contextlib.nullcontext) -> dict:
     """bf16 on ``shape``: the unsharded prefill of each batch of ``batches`` (name ->
-    batch), each in the context ``around()`` (EP's grouping, ``_ep_groups``), then
+    batch), each in the context ``around()`` (EP's one group, ``_ep_whole``), then
     the weights cut into the ranks' blocks (the whole tree freed a leaf at a time)
     and the TP prefill of each through sm90 (the SSM and hybrid families: no
     kernel), one warm-up and ``calls - 1`` timed calls (one call: that one), the
@@ -5293,16 +5353,19 @@ def _fam_free() -> None:
 # ~16 over 16 ranks, beside ~40 for the tp mode.  bf16 whole on (2, 8):
 # 56.1 of blocks, EP's slabs (64, 480, 2048) 0.13 GB and its other exchange
 # buffers ~0.6 a rank (~10), a layer's gathered experts 0.14 a rank (2.2):
-# ~70, under the 79 GiB card.
+# ~70, under the 79 GiB card.  With the whole batch one group, a rank's slabs
+# on (2, 8) take min(its tokens, the batch's capacity) rows, the (1, 16) run's
+# (C 480 in training, 960 in prefill), twice a data row's capacity: EP's (2, 8)
+# training step ran out of the card's memory until the experts' SwiGLU kept
+# two of its four (..., C, F) intermediates for the backward
+# (``moe._SiluMul``), which brought it to ~74 GiB; bf16 on (2, 8) ~72.
 FAM_MOE_MODES = ("gshard", "ep")
-# the training gate's runs under the new modes that share the tp mode's fp64 run
-# (the same function at B 2 x 2048: gshard's groups are the rows, as moe_apply's,
-# and on (2, 8) each data row holds one row, EP's group); EP on (1, 16), where a
-# data row holds both rows as one group, takes a gate of its own
+# the training gate's runs under gshard, which share the tp mode's fp64 run (the
+# same function at B 2 x 2048: gshard's groups are the rows, as moe_apply's); EP,
+# whose one group is the whole batch on either mesh, takes a gate of its own
 FAM_MOE_MODE_RUNS = (("auto", (1, 16), "tp", {"moe_mode": "gshard"}),
-                     ("auto", (2, 8), "tp", {"moe_mode": "gshard"}),
-                     ("auto", (2, 8), "tp", {"moe_mode": "ep"}))
-FAM_MOE_EP_OWN = ((1, 16),)
+                     ("auto", (2, 8), "tp", {"moe_mode": "gshard"}))
+FAM_MOE_EP_SHAPES = ((1, 16), (2, 8))
 FAM_MOE_MODE_BF16_SHAPE = (2, 8)
 FAM_MOE_PROMPT, FAM_MOE_GREEDY = 4, 3  # the fp32 decode gates: teacher-forced, greedy
 # llama3.2-3b's chunked loss under TP at TP_TRAIN_LAYERS, on (1, 16): its vocab
@@ -5362,18 +5425,18 @@ def _fam_moe_decode_gate(cfg, params, prompts, shape, tag: str, smi) -> dict:
             "route": route, "launches": launches, "stats": stats}
 
 
-def _ep_grouping(cfg, shape):
-    """The context of an unsharded reference run of ``cfg`` against the sharded path
-    on ``shape`` under ``Policy()``: EP's data rows as its groups, else none."""
-    return _ep_groups(shape[0]) if cfg.moe_mode == "ep" else contextlib.nullcontext()
+def _ep_grouping(cfg):
+    """The context of an unsharded reference run of ``cfg`` against the sharded path:
+    EP's one group of the whole batch (``_ep_whole``), else none."""
+    return _ep_whole() if cfg.moe_mode == "ep" else contextlib.nullcontext()
 
 
 def _fam_moe_mode_gates(cfg, params, smi) -> dict:
     """moonshot at FAM_MOE_PREFILL_LAYERS layers in fp32 (the tp mode's gate
     weights) under each of FAM_MOE_MODES: the prefill gate (``_fam_prefill_gate``,
     64 tf32 launches a call) and the decode gate on each of FAM_MOE_PREFILL_SHAPES;
-    EP's fp64 and unsharded runs route each data row's tokens as one group
-    (``_ep_groups``), as its ranks do."""
+    EP's fp64 and unsharded runs route the whole batch as one group
+    (``_ep_whole``), as its ranks do together."""
     out = {"prefill": {}, "decode": {}}
     batch = _fam_batch(cfg, *FAM_PREFILL)
     prompts = batch["tokens"][:, :FAM_MOE_PROMPT].contiguous()
@@ -5381,7 +5444,7 @@ def _fam_moe_mode_gates(cfg, params, smi) -> dict:
         c = dataclasses.replace(cfg, moe_mode=mode)
         for shape in FAM_MOE_PREFILL_SHAPES:
             key = f"{mode}_{shape[0]}x{shape[1]}"
-            with _ep_grouping(c, shape):
+            with _ep_grouping(c):
                 out["prefill"][key] = _fam_prefill_gate(c, params, batch, shape, "tp",
                                                         f"tp-moe-{mode}", smi)
             out["decode"][key] = _fam_moe_decode_gate(c, params, prompts, shape,
@@ -5392,23 +5455,24 @@ def _fam_moe_mode_gates(cfg, params, smi) -> dict:
 
 def _fam_moe_mode_train(cfg, params, smi) -> dict:
     """The training gate (``_fam_train_gate``, the cut route) of moonshot at
-    FAM_MOE_LAYERS in fp32 under ``moe_mode="ep"`` on each of FAM_MOE_EP_OWN,
-    where a data row holds more than one row of the batch: against an fp64 run
-    that routes each data row's rows as one group (``_ep_groups``), as EP's ranks
-    do.  The gate leaves ``params`` on the host; each takes them back to the card."""
+    FAM_MOE_LAYERS in fp32 under ``moe_mode="ep"`` on each of FAM_MOE_EP_SHAPES:
+    against one fp64 run that routes the whole batch as one group (``_ep_whole``),
+    as EP's ranks do together on either mesh.  The gate leaves ``params`` on the
+    host; it takes them back to the card."""
     from repro_torch import tree as tree_lib
 
     out = {}
     batch = _fam_batch(cfg, *FAM_TRAIN)
     c = dataclasses.replace(cfg, moe_mode="ep")
-    for shape in FAM_MOE_EP_OWN:
-        params = tree_lib.tree_map(lambda t: t.to(TP_DEVICE), params)
-        with _ep_grouping(c, shape):
-            gate = _fam_train_gate(c, params, batch, [("auto", shape, "tp")], "tp-moe-ep", smi)
-        for key, run in gate.pop("runs").items():
-            out[f"ep_{key}"] = {**run, **{f"gate_{k}": v for k, v in gate.items()
-                                          if k != "floor"}}
-        _fam_free()
+    params = tree_lib.tree_map(lambda t: t.to(TP_DEVICE), params)
+    with _ep_grouping(c):
+        gate = _fam_train_gate(c, params, batch, [("auto", shape, "tp")
+                                                  for shape in FAM_MOE_EP_SHAPES],
+                               "tp-moe-ep", smi)
+    for key, run in gate.pop("runs").items():
+        out[f"ep_{key}"] = {**run, **{f"gate_{k}": v for k, v in gate.items()
+                                      if k != "floor"}}
+    _fam_free()
     return out
 
 
@@ -5427,7 +5491,10 @@ def _fam_moe_mode_bf16(smi) -> dict:
         out[mode] = {**meta, **_fam_bf16_serve(
             full, params, {"text": _fam_batch(full, *FAM_PREFILL)}, f"tp-moe-{mode}", smi,
             decode=False, calls=1, shape=FAM_MOE_MODE_BF16_SHAPE,
-            around=lambda c=full: _ep_grouping(c, FAM_MOE_MODE_BF16_SHAPE))}
+            around=lambda c=full: _ep_grouping(c))}
+        log(f"[tp-moe-{mode}] bf16 whole on (data, model) = {FAM_MOE_MODE_BF16_SHAPE}: peak "
+            f"{out[mode]['peak_gib']:.2f} GiB, from the blocks' cut to the TP prefill's end "
+            f"[{smi}]")
         del params
         _fam_free()
     return out
@@ -5473,9 +5540,9 @@ def phase_tp_families(smi) -> dict:
     * the fifteenth slice: moonshot with its experts split on E over ``model``
       (``moe_mode`` "gshard" and "ep"): the fp32 prefill and decode gates at
       FAM_MOE_PREFILL_LAYERS layers on (1, 16) and (2, 8) and the training gate
-      at FAM_MOE_LAYERS on both, EP's references routing each data row as one
-      group (``_ep_groups``: EP's own training gate on (1, 16); its (2, 8) run
-      and gshard's share the tp mode's, FAM_MOE_MODE_RUNS); bf16 whole on
+      at FAM_MOE_LAYERS on both, EP's references routing the whole batch as one
+      group (``_ep_whole``: EP's own training gate on both meshes; gshard's runs
+      share the tp mode's, FAM_MOE_MODE_RUNS); bf16 whole on
       FAM_MOE_MODE_BF16_SHAPE, reported;
       and llama3.2-3b at TP_TRAIN_LAYERS trained with ``ce_chunk`` FAM_CE_CHUNK
       against the same step without it (``_fam_ce_chunk``).

@@ -8,8 +8,13 @@ of the pieces that path needs: ``Network``, the topology builders of one
 plane (``build_hxmesh``, ``build_fat_tree``, ``build_torus``), and the NumPy
 engine (``shortest_paths``: a level-synchronous BFS, one sparse ``frontier @
 A`` a level; ``edge_loads``: a Brandes-style backward sweep, one scatter-add
-a level).  The sparse ``Demand``, traffic tokens and symmetry classes of the
-original are NumPy and stay there; here traffic is a dense matrix.
+a level).  Traffic is a dense matrix, or as in the original a sparse
+``core.traffic.Demand``, a ``TrafficSpec`` or a traffic token
+(``skewed-alltoall:h8:seed3``), whose dense rows ``demand_edge_loads``
+materializes one source chunk at a time, so the full ``(n, n)`` matrix never
+exists.  The original's symmetry-class fast path for symmetric and bisection
+demands is NumPy with no device part and is not copied: every demand runs
+the chunked pass over all its sources.
 
 ``backend="torch"`` is the counterpart of the original's ``backend="jax"``,
 "device execution of the same algorithm": the BFS as dense ``frontier @ A``
@@ -225,15 +230,60 @@ def _edge_loads_chunk(net, srcs, T, U, V, M, backend, device=None, A=None):
     return np.einsum("se,se->e", Np[:, U] * downhill, phi[:, V])
 
 
-def max_link_load(net: Network, traffic: np.ndarray, sources=None, source_chunk: int = 512,
+def max_link_load(net: Network, traffic, sources=None, source_chunk: int = 512,
                   backend: str = "numpy", device=None) -> float:
-    """Max per-link load of a dense traffic matrix: ``(S, n_endpoints)`` for
-    the given ``sources``, or the full ``(n_endpoints, n_endpoints)``."""
+    """Max per-link load.  ``traffic`` may be a sparse ``traffic.Demand``, a
+    ``traffic.TrafficSpec`` or a traffic token (bound to ``net`` first), which
+    take ``demand_max_link_load``; or a dense matrix, ``(S, n_endpoints)`` for
+    the given ``sources`` or the full ``(n_endpoints, n_endpoints)``."""
+    dem = _as_demand(net, traffic)
+    if dem is not None:
+        return demand_max_link_load(net, dem, source_chunk, backend, device)
     traffic = np.asarray(traffic, dtype=np.float64)
     if sources is None and traffic.shape[0] != net.n_endpoints:
         raise ValueError(f"traffic has {traffic.shape[0]} rows for {net.n_endpoints} "
                          "endpoints and no sources")
     loads = edge_loads(net, traffic, sources, source_chunk, backend, device)
+    return float(loads.max()) if len(loads) else 0.0
+
+
+def _as_demand(net: Network, traffic):
+    """A ``Demand`` of ``traffic`` bound to ``net`` where it is one, a spec or a
+    token; else None (a dense matrix)."""
+    from repro_torch.core import traffic as TR  # lazy: traffic imports flowsim
+
+    if isinstance(traffic, TR.Demand):
+        return traffic
+    if isinstance(traffic, (TR.TrafficSpec, str)):
+        return TR.parse_traffic(traffic).demand(net)
+    return None
+
+
+def demand_edge_loads(net: Network, demand, source_chunk: int = 512, backend: str = "numpy",
+                      device=None) -> np.ndarray:
+    """Per-link ECMP loads of a sparse ``Demand``, its dense rows materialized one
+    source chunk at a time: peak memory O(chunk x n), however large the fabric.
+    Loads aligned with ``net.directed_edges()``, as ``edge_loads``'."""
+    U, V, M = net.directed_edges()
+    loads = np.zeros(len(U), dtype=np.float64)
+    source_chunk = max(1, source_chunk)
+    # the torch backend's adjacency, built on the device once for every chunk
+    A = _dense_adjacency(net, resolve_device(device)) if backend == "torch" else None
+    for lo in range(0, demand.n_sources, source_chunk):
+        hi = min(lo + source_chunk, demand.n_sources)
+        loads += _edge_loads_chunk(net, demand.sources[lo:hi], demand.rows(lo, hi), U, V, M,
+                                   backend, device, A)
+    return loads
+
+
+def demand_max_link_load(net: Network, demand, source_chunk: int = 512, backend: str = "numpy",
+                         device=None) -> float:
+    """Max per-link load of a ``Demand``: the chunked pass over every source
+    (``demand_edge_loads``), where the original takes its symmetry-class fast
+    path for symmetric and bisection demands (the same loads)."""
+    if demand.n_sources == 0:
+        return 0.0
+    loads = demand_edge_loads(net, demand, source_chunk, backend, device)
     return float(loads.max()) if len(loads) else 0.0
 
 
@@ -318,6 +368,49 @@ def _edge_loads_chunk_torch(net, srcs, T, U, V, M, device=None, A=None):
         phi = phi.index_add(1, Ut, upd)
     loads = ((Np[:, Ut] * downhill) * phi[:, Vt]).sum(dim=0)
     return loads.cpu().double().numpy()
+
+
+# ---------------------------------------------------------------------------
+# Grid geometry (the traffic builders' virtual 2D grid)
+# ---------------------------------------------------------------------------
+
+
+def _grid_geometry(net: Network):
+    """(rows, cols, gid) of the virtual 2D grid for mesh-like geometries, or
+    ``None``.  ``gid(r, c)`` maps grid coordinates to endpoint ids."""
+    meta = net.meta
+    if meta.get("kind") == "hxmesh":
+        r, c = meta["b"] * meta["y"], meta["a"] * meta["x"]
+
+        def gid(rr, cc):
+            by, i = divmod(rr, meta["b"])
+            bx, j = divmod(cc, meta["a"])
+            return ((by * meta["x"] + bx) * meta["b"] + i) * meta["a"] + j
+
+        return r, c, gid
+    if meta.get("kind") == "torus":
+        return meta["side_y"], meta["side_x"], (
+            lambda rr, cc: rr * meta["side_x"] + cc
+        )
+    return None
+
+
+def _squarest_grid(n: int) -> tuple[int, int]:
+    r = int(np.sqrt(n))
+    while n % r:
+        r -= 1
+    return r, n // r
+
+
+def _grid_or_squarest(net: Network, require_square: bool = False):
+    """(rows, cols, gid) — the builder grid when the geometry provides one
+    (optionally only if square), else the squarest row-major factorization
+    of ``n_endpoints``."""
+    geo = _grid_geometry(net)
+    if geo is not None and (not require_square or geo[0] == geo[1]):
+        return geo
+    r, c = _squarest_grid(net.n_endpoints)
+    return r, c, (lambda rr, cc: rr * c + cc)
 
 
 # ---------------------------------------------------------------------------

@@ -20,7 +20,9 @@ the JAX package:
 * ``moe_apply_ep``: *expert parallelism* over a ``core.comm`` mesh.  Each
   rank holds ``E / n`` experts; the token slabs move with
   ``Comm.all_to_all``, the MoE all-to-all traffic the paper analyses for
-  GPT-3-MoE (§V-B5).
+  GPT-3-MoE (§V-B5).  Its tokens are one dispatch group; with ``group``,
+  together with other ranks' (the sharded layout: the whole batch, as JAX's
+  shard_map body routes it), each rank keeping its own.
 
 The router runs in float32 whatever the activations' type.  Positions in the
 capacity buffer come from a cumulative count in token-major order over the
@@ -58,20 +60,29 @@ def _gates_and_aux(probs, experts, n_experts: int):
     return gates, aux
 
 
+def _probs(x, w_router):
+    """The router's probabilities (..., T, E) in float32 of x (..., T, D)."""
+    return torch.softmax(torch.einsum("...td,de->...te", x.float(), w_router.float()), dim=-1)
+
+
 def _route(x, w_router, top_k):
     """x: (..., T, D) -> gates (..., T, k) f32, experts (..., T, k) int64, aux (...)."""
-    logits = torch.einsum("...td,de->...te", x.float(), w_router.float())
-    probs = torch.softmax(logits, dim=-1)
+    probs = _probs(x, w_router)
     experts = _top_k(probs, top_k)
     gates, aux = _gates_and_aux(probs, experts, w_router.shape[1])
     return gates, experts, aux
 
 
-def _slots(experts, n_experts: int, cap: int):
+def _slots(experts, n_experts: int, cap: int, prefix=None, rows: int | None = None):
     """The capacity slot of every (token, choice) pair, token-major.
 
     experts: (G, T, k) -> flat_e (G, T·k), the clamped position pos_c (G, T·k)
-    in that expert's buffer, and keep (G, T·k) bool: the pair fits.
+    in that expert's buffer, and keep (G, T·k) bool: the pair fits.  With
+    ``prefix`` (E,), the pairs of each expert that come before these in a
+    dispatch group spread over ranks (``_group_slots``): a pair's slot is its
+    position here plus its expert's prefix, and it fits below ``cap``; its
+    buffer row is its position here, in a buffer of ``rows`` rows (the kept
+    pairs of an expert are the first ones here).
     """
     flat_e = experts.reshape(experts.shape[0], -1)
     # the one-hot as (G, E, T·k), so that the count runs along the last axis:
@@ -81,7 +92,35 @@ def _slots(experts, n_experts: int, cap: int):
     onehot = (flat_e[:, None, :] == experts_ids[None, :, None]).to(torch.int32)
     pos = torch.cumsum(onehot, dim=2, dtype=torch.int32) - onehot  # position within the expert
     pos_of = torch.gather(pos, 1, flat_e[:, None, :])[:, 0].long()
-    return flat_e, torch.clamp(pos_of, max=cap - 1), pos_of < cap
+    slot = pos_of if prefix is None else pos_of + prefix[flat_e]
+    return flat_e, torch.clamp(pos_of, max=(rows or cap) - 1), slot < cap
+
+
+def _group_slots(gather, index: int, probs, experts, n_experts: int, capacity_factor: float):
+    """What a rank needs to dispatch its tokens (``probs`` (1, t, E), ``experts``
+    (1, t, k)) as a part of one group with the other ranks' (``moe_apply_ep``'s
+    ``group``): the group's capacity, the rank's buffer rows, each expert's
+    pairs on the ranks before it (E,) and the group's aux loss.
+
+    One vector a rank, its pairs and first choices by expert and its router
+    probabilities summed over its tokens, is gathered (``gather``: its
+    transpose sums the gradients of the ranks' copies).  The counts are
+    integers, exact in float32; the aux takes the density and the mean
+    probability of all the group's tokens, as ``_route`` of their one group.
+    A rank's pairs of one expert number at most its t tokens, and the kept
+    ones at most the capacity: its buffers take min(t, cap) rows."""
+    e, (_, t, k) = n_experts, experts.shape
+    ids = torch.arange(e, device=experts.device)
+    pairs = (experts.reshape(-1, 1) == ids).sum(0)
+    first = (experts[0, :, 0, None] == ids).sum(0)
+    every = gather(torch.cat([pairs.float(), first.float(), probs[0].sum(0)]))  # (n, 3E)
+    tokens = t * every.shape[0]
+    cap = capacity(tokens, k, e, capacity_factor)
+    counts = every[:, :2 * e].detach().round().long()
+    prefix = counts[:index, :e].sum(0)
+    density = counts[:, e:].sum(0).float() / tokens
+    aux = torch.sum(density * every[:, 2 * e:].sum(0) / tokens) * e
+    return cap, min(t, cap), prefix, aux
 
 
 def _scatter(xg, flat_e, pos_c, keep, n_experts: int, cap: int, top_k: int):
@@ -106,10 +145,27 @@ def _gather(out, flat_e, pos_c, keep, gates, top_k: int):
     return y_choice.reshape(g, -1, top_k, d).sum(dim=2)
 
 
+class _SiluMul(torch.autograd.Function):
+    """silu(g) · u, keeping g and u for the backward, which recomputes silu(g)
+    there: of the experts' four (..., C, F) intermediates (g, u, silu(g), the
+    product) two stay alive in training.  The gradients are autograd's own
+    (``aten.silu_backward`` and the product's), bit for bit."""
+
+    @staticmethod
+    def forward(ctx, g, u):
+        ctx.save_for_backward(g, u)
+        return F.silu(g) * u
+
+    @staticmethod
+    def backward(ctx, grad):
+        g, u = ctx.saved_tensors
+        return torch.ops.aten.silu_backward(grad * u, g), grad * F.silu(g)
+
+
 def _experts_ffn(buf, w_gate, w_up, w_down):
     """SwiGLU of every expert on its buffer, batched over experts: buf (..., E, C, D)."""
-    h = F.silu(torch.einsum("...ecd,edf->...ecf", buf, w_gate)) * torch.einsum(
-        "...ecd,edf->...ecf", buf, w_up)
+    h = _SiluMul.apply(torch.einsum("...ecd,edf->...ecf", buf, w_gate),
+                       torch.einsum("...ecd,edf->...ecf", buf, w_up))
     return torch.einsum("...ecf,efd->...ecd", h, w_down)
 
 
@@ -267,7 +323,7 @@ def _gshard_regroup(y, b, n_groups, group, top_k, d, pad, s):
 
 
 def moe_apply_ep(comm, x, params, top_k: int, capacity_factor: float, axis: str = "model",
-                 exchange=None, vary=None):
+                 exchange=None, vary=None, group=None):
     """Expert-parallel MoE on one rank of a mesh (the body of JAX's shard_map).
 
     ``params`` holds the full router (D, E) and this rank's ``E / n`` experts
@@ -283,6 +339,15 @@ def moe_apply_ep(comm, x, params, top_k: int, capacity_factor: float, axis: str 
     keeps it out of autograd on the cut route), and ``vary`` is applied to the
     tokens the slabs take and to the gates the combine takes (a view's
     ``pvary`` where the tokens are the same on every rank along ``axis``).
+
+    ``group`` makes this rank's tokens a part of one dispatch group with other
+    ranks', as JAX's body routes the whole batch where its data axes are
+    automatic: ``(gather, index)``, ``gather(v)`` stacking a vector of every
+    rank of the group in the order of their rows, (n, len(v)), and ``index``
+    this rank's place there.  The capacity is the group's, a pair's slot
+    counts the pairs of its expert on the ranks before it, and the aux loss
+    is the group's (``_group_slots``); the rank keeps its own tokens, in slabs
+    of min(its tokens, the capacity) rows.
     """
     b, s, d = x.shape
     n_dev = comm.axis_size(axis)
@@ -292,14 +357,21 @@ def moe_apply_ep(comm, x, params, top_k: int, capacity_factor: float, axis: str 
     exchange = exchange or (lambda slabs: comm.all_to_all(slabs, axis))
     vary = vary or (lambda v: v)
     xt = x.reshape(1, t, d)
-    gates, experts, aux = _route(xt, params["router"], top_k)
-    cap = capacity(t, top_k, e, capacity_factor)
-    flat_e, pos_c, keep = _slots(experts, e, cap)
-    slabs = _scatter(vary(xt), flat_e, pos_c, keep, e, cap, top_k)[0]  # (E, C, D)
-    # exchange: (E, C, D) -> (n_dev, e_local, C, D) -> all-to-all over dim 0
-    recv = exchange(slabs.reshape(n_dev, e_local, cap, d))
-    # recv: (n_dev, e_local, C, D): token slabs from every peer for MY experts
+    probs = _probs(xt, params["router"])
+    experts = _top_k(probs, top_k)
+    gates, aux = _gates_and_aux(probs, experts, e)
+    if group is None:
+        cap = rows = capacity(t, top_k, e, capacity_factor)
+        flat_e, pos_c, keep = _slots(experts, e, cap)
+        aux = aux[0]
+    else:
+        cap, rows, prefix, aux = _group_slots(*group, probs, experts, e, capacity_factor)
+        flat_e, pos_c, keep = _slots(experts, e, cap, prefix, rows)
+    slabs = _scatter(vary(xt), flat_e, pos_c, keep, e, rows, top_k)[0]  # (E, rows, D)
+    # exchange: (E, rows, D) -> (n_dev, e_local, rows, D) -> all-to-all over dim 0
+    recv = exchange(slabs.reshape(n_dev, e_local, rows, d))
+    # recv: (n_dev, e_local, rows, D): token slabs from every peer for MY experts
     out = _experts_ffn(recv, params["w_gate"], params["w_up"], params["w_down"])
-    back = exchange(out).reshape(1, e, cap, d)
+    back = exchange(out).reshape(1, e, rows, d)
     y = _gather(back, flat_e, pos_c, keep, vary(gates), top_k)
-    return y.reshape(b, s, d), aux[0]
+    return y.reshape(b, s, d), aux

@@ -266,9 +266,16 @@ def _moe_view(cfg: ArchConfig, tp, mp, x, decode: bool = False):
 
 def _moe_ep_view(cfg: ArchConfig, tp, mp, x):
     """``moe.moe_apply_ep`` among the ranks along ``model`` on a view: ``mp`` the
-    router and the rank's E / n experts, ``x`` the rank's rows, routed as one
-    group.  Its all-to-alls are the view's (``TensorParallel.exchange``: cuts
-    of the tape on the cut route, their own transpose).
+    router and the rank's E / n experts, ``x`` the rank's rows.  Its all-to-alls
+    are the view's (``TensorParallel.exchange``: cuts of the tape on the cut
+    route, their own transpose).
+
+    The whole batch is one dispatch group, as in the reference's shard_map
+    body, whose data axes are automatic: the rows of every rank along
+    ``tp.ep_axes`` (the data axes; none under a sync mode) in the order of the
+    batch, each rank keeping its own, their per-expert counts and router sums
+    gathered there (``TensorParallel.gather``: its transpose reduce-scatters,
+    so that the group's aux loss reaches every rank's router).
 
     Where the tokens are the same on every rank along ``model`` (``model`` not
     a data axis: the 2d layout, JAX's ``in_specs=P()``), every rank routes them
@@ -278,11 +285,14 @@ def _moe_ep_view(cfg: ArchConfig, tp, mp, x):
     copies' gradients add up to one), and the slabs' tokens and the gates
     enter through ``pvary``, whose transpose sums the ranks' parts, so that x's
     and the router's gradients are whole on every rank.  Under
-    ``layout="fsdp"`` (``model`` a data axis) each rank routes its own tokens."""
+    ``layout="fsdp"`` (``model`` a data axis) each rank holds rows of its own."""
     replicated = tp.axis not in tp.data_axes
+    axes, group = tp.ep_axes, None
+    if tp.comm.axis_size(axes) > 1:
+        group = (lambda v: tp.gather(v, axes), tp.comm.axis_index(axes))
     y, aux = moe_lib.moe_apply_ep(tp.comm, x, mp, cfg.top_k, cfg.capacity_factor, tp.axis,
                                   exchange=lambda t: tp.exchange(t, None),
-                                  vary=tp.pvary if replicated else None)
+                                  vary=tp.pvary if replicated else None, group=group)
     return (tp.comm.replicated_out(y, tp.axis) if replicated else y), aux
 
 

@@ -35,7 +35,12 @@ policy (the dense, MoE, VLM and hybrid families) a layer runs as Megatron's:
   along ``model`` (``moe.moe_apply_ep``, ``models/transformer.py:
   _moe_ep_view``), the tokens the same on every one of them in the 2d layout,
   so that each runs its experts on ``model`` identical copies of the slabs, as
-  the reference's shard_map body does.  Where E does not divide ``model``
+  the reference's shard_map body does.  EP routes the whole batch as one
+  dispatch group, as that body (manual over ``model`` alone) sees it: each
+  rank keeps its rows, and one all-gather over the data axes of its pairs by
+  expert and its router sums gives the group's capacity, slots and aux loss
+  (``ep_axes``; under a sync mode the data axes are manual, as in JAX's step,
+  and each data shard is a group).  Where E does not divide ``model``
   ``sanitize_specs`` leaves the experts whole: gshard runs every expert on
   every rank, nothing summed, and EP raises (``context``), as shard_map does.
   Under a ``tp=False`` policy the experts are whole at rest, and EP cuts the
@@ -109,6 +114,9 @@ Training.  Each exchange has the backward that matches how its output is used
 * EP's all-to-alls: the same exchange; where its tokens are the same on every
   rank along ``model``, its output's gradient divided by ``model``
   (``Comm.replicated_out``) and its slabs' tokens and gates through ``pvary``;
+  its all-gather of the ranks' router sums over the data axes: the
+  reduce-scatter (each rank's copy of the group's aux loss is seeded with
+  1 / (the data axes' size), and the ranks' seeds add up);
 * the pair route's all-to-alls: the same exchange (their own inverse); the
   gather route's all-gather over ``model``: the reduce-scatter over ``model``;
 * the vocab-parallel embed's and the loss's psums: the gradient passes.
@@ -187,7 +195,7 @@ def context(cfg: ArchConfig, act_specs) -> TensorParallel | None:
         raise ValueError(f"{cfg.name}: moe_mode='ep' splits the {cfg.n_experts} experts over "
                          f"the {n} ranks of {policy.model_axis!r}, and {cfg.n_experts} does not "
                          f"divide by {n} (JAX's shard_map requires it too)")
-    return TensorParallel(cfg, comm, policy)
+    return TensorParallel(cfg, comm, policy, manual_data=bool(act_specs.get("manual_data")))
 
 
 def _unported(cfg: ArchConfig, policy) -> str | None:
@@ -352,7 +360,8 @@ class TensorParallel:
     over ``model``.  While ``tape`` holds a ``Tape`` and autograd is on, every
     collective is a cut of that tape."""
 
-    def __init__(self, cfg: ArchConfig, comm: Comm, policy: shard_lib.Policy):
+    def __init__(self, cfg: ArchConfig, comm: Comm, policy: shard_lib.Policy,
+                 manual_data: bool = False):
         self.cfg, self.comm, self.policy = cfg, comm, policy
         self.plan = _plan(cfg, policy, comm.mesh)
         self.tp = policy.tp
@@ -367,6 +376,11 @@ class TensorParallel:
         if missing:
             raise ValueError(f"{cfg.name}: the mesh {comm.mesh.axis_names} has no data axes "
                              f"{missing}")
+        # EP's dispatch group: the rows of every rank along these axes as one, as
+        # JAX's shard_map body (manual over model alone) sees the whole batch;
+        # none where the data axes are manual (``act_specs["manual_data"]``: a
+        # sync mode's step, whose every data shard JAX routes on its own)
+        self.ep_axes = () if manual_data else self.data_axes
         self.tape: Tape | None = None
 
     @property

@@ -104,10 +104,11 @@ def make_loss_fn(cfg: ArchConfig, options: TrainOptions, act_specs=None):
     size: the seed of 1/dp), under a sync mode the rank's rows' mean.  The MoE
     aux loss is the mean over the rank's dispatch groups, under ``sync="auto"``
     psum'd over the data axes the same way (every data rank holds as many
-    groups), as JAX averages it over every group.  With ``ce_chunk`` the loss
-    runs a sequence chunk at a time (``_tp_loss``).  Every collective is
-    differentiable: the autograd route, one autograd engine thread a rank (the
-    CPU, one process a rank).
+    groups), as JAX averages it over every group; EP's one group of the whole
+    batch gives every rank the same aux, which that mean leaves as it is.
+    With ``ce_chunk`` the loss runs a sequence chunk at a time (``_tp_loss``).
+    Every collective is differentiable: the autograd route, one autograd engine
+    thread a rank (the CPU, one process a rank).
     """
     model = get_model(cfg)
     tp = tp_lib.context(cfg, act_specs)  # raises for a family without the path
@@ -494,11 +495,13 @@ def _sync_grads(comm, grads, loss, aux, options: TrainOptions, axes, dp_shape, t
 def _step_specs(options: TrainOptions, act_specs):
     """``act_specs`` with the policy of the train step's blocks: under a sync mode
     the data axes are manual, so the blocks are whole over them (``fsdp=False``;
-    a ``tp=False`` policy then splits nothing and takes the plain sync step)."""
+    a ``tp=False`` policy then splits nothing and takes the plain sync step), and
+    each data shard is EP's dispatch group (``"manual_data"``)."""
     policy = (act_specs or {}).get("policy")
     if policy is None or options.sync == "auto":
         return act_specs
-    return {**act_specs, "policy": dataclasses.replace(policy, fsdp=False)}
+    return {**act_specs, "policy": dataclasses.replace(policy, fsdp=False),
+            "manual_data": True}
 
 
 def _make_tp_train_step(cfg: ArchConfig, ocfg: opt.AdamWConfig, options: TrainOptions,

@@ -17,24 +17,23 @@ its loss, aux and every leaf) and one ``make_train_step``:
   axis) over 2 x 2; gshard also over 1 x 16, where the experts do not divide
   ``model`` and stay whole (every rank runs every expert, nothing summed).
 
-EP routes the tokens a rank holds as one group: under ``Policy()`` a data
-row's, the same on every rank along ``model`` (each rank runs its experts on
-``model`` identical copies of the slabs); under ``layout="fsdp"`` the rank's
-own.  JAX's ``_moe_ep`` is a shard_map manual over ``model`` alone, so on a
-mesh whose ``data`` axis is more than 1 its body sees the whole batch and
-routes every data row's tokens as one group (on 2 x 2 its aux loss is that
-of one group of all 4 rows).  EP's references are therefore, for each group
-of the port's, the step on that group's rows alone, averaged over the groups
-(the loss, aux and gradients; the rows of the logits): the port's unsharded
-EP path (the whole model on a ("model",) ``LocalMesh``, the experts'
-gradients added over its ranks) and JAX's step jitted with ``in_shardings`` on
-a 1 x ``model`` mesh of fake CPU devices (on 1 x 4 that is JAX's step on the
-case's mesh itself).  JAX's EP training step runs at this size; the abort of
-XLA-CPU that ``models/moe.py`` names is at full width.  Decode runs
-``moe_apply``'s function whatever ``moe_mode`` in both packages, held to the
-unsharded decode and to JAX's decode step jitted on the case's mesh.  gshard's
-references are the unsharded gshard steps and JAX's steps jitted on the case's
-mesh.
+EP routes the whole batch as one dispatch group, as JAX's ``_moe_ep`` does: a
+shard_map manual over ``model`` alone, whose body sees every data row (on 2 x 2
+its aux loss is that of one group of all 4 rows).  Each rank keeps its rows;
+one all-gather over the data axes of its pairs by expert and its router sums
+gives the group's capacity, slots and aux loss.  EP's references are the
+port's unsharded EP path on the whole batch (the whole model on a ("model",)
+``LocalMesh``, the experts' gradients added over its ranks) and JAX's steps
+jitted on the case's mesh.  One more case, moonshot under ``Policy()`` over 2 x
+2 at capacity factor 0.5, drops pairs in every group, unevenly over the data
+rows, so that a grouping by data row fails it.  Under a sync mode the data
+axes are manual in JAX's step, and each data shard is a group of its own
+(``test_ep_under_a_sync_mode_routes_each_data_shard_alone``).  JAX's EP
+training step runs at this size; the abort of XLA-CPU that ``models/moe.py``
+names is at full width.  Decode runs ``moe_apply``'s function whatever
+``moe_mode`` in both packages, held to the unsharded decode and to JAX's
+decode step jitted on the case's mesh.  gshard's references are the unsharded
+gshard steps and JAX's steps jitted on the case's mesh.
 
 Tolerances are ``test_torch_tp_families.py``'s (rtol 1e-4, atol 1e-4 of the
 largest logit; greedy tokens equal) and ``test_torch_tp_families_train.py``'s
@@ -43,8 +42,10 @@ atol 1e-4 of its largest, or twice the port's unsharded step's own distance
 from JAX where that is larger, capped at 1e-2).  Beside them: the plan's
 blocks are the specs' (the experts split on E where E divides ``model``), the
 cut route equals the autograd route within ``ROUTE_TOL``, gshard's one row
-sum of (B, S, D) a layer and EP's two all-to-alls of the slabs a layer at
-their closed forms, and EP over 16 ranks of 8 experts raises.
+sum of (B, S, D) a layer and EP's two all-to-alls of the slabs a layer and its
+one all-gather of the counts at their closed forms, the experts' SwiGLU
+recomputed in the backward with autograd's gradients bit for bit, and EP over 16
+ranks of 8 experts raises.
 
 Run as a script (``python tests/test_torch_tp_moe_ep.py OUT.npz``, with
 ``XLA_FLAGS=--xla_force_host_platform_device_count=16``) it writes the JAX
@@ -81,15 +82,20 @@ SEQ, PROMPT, GREEDY, MAX_LEN = 8, 5, 3, 7
 OCFG = dict(lr=1e-2, warmup_steps=2, total_steps=10, clip_norm=1.0)
 MOON, DBRX = "moonshot-v1-16b-a3b-smoke", "dbrx-132b-smoke"
 # name: (arch, moe_mode, layout: "tp" = Policy(), "fsdp" = default_policy's
-# layout="fsdp"; mesh shape, global batch)
+# layout="fsdp"; mesh shape, global batch, capacity factor (None: the config's))
 CASES = {
-    f"{tag}-{mode}-{layout}-{d}x{m}": (arch, mode, layout, (d, m), b)
+    f"{tag}-{mode}-{layout}-{d}x{m}": (arch, mode, layout, (d, m), b, None)
     for tag, arch in (("moonshot", MOON), ("dbrx", DBRX))
     for mode, layout, (d, m), b in (("ep", "tp", (1, 4), 4), ("ep", "tp", (2, 2), 4),
                                     ("ep", "fsdp", (2, 2), 4), ("gshard", "tp", (1, 4), 4),
                                     ("gshard", "tp", (2, 2), 4), ("gshard", "tp", (1, 16), 2),
                                     ("gshard", "fsdp", (2, 2), 4))
 }
+# pairs dropped in every group and unevenly over the data rows: a capacity of 4
+# slots an expert for the 32 tokens' 64 pairs, where each data row's 16 tokens as
+# a group of their own would have 2
+UNEVEN = "moonshot-ep-tp-2x2-cf0.5"
+CASES[UNEVEN] = (MOON, "ep", "tp", (2, 2), 4, 0.5)
 # the two routes' gradients within ROUTE_TOL (rtol, and atol of a leaf's largest):
 # test_torch_tp_train.py's
 ROUTE_TOL = 1e-5
@@ -97,8 +103,9 @@ LEAF_ATOL_CAP = 1e-2
 
 
 def _cfg(case):
-    arch, mode = CASES[case][:2]
-    return dataclasses.replace(get_config(arch), moe_mode=mode)
+    arch, mode, cf = CASES[case][0], CASES[case][1], CASES[case][5]
+    cfg = dataclasses.replace(get_config(arch), moe_mode=mode)
+    return cfg if cf is None else dataclasses.replace(cfg, capacity_factor=cf)
 
 
 def _policy(case):
@@ -118,15 +125,8 @@ def _specs(cfg, params, mesh, policy):
     return sh.sanitize_specs(params, sh.param_specs(cfg, params, policy), mesh)
 
 
-def _groups(case) -> int:
-    """How many groups EP routes the batch in: the data rows (``Policy()``), or
-    every rank (``layout="fsdp"``, ``model`` a data axis)."""
-    d, m = CASES[case][3]
-    return d if CASES[case][2] == "tp" else d * m
-
-
-def _group(batch, j: int, n: int):
-    """Group ``j`` of ``n`` of every batch leaf: its rows."""
+def _shard(batch, j: int, n: int):
+    """Data shard ``j`` of ``n`` of every batch leaf: its rows."""
     rows = batch["tokens"].shape[0] // n
     return {k: v[j * rows:(j + 1) * rows] for k, v in batch.items()}
 
@@ -160,7 +160,7 @@ def _rank(comm, case):
     blocks = sh.block_views(params, _specs(cfg, params, comm.mesh, policy), comm.mesh,
                             comm.rank)
     axes = policy.data_axes
-    rows = _group(batch, comm.axis_index(axes), comm.axis_size(axes))
+    rows = _shard(batch, comm.axis_index(axes), comm.axis_size(axes))
     act = {"mesh": comm, "policy": policy}
     prefill, decode, greedy = _serve(cfg, blocks, rows, act)
     tp = tp_lib.context(cfg, act)
@@ -215,8 +215,9 @@ def _whole_grads(case, results):
 
 def _ep_reference(cfg, params, batch, n_model: int):
     """The port's unsharded EP path (the whole model on every rank of a ("model",)
-    ``LocalMesh``) on ``batch`` as one group: prefill logits, loss, aux and the
-    gradient (the experts' added over the ranks, each holding its own slice's)."""
+    ``LocalMesh``, ``moe_apply_ep`` with no ``group``) on ``batch`` as one dispatch
+    group: prefill logits, loss, aux and the gradient (the experts' added over the
+    ranks, each holding its own slice's)."""
     mesh = LocalMesh((n_model,), ("model",), "cpu", timeout=120.0)
 
     def fn(c):
@@ -237,8 +238,8 @@ def _ep_reference(cfg, params, batch, n_model: int):
 
 @pytest.fixture(scope="module")
 def unsharded():
-    """The port's unsharded steps: gshard's on the whole batch; EP's on each group
-    of rows, averaged (the logits' rows put together); decode on the whole batch."""
+    """The port's unsharded steps on the whole batch: gshard's, EP's (one group,
+    ``_ep_reference``) and decode."""
     out = {}
     for case in CASES:
         cfg, params, batch = _model(case)
@@ -250,12 +251,7 @@ def unsharded():
             grads = dict(zip(tp_lib._paths(params), tree_lib.leaves(g)))
             loss, aux = float(loss), float(aux)
         else:
-            n = _groups(case)
-            parts = [_ep_reference(cfg, params, _group(batch, j, n), CASES[case][3][1])
-                     for j in range(n)]
-            prefill = torch.cat([p[0] for p in parts])
-            loss, aux = (sum(p[i] for p in parts) / n for i in (1, 2))
-            grads = {k: sum(p[3][k] for p in parts) / n for k in parts[0][3]}
+            prefill, loss, aux, grads = _ep_reference(cfg, params, batch, CASES[case][3][1])
         out[case] = {"prefill": prefill, "decode": decode, "greedy": greedy, "loss": loss,
                      "aux": aux, "grads": grads}
     return out
@@ -338,42 +334,97 @@ def test_gshard_sums_y_over_model_once(shape):
 
 @pytest.mark.parametrize("layout", ["tp", "fsdp"])
 def test_ep_moves_two_slab_exchanges_a_layer(layout):
-    """``_moe_ep_view`` on a 2 x 2 mesh: two all-to-alls a call, each sending every
-    peer along ``model`` its E / n experts' (C, D) slabs, C the capacity of the
-    rank's tokens as one group; nothing else crosses ranks.  Under ``Policy()``
-    the ranks along ``model`` route the same tokens and return the same bits."""
+    """``_moe_ep_view`` on a 2 x 2 mesh, the whole batch one dispatch group: one
+    all-gather a call over the data axes of the rank's 3E float32 counts and
+    router sums, and two all-to-alls, each sending every peer along ``model`` its
+    E / n experts' (C, D) slabs, C = min(the rank's tokens, the group's
+    capacity); nothing else crosses ranks.  Each rank's output is its rows of
+    ``moe_apply``'s on the whole batch as one group, and its aux that group's;
+    under ``Policy()`` the ranks along ``model`` route the same tokens and
+    return the same bits."""
     cfg = dataclasses.replace(get_config(MOON), moe_mode="ep")
     policy = sh.Policy() if layout == "tp" else sh.default_policy(cfg, layout="fsdp")
     gen = torch.Generator().manual_seed(0)
     lp = {k: v[0] for k, v in TT.init_params(cfg, gen, torch.float32)["layers"]["moe"].items()}
-    rows, s, d = 2, 8, cfg.d_model
-    xs = torch.randn(4, rows, s, d, generator=gen)
+    rows, s, d, e = 2, 8, cfg.d_model, cfg.n_experts
     mesh = LocalMesh((2, 2), AXES, "cpu", timeout=60.0)
+    n = mesh.axis_size(policy.data_axes)  # the ranks of distinct rows: 2, or 4
+    xs = torch.randn(n, rows, s, d, generator=gen)
 
     def fn(c):
         tp = tp_lib.context(cfg, {"mesh": c, "policy": policy})
-        el = cfg.n_experts // tp.ep_n
+        el = e // tp.ep_n
         mine = {k: (v if k == "router" else v[tp.ep_index * el:(tp.ep_index + 1) * el])
                 for k, v in lp.items()}
-        x = xs[c.axis_index(policy.data_axes)] if layout == "fsdp" else xs[c.axis_index("data")]
-        return TT._moe_ep_view(cfg, tp, mine, x)
+        return TT._moe_ep_view(cfg, tp, mine, xs[c.axis_index(policy.data_axes)])
 
     outs = mesh.run(fn)
-    cap = moe_lib.capacity(rows * s, cfg.top_k, cfg.n_experts, cfg.capacity_factor)
+    cap = moe_lib.capacity(n * rows * s, cfg.top_k, e, cfg.capacity_factor)
+    slab = min(rows * s, cap)
+    assert slab == (10 if layout == "tp" else 16)  # the capacity, or the rank's 16 tokens
     st = mesh.stats
-    assert st.all_to_all_calls == 2 * mesh.size
-    assert st.psum_calls == st.all_gather_calls == st.reduce_scatter_calls == 0
-    per_peer = 2 * (cfg.n_experts // 2) * cap * d * 4
+    assert st.all_to_all_calls == 2 * mesh.size and st.all_gather_calls == mesh.size
+    assert st.psum_calls == st.reduce_scatter_calls == 0
+    assert st.payload["all_gather"] == mesh.size * 3 * e * 4
+    per_peer = 2 * (e // 2) * slab * d * 4
     assert dict(st.bytes) == {(r, q): per_peer for r in range(4) for q in mesh.group(r, "model")
                               if q != r}
+    want, want_aux = moe_lib.moe_apply(xs.reshape(1, n * rows * s, d), lp, cfg.top_k,
+                                       cfg.capacity_factor)
+    want = want.reshape(n, rows, s, d)
     for r, (y, aux) in enumerate(outs):
-        x = xs[r if layout == "fsdp" else r // 2]
-        want, want_aux = moe_lib.moe_apply(x.reshape(1, rows * s, d), lp, cfg.top_k,
-                                           cfg.capacity_factor)
-        _close(y, want.reshape(rows, s, d))
+        _close(y, want[mesh.axis_index(r, policy.data_axes)])
         torch.testing.assert_close(aux, want_aux, rtol=1e-6, atol=0)
         if layout == "tp":
             assert torch.equal(y, outs[r - r % 2][0])
+
+
+def test_ep_under_a_sync_mode_routes_each_data_shard_alone():
+    """Under a sync mode JAX's step is manual over the data axes, so its
+    ``_moe_ep`` sees one data shard: ``make_train_step`` with ``sync="ring"``
+    under ``Policy()`` on 2 x 2 routes each data row's tokens as a group of its
+    own (the view's ``ep_axes`` empty), its loss and aux the means over the data
+    rows of the unsharded EP path's on each shard alone, at the capacity factor
+    where the whole batch's one group gives another aux."""
+    cfg, params, batch = _model(UNEVEN)
+    policy, opts = _policy(UNEVEN), TS.TrainOptions(sync="ring")
+    mesh = LocalMesh((2, 2), AXES, "cpu", timeout=120.0)
+
+    def fn(c):
+        act = {"mesh": c, "policy": policy}
+        assert tp_lib.context(cfg, TS._step_specs(opts, act)).ep_axes == ()
+        specs = _specs(cfg, params, c.mesh, dataclasses.replace(policy, fsdp=False))
+        blocks = tree_lib.tree_map(torch.clone, sh.block_views(params, specs, c.mesh, c.rank))
+        step = TS.make_train_step(cfg, opt.AdamWConfig(**OCFG), opts, act_specs=act)
+        _, _, m = step(blocks, opt.init(blocks), _shard(batch, c.axis_index("data"), 2))
+        return float(m["loss"]), float(m["aux"])
+
+    parts = [_ep_reference(cfg, params, _shard(batch, j, 2), 2) for j in range(2)]
+    loss, aux = (float(np.mean([p[i] for p in parts])) for i in (1, 2))
+    for got_loss, got_aux in mesh.run(fn):
+        np.testing.assert_allclose(got_loss, loss, rtol=1e-4)
+        np.testing.assert_allclose(got_aux, aux, rtol=1e-4)
+    assert abs(_ep_reference(cfg, params, batch, 2)[2] - aux) > 1e-2 * aux
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64])
+def test_experts_ffn_recomputes_silu_with_autograds_gradients(dtype):
+    """``_experts_ffn`` keeps two of its four (..., C, F) intermediates for the
+    backward: its output and every gradient are those of the plain SwiGLU under
+    autograd, bit for bit."""
+    gen = torch.Generator().manual_seed(0)
+    buf = torch.randn(2, 4, 8, 16, generator=gen).to(dtype).requires_grad_(True)
+    ws = [torch.randn(*shape, generator=gen).to(dtype).requires_grad_(True)
+          for shape in ((4, 16, 12), (4, 16, 12), (4, 12, 16))]
+    cot = torch.randn(2, 4, 8, 16, generator=gen).to(dtype)
+    out = moe_lib._experts_ffn(buf, *ws)
+    h = torch.nn.functional.silu(torch.einsum("...ecd,edf->...ecf", buf, ws[0])) * torch.einsum(
+        "...ecd,edf->...ecf", buf, ws[1])
+    want = torch.einsum("...ecf,efd->...ecd", h, ws[2])
+    assert torch.equal(out, want)
+    for a, b in zip(torch.autograd.grad(out, [buf, *ws], cot),
+                    torch.autograd.grad(want, [buf, *ws], cot), strict=True):
+        assert torch.equal(a, b)
 
 
 def test_ep_over_more_ranks_than_experts_raises():
@@ -432,9 +483,8 @@ def test_cut_route_equals_the_autograd_route(case, local_results):
 
 def _write_jax_reference(path):
     """Every case: JAX's prefill, decode and ``value_and_grad`` of its loss, jitted
-    with ``in_shardings`` from its ``param_specs``, ``batch_specs`` and
-    ``cache_specs``, on the port's weights; EP's prefill and gradient on each
-    group's rows on a 1 x ``model`` mesh (the module docstring), averaged."""
+    on the case's mesh with ``in_shardings`` from its ``param_specs``,
+    ``batch_specs`` and ``cache_specs``, on the port's weights."""
     import jax
     import jax.numpy as jnp
     from jax.sharding import Mesh, NamedSharding
@@ -454,7 +504,7 @@ def _write_jax_reference(path):
         return mesh, policy, jsh.batch_specs(cfg, policy, mesh, b)
 
     def steps(cfg, params, layout, shape, b):
-        key = (cfg.name, cfg.moe_mode, layout, shape, b)
+        key = (cfg.name, cfg.moe_mode, cfg.capacity_factor, layout, shape, b)
         if key not in jitted:
             mesh, policy, bspecs = setup(cfg, layout, shape, b)
             specs = jsh.sanitize_specs(params, jsh.param_specs(cfg, params, policy), mesh)
@@ -470,28 +520,20 @@ def _write_jax_reference(path):
             jitted[key] = prefill, grad
         return jitted[key]
 
-    for case, (arch, mode, layout, shape, b) in CASES.items():
+    for case, (arch, mode, layout, shape, b, cf) in CASES.items():
         cfg = dataclasses.replace(jget_config(arch), moe_mode=mode)
+        if cf is not None:
+            cfg = dataclasses.replace(cfg, capacity_factor=cf)
         _, params_t, batch_t = _model(case)
         params = jax.tree.map(jnp.asarray, bridge.params_to_numpy(params_t))
         batch = {k: jnp.asarray(v.numpy()) for k, v in batch_t.items()}
-        n = _groups(case) if mode == "ep" else 1
-        ref_layout, ref_shape = ("tp", (1, shape[1])) if mode == "ep" else (layout, shape)
-        prefills, losses, auxes, grads = [], [], [], None
-        for j in range(n):
-            rows = {k: v[j * (b // n):(j + 1) * (b // n)] for k, v in batch.items()}
-            prefill, grad = steps(cfg, params, ref_layout, ref_shape, b // n)
-            prefills.append(prefill(params, {"tokens": rows["tokens"]}))
-            (_, (loss, aux)), g = grad(params, rows)
-            losses.append(float(loss))
-            auxes.append(float(aux))
-            g = jax.tree.map(lambda t: np.asarray(t, np.float64) / n, g)
-            grads = g if grads is None else jax.tree.map(np.add, grads, g)
-        out[f"{case}/prefill"] = jnp.concatenate(prefills)
-        out[f"{case}/loss"] = np.mean(losses)
-        out[f"{case}/aux"] = np.mean(auxes)
+        prefill, grad = steps(cfg, params, layout, shape, b)
+        out[f"{case}/prefill"] = prefill(params, {"tokens": batch["tokens"]})
+        (_, (loss, aux)), grads = grad(params, batch)
+        out[f"{case}/loss"] = np.asarray(loss)
+        out[f"{case}/aux"] = np.asarray(aux)
         for name, g in zip(tp_lib._paths(params_t), jax.tree.leaves(grads), strict=True):
-            out[f"{case}/grad/{name}"] = g.astype(np.float32)
+            out[f"{case}/grad/{name}"] = np.asarray(g, np.float32)
         # decode: moe_apply whatever moe_mode, on the case's mesh
         mesh, policy, bspecs = setup(cfg, layout, shape, b)
         specs = jsh.sanitize_specs(params, jsh.param_specs(cfg, params, policy), mesh)
