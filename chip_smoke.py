@@ -222,9 +222,9 @@ MoE, VLM and audio families in their sharded layouts:
    moonshot-v1-16b-a3b TP over ``model`` (experts split on d_ff) in fp32 at
    the 48-layer init's scale: the prefill gate at 4 layers (4 x 2048; (1, 16),
    (2, 8)) and the training gate at 1 (2 x 2048; (1, 16), (2, 8), ring (2, 8))
-   against fp64 with its routing replayed, then bf16 whole: the TP prefill (768 sm90 launches a
-   call) and a few decode steps; qwen2-vl-7b at an image grid's M-RoPE
-   positions, bf16 whole on the pair (B 4) and gather (B 2) routes, fp32 at 4
+   against fp64 with its routing replayed, then bf16 at 12 of 48 layers: the TP
+   prefill (192 sm90 launches a call) and a few decode steps; qwen2-vl-7b at an image grid's M-RoPE
+   positions, bf16 at 14 of 28 layers on the pair (B 4) and gather (B 2) routes, fp32 at 4
    layers: the prefill and training gates; whisper-tiny whole under its
    ``default_policy`` (``tp=False``) and ``layout="fsdp"`` on (2, 8), 16 x
    512: the prefill and training gates.  Gates as 25's, launches and
@@ -233,10 +233,18 @@ MoE, VLM and audio families in their sharded layouts:
    (``moe_mode`` "gshard" and "ep"): fp32 prefill and decode gates at 4 layers
    on (1, 16) and (2, 8) (64 tf32 launches a prefill), training gates at 1
    layer on both (EP's fp64 runs route the whole batch as one group, as its
-   ranks do together), bf16 whole on (2, 8), reported;
+   ranks do together), bf16 at 12 of 48 layers on (2, 8), reported;
    and llama3.2-3b at 4 layers trained with
    ``ce_chunk`` 512 against the same step without it (loss and leaves within
-   the gate, a lower peak up to the gradient);
+   the gate, a lower peak up to the gradient); whisper-tiny under
+   ``Policy()`` (fp32 prefill gates on the pair route, 16 x 512 on (1, 16), and
+   the gather route, 4 x 512 on (2, 8), 64 tf32 launches each; the decode
+   gate on (1, 16) against the fp64 decode loop; the training gate at 2 x
+   2048 on both meshes, 128 tf32 launches a step; the bf16 prefill, 64 sm90
+   launches, reported); then ``phase_tp_recurrent`` (the hybrid, and mamba2-130m
+   under its ``tp=False`` layouts and under ``Policy()``: prefill gates at 16 x
+   512 on (1, 16) and (2, 8), the decode gate on (1, 16), the training gate at
+   2 x 2048 on both; no launch);
 27. one JSON line on every kernel (launches by path, the MoE, SSM, hybrid,
    VLM, audio, pipeline, EP, TP and sharded-family paths included), one each
    on the sync, MoE, SSM, hybrid, VLM, audio, pipeline, EP-model, sharding,
@@ -329,12 +337,13 @@ CASES = [
 ]
 # the prefill shape of llama3.2-3b at head_dim 128, of minicpm-2b at 64, of
 # moonshot-v1-16b-a3b (MHA, 16 heads of 128), of qwen2-vl-7b (GQA group 7) and of
-# whisper-tiny's decoder (6 heads of 64): (b, s, h, kv, d), causal
+# whisper-tiny's decoder (6 heads of 64), then TP ranks' shares (whisper-tiny's on
+# the pair route at 16 x 512 over 16 ranks): (b, s, h, kv, d), causal
 PREFILL_SHAPES = {"d128": (4, 2048, 24, 8, 128), "d64": (4, 2048, 36, 36, 64),
                   "moonshot": (4, 2048, 16, 16, 128), "vlm": (4, 2048, 28, 4, 128),
                   "audio": (4, 2048, 6, 6, 64), "tp": (1, 2048, 6, 2, 128),
                   "tp_train": (1, 2048, 3, 1, 128), "tp_moe": (1, 2048, 4, 4, 128),
-                  "tp_vlm": (1, 2048, 7, 1, 128)}
+                  "tp_vlm": (1, 2048, 7, 1, 128), "tp_audio": (1, 512, 6, 6, 64)}
 PREFILL_BATCH, PREFILL_LEN = 4, 2048
 # the fp32 shapes, (tag, (b, s, h, kv, d), timing rounds), causal: the training
 # and prefill shapes of llama3.2-3b, then of moonshot-v1-16b-a3b, qwen2-vl-7b and
@@ -351,7 +360,12 @@ FP32_SHAPES = [("train_fp32", (2, 2048, 24, 8, 128), 3),
                ("train_tp_fp32", (1, 2048, 3, 1, 128), 3),
                ("prefill_tp_moe_fp32", (1, 2048, 4, 4, 128), 3),
                ("train_tp_moe_fp32", (1, 2048, 2, 2, 128), 3),
-               ("prefill_tp_vlm_fp32", (1, 2048, 7, 1, 128), 3)]
+               ("prefill_tp_vlm_fp32", (1, 2048, 7, 1, 128), 3),
+               # whisper-tiny's TP prefill shares (phase_tp_families): 1 row x 6 heads
+               # on the pair route, 2 rows x 6 on the gather route; its TP training
+               # share is train_audio_fp32's (2 rows x 6, the gather route)
+               ("prefill_tp_audio_fp32", (1, 512, 6, 6, 64), 3),
+               ("prefill_tp_audio_gather_fp32", (2, 512, 6, 6, 64), 3)]
 # q's scale in the large-score checks (mean row max scores ~40 and ~450), at the
 # training shapes of moonshot-v1-16b-a3b and whisper-tiny
 LARGE_SCORE_Q_SCALES = (12.0, 143.0)
@@ -387,8 +401,14 @@ LOSS_RTOL, GRAD_RTOL = 1e-4, 1e-3
 FLOOR_CHUNK = 256
 
 
+_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    """``msg`` on stdout; its seconds since the script began, and its start, on
+    stderr (where the time goes, line by line)."""
     print(msg, flush=True)
+    print(f"{time.perf_counter() - _START:8.1f} {msg[:100]}", file=sys.stderr, flush=True)
 
 
 def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
@@ -2444,8 +2464,9 @@ def _ssd_sequential(x, dt, A, B, C):
 def _ssd_checks(x, dt, A, B, C, chunk) -> dict:
     """``ssd_chunked`` on one layer's inputs against the recurrence in fp64: in fp64
     (the algorithm, to ALGO_TOL) and in fp32 (the model's arithmetic).  In fp32
-    each decay exp(c_i - c_j) is taken of two cumulative sums rounded to fp32, so
-    its relative error is up to ~2^-23·max|c|; the fp32 gate is max(1e-4, that)."""
+    each decay is a sum of its own terms (``mamba2._segsum``), at fp32's relative
+    error; the fp32 gate, max(1e-4, 2^-23·max|c|), is what a decay exp(c_i - c_j)
+    of two cumulative sums rounded to fp32 (the JAX version's) would reach."""
     from repro_torch.models import mamba2
 
     out = {}
@@ -4796,6 +4817,7 @@ def phase_tp_train(smi, train_loss: dict) -> dict:
 FAM_MOE_LAYERS = 1
 FAM_MOE_PREFILL_LAYERS = 4
 FAM_MOE_PREFILL_SHAPES = ((1, 16), (2, 8))
+FAM_VLM_BF16_LAYERS = 14  # its reported-only bf16 TP prefills: half of 28 (as moonshot's)
 FAM_VLM_LAYERS = 4  # qwen2-vl-7b's: 8.1 GB (8 layers would hold 82 GB of fp64
 #                     references on the 96 GiB host)
 # (sync, (data, model)) of moonshot's fp32 gate: TP alone, with FSDP, and the ring
@@ -4880,7 +4902,8 @@ def _fam_closed_forms(cfg, policy, shape, batch: int, seq: int, kind: str, sync:
         axes = {a for d in dims for a in d if mesh.shape[a] > 1}
         split[name] = [("model" in d) for d in dims]
         groups.add(frozenset(axes))
-        if "data" in axes:  # FSDP: a stacked leaf a layer at a time, else whole
+        # a decode step runs no encoder (the audio family's cross-attention cache)
+        if "data" in axes and not (kind == "decode" and name.startswith("encoder.")):
             per = x.shape[0] if tp_lib._stacked(name, stacks) else 1
             times = 1 if name == "unembed" else passes
             lelt = 4 if x.dtype == torch.float32 else elt  # the MoE router: fp32 in any model
@@ -4890,7 +4913,9 @@ def _fam_closed_forms(cfg, policy, shape, batch: int, seq: int, kind: str, sync:
         if train and sync == "auto" and any(
                 mesh.shape[a] > 1 and a not in axes for a in policy.data_axes):
             add("psum", 1, block * elt)  # sum_over_data
-    if policy.tp:
+    if policy.tp and cfg.family in ("ssm", "audio"):
+        _fam17_closed_forms(add, cfg, split, n, rows, seq, kind, elt)
+    elif policy.tp:
         h, kv = cfg.n_heads, cfg.n_kv_heads
         if split["embed"][0]:  # the vocab-parallel lookup's psum
             add("psum", passes, passes * act * elt)
@@ -4961,6 +4986,92 @@ def _fam_closed_forms(cfg, policy, shape, batch: int, seq: int, kind: str, sync:
     # the ring's ppermutes over data: the rank's whole fp32 gradient, in dp chunks
     ring = 2 * (dp - 1) * -(-blocks // dp) * 4 if train and sync != "auto" else 0
     return {**out, "ppermute_bytes": ring}
+
+
+def _fam17_closed_forms(add, cfg, split, n: int, rows: int, seq: int, kind: str, elt: int):
+    """``_fam_closed_forms``' part over ``model`` for the SSM and audio families under
+    a ``tp=True`` policy (``add(collective, calls, bytes)``; ``split``: each leaf's
+    dimensions split over ``model``).  Both: the vocab-parallel lookup's psum and
+    the last logits' all-gather where the vocab is split, each row sum a
+    reduce-scatter of the fp32 partial and an all-gather of the sums; in training
+    each layer's pvarys' psums (the transposes) and the loss's collectives.
+
+    * mamba2, a layer a pass: ``w_in`` read whole (all-gathered over ``model``
+      where split, else a pvary), the conv output all-gathered where ``conv_w`` is
+      split (else ``conv_w`` a pvary), ``w_out`` read whole the same way, one row
+      sum; the normed input, ``A_log``, ``D`` and ``dt_bias`` (fp32) pvarys;
+    * whisper, a decoder and (not in decode) an encoder layer a pass: the
+      self-attention's route (pair: q, k, v in one all-to-all and o back; gather:
+      q, k, v all-gathered) and two row sums; pvarys of the attention's and the
+      MLP's inputs and of ``b_up``; in decode the cross-attention on the rank's
+      block of its cache: a row sum where it holds kv heads, the fp32 scores psum'd
+      and a row sum where it holds head_dim columns."""
+    from repro_torch.models import mamba2
+    from repro_torch.parallel import sharding as sh
+
+    train = kind == "train"
+    passes = 2 if train else 1
+    tok, d, n_l = rows * seq, cfg.d_model, cfg.n_layers
+    act = tok * d
+
+    def row_sums(count, a):
+        piece = -(-a // n)
+        add("reduce_scatter", count, count * piece * n * 4)
+        add("all_gather", count, count * piece * elt)
+
+    def read(count, name, block):  # a leaf read whole: all-gathered, or a pvary
+        if any(split[name]):
+            add("all_gather", count * passes, count * passes * block * elt)
+            if train:
+                add("reduce_scatter", count, count * n * block * elt)
+        elif train:
+            add("psum", count, count * block * elt)
+
+    vocab_split = split["unembed"][1] if "unembed" in split else split["embed"][0]
+    if split["embed"][0]:
+        add("psum", passes, passes * act * elt)
+    if cfg.family == "ssm":
+        di, h, _, ns = mamba2.dims(cfg)
+        cols, conv = 2 * di + 2 * ns + h, di + 2 * ns
+        read(n_l, "layers.w_in", d * cols // (n if split["layers.w_in"][2] else 1))
+        read(n_l, "layers.w_out", di * d // (n if split["layers.w_out"][1] else 1))
+        if split["layers.conv_w"][2]:
+            add("all_gather", n_l * passes, n_l * passes * tok * conv // n * elt)
+            if train:
+                add("reduce_scatter", n_l, n_l * tok * conv * elt)
+        elif train:
+            add("psum", n_l, n_l * cfg.conv_width * conv * elt)
+        row_sums(n_l * passes, act)
+        if train:
+            add("psum", n_l, n_l * act * elt)  # the normed input
+            add("psum", 3 * n_l, 3 * n_l * h * 4)  # A_log, D, dt_bias
+    else:
+        h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.kq_head_dim
+        stacks = [(n_l, tok)] + ([(cfg.enc_layers, rows * cfg.enc_seq)] if kind != "decode"
+                                 else [])
+        for layers, t in stacks:
+            row_sums(2 * layers * passes, t * d)
+            qkv, o = t * (h + 2 * kv) * hd // n, t * h * hd // n
+            if sh.head_split(rows, kv, n) is None:
+                add("all_gather", layers * passes, layers * passes * qkv * elt)
+                if train:
+                    add("reduce_scatter", layers, layers * n * qkv * elt)
+            else:
+                k = 3 if train else 1
+                add("all_to_all", 2 * layers * k, layers * k * (qkv + o) * elt)
+            if train:  # the attention's and the MLP's inputs, b_up
+                add("psum", 2 * layers, 2 * layers * t * d * elt)
+                add("psum", layers, layers * cfg.d_ff * elt)
+        if kind == "decode" and kv % n == 0:
+            row_sums(n_l, act)
+        elif kind == "decode" and hd % n == 0:
+            add("psum", n_l, n_l * rows * h * cfg.enc_seq * 4)
+            row_sums(n_l, act)
+    if not train and vocab_split:
+        add("all_gather", 1, rows * cfg.vocab // n * elt)  # the last logits' columns
+    if train and vocab_split:  # the row max, the exp-sums and the label's logit, the
+        add("all_gather", 1, tok * 4)  # hidden states' pvary
+        add("psum", 3, 2 * tok * 4 + act * elt)
 
 
 def _fam_train_gate(cfg, params, batch, runs, tag: str, smi) -> dict:
@@ -5149,6 +5260,15 @@ def _to_host(tree) -> None:
             tree[k] = v.cpu()
 
 
+def _to_device(tree) -> None:
+    """Every leaf of the nested dict ``tree`` replaced by its copy on TP_DEVICE."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _to_device(v)
+        else:
+            tree[k] = v.to(TP_DEVICE)
+
+
 def _fam_fp64_prefill(cfg, params, batch, moe_log=None) -> torch.Tensor:
     """The unsharded prefill's last logits in fp64 (plain attention), on ``params``
     cast to fp64; the MoE's routing logged into ``moe_log`` (a list)."""
@@ -5227,11 +5347,14 @@ def _fam_prefill_gate(cfg, params, batch, shape, layout, tag: str, smi) -> dict:
 
 def _route_of(cfg, policy, shape, batch: int) -> str:
     """How a rank's attention takes its heads: "pair (rows x kv heads)", "gather",
-    or "whole" (nothing split over model)."""
+    or "whole" (nothing split over model); the SSM's rank takes P / n channels of
+    every head."""
     from repro_torch.parallel import sharding as sh
 
     if not policy.tp:
         return "whole"
+    if cfg.family == "ssm":
+        return f"P / {shape[1]} channels of every head"
     hs = sh.head_split(batch // shape[0], cfg.n_kv_heads, shape[1])
     return "gather" if hs is None else f"pair ({hs.rows} row x {hs.kv_heads} kv heads)"
 
@@ -5287,8 +5410,8 @@ def _fam_bf16_serve(cfg, params, batches, tag: str, smi, decode: bool, calls: in
                "launches": launches, "stats": stats, "rank_spread": spread,
                "route": _route_of(cfg, policy, shape, b)}
         mode = f" (moe_mode {cfg.moe_mode!r})" if cfg.family == "moe" else ""
-        log(f"[{tag}] {cfg.name}{mode} bf16 whole ({cfg.n_layers} "
-            f"layers), {name}: TP prefill {b} x {s} on (data, model) = {shape}, "
+        log(f"[{tag}] {cfg.name}{mode} bf16 at {cfg.n_layers} "
+            f"layers, {name}: TP prefill {b} x {s} on (data, model) = {shape}, "
             f"{rec['route']}: {rec['s']:.3f}s "
             f"{f'median of {calls - 1} after a warm-up' if calls > 1 else 'one call'} "
             f"({', '.join(f'{t:.3f}' for t in secs)}"
@@ -5367,6 +5490,10 @@ FAM_MOE_MODE_RUNS = (("auto", (1, 16), "tp", {"moe_mode": "gshard"}),
                      ("auto", (2, 8), "tp", {"moe_mode": "gshard"}))
 FAM_MOE_EP_SHAPES = ((1, 16), (2, 8))
 FAM_MOE_MODE_BF16_SHAPE = (2, 8)
+# the depth of moonshot's bf16 TP runs (every moe_mode), at the 48-layer init's
+# scale: a quarter of its layers keeps these reported-only runs (whole until the
+# SSM and audio families' sharded gates needed their ~60 s of the script's 1200)
+FAM_MOE_BF16_LAYERS = 12
 FAM_MOE_PROMPT, FAM_MOE_GREEDY = 4, 3  # the fp32 decode gates: teacher-forced, greedy
 # llama3.2-3b's chunked loss under TP at TP_TRAIN_LAYERS, on (1, 16): its vocab
 # split 16 ways, 8016 columns a rank; a rank's (2, 2048, 8016) fp32 logits 0.13 GB
@@ -5477,24 +5604,27 @@ def _fam_moe_mode_train(cfg, params, smi) -> dict:
 
 
 def _fam_moe_mode_bf16(smi) -> dict:
-    """moonshot bf16 at full width and depth under each of FAM_MOE_MODES on
-    FAM_MOE_MODE_BF16_SHAPE: the TP prefill (B 4 x 2048, 768 sm90 launches) against
-    the unsharded one of its grouping, reported, not gated (bf16 at depth is
-    chaotic); the weights drawn anew for each (a mode's blocks are cut from
-    the whole tree, which they free)."""
+    """moonshot bf16 at full width and FAM_MOE_BF16_LAYERS layers (the 48-layer
+    init's scale) under each of FAM_MOE_MODES on FAM_MOE_MODE_BF16_SHAPE: the TP
+    prefill (B 4 x 2048, 16 sm90 launches a layer) against the unsharded one of
+    its grouping, reported, not gated (bf16 at depth is chaotic); the weights
+    drawn anew for each (a mode's blocks are cut from the whole tree, which they
+    free)."""
     from repro_torch.configs import get_config
 
     out = {}
     for mode in FAM_MOE_MODES:
-        full = dataclasses.replace(get_config(MOE_ARCH), moe_mode=mode)
-        params, meta = _load_model(full, f"tp-moe-{mode}", torch.bfloat16)
+        whole = get_config(MOE_ARCH)
+        cfg = dataclasses.replace(whole, moe_mode=mode, n_layers=FAM_MOE_BF16_LAYERS)
+        params, meta = _load_model(cfg, f"tp-moe-{mode}", torch.bfloat16)
+        _rescale_stacks(params["layers"], cfg.n_layers, whole.n_layers)
         out[mode] = {**meta, **_fam_bf16_serve(
-            full, params, {"text": _fam_batch(full, *FAM_PREFILL)}, f"tp-moe-{mode}", smi,
+            cfg, params, {"text": _fam_batch(cfg, *FAM_PREFILL)}, f"tp-moe-{mode}", smi,
             decode=False, calls=1, shape=FAM_MOE_MODE_BF16_SHAPE,
-            around=lambda c=full: _ep_grouping(c))}
-        log(f"[tp-moe-{mode}] bf16 whole on (data, model) = {FAM_MOE_MODE_BF16_SHAPE}: peak "
-            f"{out[mode]['peak_gib']:.2f} GiB, from the blocks' cut to the TP prefill's end "
-            f"[{smi}]")
+            around=lambda c=cfg: _ep_grouping(c))}
+        log(f"[tp-moe-{mode}] bf16 at {cfg.n_layers} layers on (data, model) = "
+            f"{FAM_MOE_MODE_BF16_SHAPE}: peak {out[mode]['peak_gib']:.2f} GiB, from the "
+            f"blocks' cut to the TP prefill's end [{smi}]")
         del params
         _fam_free()
     return out
@@ -5518,6 +5648,51 @@ def _fam_ce_chunk(smi) -> dict:
     return out
 
 
+def _fam_audio(smi) -> dict:
+    """whisper-tiny whole in ``phase_tp_families``: the fp32 gates on the weights
+    scaled to 1/sqrt(input width) under its ``default_policy``, ``layout="fsdp"``
+    and ``Policy()``, then the bf16 TP prefill on the
+    reference init (the phase's docstring)."""
+    from repro_torch.configs import get_config
+
+    out = {}
+    cfg = get_config(AUDIO_ARCH)
+    params, _ = _load_model(cfg, "tp-audio", torch.float32)
+    _rescale_stacks(params["layers"], cfg.n_layers, None)
+    _rescale_stacks(params["encoder"]["layers"], cfg.enc_layers, None)
+    batch = _fam_batch(cfg, FAM_AUDIO_BATCH, FAM_AUDIO_LEN)
+    out["audio_prefill"] = {layout: _fam_prefill_gate(cfg, params, {
+        k: v for k, v in batch.items() if k != "labels"}, FAM_AUDIO_SHAPE, layout, "tp-audio",
+        smi) for layout in ("2d", "fsdp")}
+    # -- whisper-tiny under Policy(): the pair and gather routes, the decode on the
+    # rank's block of the cross-attention cache
+    out["audio_tp_prefill"] = {route: _fam_prefill_gate(cfg, params, {
+        k: v for k, v in _fam_batch(cfg, b, s).items() if k != "labels"}, shape, "tp",
+        "tp-audio", smi) for route, shape, b, s in AUDIO_TP_PREFILL}
+    prompts = batch["tokens"][:, :REC_DECODE_PROMPT].contiguous()
+    out["audio_tp_decode"] = _rec_decode_gate(cfg, params, prompts, FAM_SHAPE, "tp",
+                                              "tp-audio", smi)
+    out["audio_train"] = _fam_train_gate(cfg, params, batch,
+                                         [("auto", FAM_AUDIO_SHAPE, layout)
+                                          for layout in ("2d", "fsdp")], "tp-audio", smi)
+    del batch
+    _to_device(params)  # from the host copy the tp=False training gate left
+    out["audio_tp_train"] = _fam_train_gate(cfg, params, _fam_batch(cfg, *FAM_TRAIN),
+                                            [("auto", shape, "tp")
+                                             for shape in AUDIO_TP_TRAIN_SHAPES],
+                                            "tp-audio", smi)
+    del params
+    _fam_free()
+    params, meta = _load_model(cfg, "tp-audio", torch.bfloat16)
+    _, shape, b, s = AUDIO_TP_PREFILL[0]
+    out["audio_tp_bf16"] = {**meta, **_fam_bf16_serve(cfg, params, {
+        "pair": {k: v for k, v in _fam_batch(cfg, b, s).items() if k != "labels"}},
+        "tp-audio", smi, decode=False, calls=2, shape=shape)}
+    del params
+    _fam_free()
+    return out
+
+
 def phase_tp_families(smi) -> dict:
     """The sharded layout of the MoE, VLM and audio families on 16 rank threads of
     the card (``parallel/tensor_parallel.py``), each rank computing from its blocks
@@ -5528,22 +5703,28 @@ def phase_tp_families(smi) -> dict:
       FAM_MOE_PREFILL_LAYERS layers on (data, model) = (1, 16) and (2, 8), the
       training gate at FAM_MOE_LAYERS on (1, 16), (2, 8) and ring (2, 8) (B 2 x
       2048), every run replaying the fp64 run's routing; then bf16 at full width
-      and depth on (1, 16): the TP prefill (B 4 x 2048, 768 sm90 launches a
-      call) and a few greedy decode steps;
-    * qwen2-vl-7b (M-RoPE at an image grid): bf16 whole, the TP prefill at B 4 on
+      and FAM_MOE_BF16_LAYERS layers on (1, 16): the TP prefill (B 4 x 2048, 16
+      sm90 launches a layer) and a few greedy decode steps;
+    * qwen2-vl-7b (M-RoPE at an image grid): bf16 at FAM_VLM_BF16_LAYERS, the TP prefill at B 4 on
       (1, 16) (the pair route) and at B 2 (the gather route); fp32 at
       FAM_VLM_LAYERS layers, the prefill gate at B 4 and the training gate at B 2
       (the gather route) on (1, 16);
     * whisper-tiny whole, on weights scaled to 1/sqrt(input width) as
       ``phase_audio``'s gates: under its ``default_policy`` (``tp=False``) and
       ``layout="fsdp"`` on (2, 8), B 16 x 512, the fp32 prefill and training gates;
+      and under ``Policy()``: the fp32 prefill gates on the
+      pair and gather routes (AUDIO_TP_PREFILL, the flash kernel on the rank's
+      heads), the decode gate on (1, 16) (the cross-attention on the rank's
+      head_dim columns of its cache), the training gate at FAM_TRAIN on
+      AUDIO_TP_TRAIN_SHAPES, and the bf16 whole prefill on the pair route
+      (reported);
     * the fifteenth slice: moonshot with its experts split on E over ``model``
       (``moe_mode`` "gshard" and "ep"): the fp32 prefill and decode gates at
       FAM_MOE_PREFILL_LAYERS layers on (1, 16) and (2, 8) and the training gate
       at FAM_MOE_LAYERS on both, EP's references routing the whole batch as one
       group (``_ep_whole``: EP's own training gate on both meshes; gshard's runs
       share the tp mode's, FAM_MOE_MODE_RUNS); bf16 whole on
-      FAM_MOE_MODE_BF16_SHAPE, reported;
+      FAM_MOE_MODE_BF16_SHAPE at FAM_MOE_BF16_LAYERS layers, reported;
       and llama3.2-3b at TP_TRAIN_LAYERS trained with ``ce_chunk`` FAM_CE_CHUNK
       against the same step without it (``_fam_ce_chunk``).
 
@@ -5557,7 +5738,7 @@ def phase_tp_families(smi) -> dict:
     out = {}
 
     # -- moonshot-v1-16b-a3b: fp32 gates (moe_mode "tp", then "gshard" and "ep" on
-    # the same weights), then bf16 whole
+    # the same weights), then bf16 at FAM_MOE_BF16_LAYERS
     cfg, params = _fam_fp32_model(MOE_ARCH, FAM_MOE_PREFILL_LAYERS)
     batch = _fam_batch(cfg, *FAM_PREFILL)
     out["moe_prefill"] = {f"{d}x{m}": _fam_prefill_gate(cfg, params, batch, (d, m), "tp",
@@ -5575,20 +5756,25 @@ def phase_tp_families(smi) -> dict:
     del params
     _fam_free()
     full = get_config(MOE_ARCH)
-    params, meta = _load_model(full, "tp-moe", torch.bfloat16)
-    out["moe_bf16"] = {**meta, **_fam_bf16_serve(full, params, {
-        "text": _fam_batch(full, *FAM_PREFILL)}, "tp-moe", smi, decode=True, calls=2)}
+    cfg = dataclasses.replace(full, n_layers=FAM_MOE_BF16_LAYERS)
+    params, meta = _load_model(cfg, "tp-moe", torch.bfloat16)
+    _rescale_stacks(params["layers"], cfg.n_layers, full.n_layers)
+    out["moe_bf16"] = {**meta, **_fam_bf16_serve(cfg, params, {
+        "text": _fam_batch(cfg, *FAM_PREFILL)}, "tp-moe", smi, decode=True, calls=2)}
     del params
     _fam_free()
     out["moe_modes"]["bf16"] = _fam_moe_mode_bf16(smi)
 
-    # -- qwen2-vl-7b: bf16 whole at image positions (pair and gather), fp32 gates
+    # -- qwen2-vl-7b: bf16 at FAM_VLM_BF16_LAYERS at image positions (pair and
+    # gather), fp32 gates
     full = get_config(VLM_ARCH)
-    params, meta = _load_model(full, "tp-vlm", torch.bfloat16)
+    cfg = dataclasses.replace(full, n_layers=FAM_VLM_BF16_LAYERS)
+    params, meta = _load_model(cfg, "tp-vlm", torch.bfloat16)
+    _rescale_stacks(params["layers"], cfg.n_layers, full.n_layers)
     b, s = FAM_PREFILL
-    out["vlm_bf16"] = {**meta, **_fam_bf16_serve(full, params, {
-        "pair": _fam_batch(full, b, s, _image_positions(b, s)),
-        "gather": _fam_batch(full, FAM_GATHER_BATCH, s, _image_positions(FAM_GATHER_BATCH, s))},
+    out["vlm_bf16"] = {**meta, **_fam_bf16_serve(cfg, params, {
+        "pair": _fam_batch(cfg, b, s, _image_positions(b, s)),
+        "gather": _fam_batch(cfg, FAM_GATHER_BATCH, s, _image_positions(FAM_GATHER_BATCH, s))},
         "tp-vlm", smi, decode=False)}
     del params
     _fam_free()
@@ -5603,20 +5789,8 @@ def phase_tp_families(smi) -> dict:
     del params
     _fam_free()
 
-    # -- whisper-tiny whole under both tp=False layouts
-    cfg = get_config(AUDIO_ARCH)
-    params, _ = _load_model(cfg, "tp-audio", torch.float32)
-    _rescale_stacks(params["layers"], cfg.n_layers, None)
-    _rescale_stacks(params["encoder"]["layers"], cfg.enc_layers, None)
-    batch = _fam_batch(cfg, FAM_AUDIO_BATCH, FAM_AUDIO_LEN)
-    out["audio_prefill"] = {layout: _fam_prefill_gate(cfg, params, {
-        k: v for k, v in batch.items() if k != "labels"}, FAM_AUDIO_SHAPE, layout, "tp-audio",
-        smi) for layout in ("2d", "fsdp")}
-    out["audio_train"] = _fam_train_gate(cfg, params, batch,
-                                         [("auto", FAM_AUDIO_SHAPE, layout)
-                                          for layout in ("2d", "fsdp")], "tp-audio", smi)
-    del params, batch
-    _fam_free()
+    # -- whisper-tiny whole under both tp=False layouts and under Policy()
+    out.update(_fam_audio(smi))
 
     # -- llama3.2-3b: the chunked loss under TP
     out["ce_chunk"] = _fam_ce_chunk(smi)
@@ -5669,6 +5843,18 @@ REC_DRYRUN_PEAK_RTOL = 0.01  # the dry-run's hybrid rank: its peak against the c
 # on (1, 4): a 38.7 s step; x 64: 25.0 s, on an H100 80GB HBM3 at 700 W)
 REC_DRYRUN_LEN, REC_DRYRUN_SHAPE = 64, (1, 2)
 REC_SSM_SHAPE = (2, 8)
+# mamba2-130m and whisper-tiny whole under Policy() (TP over model, FSDP over
+# data).  mamba2's w_in (3352 = 2^3 x 419 columns) and vocab (50280) stay whole
+# over 16 ranks and split over 8; its prefill and decode gates at REC_SSM_BATCH,
+# training at FAM_TRAIN on both meshes.
+SSM_TP_SHAPES = ((1, 16), (2, 8))
+# whisper-tiny's prefill gates (route, (data, model), B, S): 16 rows x 6 kv heads
+# over 16 ranks take the pair route (1 row a rank with its 6 heads), 2 rows a data
+# rank x 6 over 8 do not tile (the gather route); training at FAM_TRAIN (2 rows x
+# 6 over 16, 1 x 6 over 8: the gather route) on both meshes; the bf16 whole
+# prefill on FAM_SHAPE at AUDIO_TP_PREFILL's pair batch, reported
+AUDIO_TP_PREFILL = (("pair", (1, 16), 16, 512), ("gather", (2, 8), 4, 512))
+AUDIO_TP_TRAIN_SHAPES = ((1, 16), (2, 8))
 # The collectives GSPMD puts in the JAX package's jitted prefill for one
 # (rec, rec, attn) block of recurrentgemma-9b on (data, model) = (1, 16) host
 # devices, B 4 x 2048, from ``PYTHONPATH=src python
@@ -5688,19 +5874,26 @@ def _rec_decode_gate(cfg, params, prompts, shape, layout, tag: str, smi) -> dict
     """fp32: the sharded decode loop (REC_DECODE_PROMPT teacher-forced steps, then
     REC_DECODE_STEPS - 1 greedy ones) on ``shape`` under ``layout``: each prompt
     step's logits against the unsharded prefill of the prompt up to that step on
-    the weights in fp64 (the SSM's decode state stays fp32 by design), within
-    ``_gate_bound``'s bound on the unsharded fp32 decode's own distance from
-    it; launches (none) and ``CommStats`` against the closed
-    forms (a prefill's at one token, a step)."""
+    the weights in fp64 (the SSM's decode state stays fp32 by design; the audio
+    family's decode reads its zero cross-attention cache, not the encoder, so
+    against the unsharded decode loop on the weights in fp64, as
+    ``phase_audio``'s), within ``_gate_bound``'s bound on the unsharded fp32
+    decode's own distance from it; launches (none: decode attends without the
+    kernel) and ``CommStats`` against the closed forms (a decode step's, a
+    step)."""
     from repro_torch import tree as tree_lib
     from repro_torch.models import get_model, layers
 
     policy = _fam_policy(cfg, layout)
-    p64 = tree_lib.tree_map(lambda t: t.double(), params)
+    p64 = tree_lib.tree_map(lambda t: t.to(TP_DEVICE, torch.float64), params)
     with torch.no_grad():
-        ex = torch.cat([(get_model(cfg).forward(cfg, p64, prompts[:, :t], return_hidden=True)[0]
-                         [:, -1:] @ layers.unembed(p64)).float()
-                        for t in range(1, prompts.shape[1] + 1)], 1)
+        if cfg.family == "audio":
+            ex = _tp_decode(cfg, None, p64, prompts, 1, policy)[0]
+        else:
+            ex = torch.cat([(get_model(cfg).forward(cfg, p64, prompts[:, :t],
+                                                    return_hidden=True)[0]
+                             [:, -1:] @ layers.unembed(p64)).float()
+                            for t in range(1, prompts.shape[1] + 1)], 1)
     del p64
     torch.cuda.empty_cache()
     plain = _tp_decode(cfg, None, params, prompts, 1, policy)[0]
@@ -5713,7 +5906,7 @@ def _rec_decode_gate(cfg, params, prompts, shape, layout, tag: str, smi) -> dict
     label = f"[{tag}] {cfg.name} {layout} fp32 decode on (data, model) = {shape}"
     launches = _expect_launches(label)
     b, steps = prompts.shape[0], prompts.shape[1] + REC_DECODE_STEPS - 1
-    step = _fam_closed_forms(cfg, policy, shape, b, 1, "prefill")
+    step = _fam_closed_forms(cfg, policy, shape, b, 1, "decode")
     want = {k: ({"calls": v["calls"] * steps, "bytes": v["bytes"] * steps}
                 if isinstance(v, dict) else v) for k, v in step.items()}
     stats = _tp_step_stats_check(label, mesh, want)
@@ -5721,8 +5914,10 @@ def _rec_decode_gate(cfg, params, prompts, shape, layout, tag: str, smi) -> dict
     route = _route_of(cfg, policy, shape, b)
     line = (f"{label}, batch {b}: {prompts.shape[1]} teacher-forced and "
             f"{REC_DECODE_STEPS - 1} greedy steps ({route}), {sec * 1e3:.1f} ms a step; the "
-            f"prompt steps' logits vs the fp64 prefills rel_l2 {err:.3e} (tol max({FP32_TOL}, "
-            f"{REC_FLOOR_FACTOR} x the unsharded fp32 decode's {floor:.3e})); tokens "
+            f"prompt steps' logits vs the fp64 "
+            f"{'decode loop' if cfg.family == 'audio' else 'prefills'} rel_l2 {err:.3e} (tol "
+            f"max({FP32_TOL}, {REC_FLOOR_FACTOR if cfg.family in RECURRENT else 1} x the "
+            f"unsharded fp32 decode's {floor:.3e})); tokens "
             f"{toks[0].tolist()}; launches "
             f"{launches}; CommStats a rank {json.dumps(stats)} (closed forms, {steps} steps)")
     log(line + f" [{smi}]")
@@ -5746,6 +5941,42 @@ def _block_collectives(cfg, shape, batch: int, seq: int, dtype) -> str:
                      for k in ("psum", "all_gather", "all_to_all", "reduce_scatter"))
 
 
+def _rec_ssm(smi) -> dict:
+    """mamba2-130m whole in ``phase_tp_recurrent``: the fp32 gates under its
+    ``default_policy``, ``layout="fsdp"`` and ``Policy()``
+    (the phase's docstring)."""
+    from repro_torch.configs import get_config
+
+    out = {}
+    cfg = get_config(SSM_ARCH)
+    params, _ = _load_model(cfg, "tp-ssm", torch.float32)
+    batch = _fam_batch(cfg, *REC_SSM_BATCH)
+    out["ssm_prefill"] = {layout: _fam_prefill_gate(cfg, params, {
+        k: v for k, v in batch.items() if k != "labels"}, REC_SSM_SHAPE, layout, "tp-ssm", smi)
+        for layout in ("2d", "fsdp")}
+    prompts = batch["tokens"][:, :REC_DECODE_PROMPT].contiguous()
+    out["ssm_decode"] = {layout: _rec_decode_gate(cfg, params, prompts, REC_SSM_SHAPE, layout,
+                                                  "tp-ssm", smi) for layout in ("2d", "fsdp")}
+    # -- mamba2-130m under Policy(): w_in and the vocab whole over model on (1, 16)
+    # and split on (2, 8)
+    out["ssm_tp_prefill"] = {f"{d}x{m}": _fam_prefill_gate(cfg, params, {
+        k: v for k, v in batch.items() if k != "labels"}, (d, m), "tp", "tp-ssm", smi)
+        for d, m in SSM_TP_SHAPES}
+    out["ssm_tp_decode"] = _rec_decode_gate(cfg, params, prompts, SSM_TP_SHAPES[0], "tp",
+                                            "tp-ssm", smi)
+    out["ssm_train"] = _fam_train_gate(cfg, params, batch,
+                                       [("auto", REC_SSM_SHAPE, layout)
+                                        for layout in ("2d", "fsdp")], "tp-ssm", smi)
+    del batch
+    _fam_free()
+    out["ssm_tp_train"] = _fam_train_gate(cfg, params, _fam_batch(cfg, *FAM_TRAIN),
+                                          [("auto", shape, "tp") for shape in SSM_TP_SHAPES],
+                                          "tp-ssm", smi)
+    del params
+    _fam_free()
+    return out
+
+
 def phase_tp_recurrent(smi) -> dict:
     """The sharded layout of the SSM and hybrid families on 16 rank threads of the
     card (``parallel/tensor_parallel.py``), each rank computing from its blocks
@@ -5763,7 +5994,11 @@ def phase_tp_recurrent(smi) -> dict:
       (reported: bf16 at depth is chaotic);
     * mamba2-130m whole under its ``default_policy`` (``tp=False``) and
       ``layout="fsdp"`` on (2, 8), 16 x 512: the prefill, decode and training
-      gates.
+      gates;
+    * mamba2-130m whole under ``Policy()`` (each rank on
+      P / n channels of every head, ``w_in`` and the vocab whole over 16 ranks and
+      split over 8): the prefill gates at 16 x 512 on SSM_TP_SHAPES, the decode
+      gate on (1, 16), the training gate at FAM_TRAIN on both meshes.
 
     Gates as ``phase_tp_families``'; no launch on any path; ``CommStats`` a rank
     against the closed forms (``_fam_closed_forms``), GSPMD's collectives for the
@@ -5811,21 +6046,8 @@ def phase_tp_recurrent(smi) -> dict:
     out["hybrid_block_collectives"] = {"port": port, "gspmd": GSPMD_HYBRID_BLOCK}
     part("hybrid_bf16")
 
-    # -- mamba2-130m whole under both tp=False layouts
-    cfg = get_config(SSM_ARCH)
-    params, _ = _load_model(cfg, "tp-ssm", torch.float32)
-    batch = _fam_batch(cfg, *REC_SSM_BATCH)
-    out["ssm_prefill"] = {layout: _fam_prefill_gate(cfg, params, {
-        k: v for k, v in batch.items() if k != "labels"}, REC_SSM_SHAPE, layout, "tp-ssm", smi)
-        for layout in ("2d", "fsdp")}
-    prompts = batch["tokens"][:, :REC_DECODE_PROMPT].contiguous()
-    out["ssm_decode"] = {layout: _rec_decode_gate(cfg, params, prompts, REC_SSM_SHAPE, layout,
-                                                  "tp-ssm", smi) for layout in ("2d", "fsdp")}
-    out["ssm_train"] = _fam_train_gate(cfg, params, batch,
-                                       [("auto", REC_SSM_SHAPE, layout)
-                                        for layout in ("2d", "fsdp")], "tp-ssm", smi)
-    del params, batch
-    _fam_free()
+    # -- mamba2-130m whole under both tp=False layouts and under Policy()
+    out.update(_rec_ssm(smi))
     part("ssm")
     out["s"] = time.perf_counter() - t_phase
     log(f"[tp-recurrent] phase {out['s']:.1f}s: "
@@ -5927,7 +6149,18 @@ def main() -> int:
              **{f"prefill_fsdp_ssm_{k}": r["launches"] for k, r in tp_rec["ssm_prefill"].items()},
              **{f"decode_fsdp_ssm_{k}": r["launches"] for k, r in tp_rec["ssm_decode"].items()},
              **{f"train_fsdp_ssm_{k}": r["launches"]
-                for k, r in tp_rec["ssm_train"]["runs"].items()}}
+                for k, r in tp_rec["ssm_train"]["runs"].items()},
+             **{f"prefill_tp_audio_fp32_{k}": r["launches"]
+                for k, r in tp_fam["audio_tp_prefill"].items()},
+             "decode_tp_audio_fp32": tp_fam["audio_tp_decode"]["launches"],
+             **{f"train_tp_audio_{k}": r["launches"]
+                for k, r in tp_fam["audio_tp_train"]["runs"].items()},
+             "prefill_tp_audio": tp_fam["audio_tp_bf16"]["pair"]["launches"],
+             **{f"prefill_tp_ssm_fp32_{k}": r["launches"]
+                for k, r in tp_rec["ssm_tp_prefill"].items()},
+             "decode_tp_ssm_fp32": tp_rec["ssm_tp_decode"]["launches"],
+             **{f"train_tp_ssm_{k}": r["launches"]
+                for k, r in tp_rec["ssm_tp_train"]["runs"].items()}}
     for tag, fam in (("ssm", ssm), ("hybrid", hybrid), ("vlm", vlm), ("audio", audio)):
         paths.update({f"prefill_{tag}": fam["launches"], f"serve_{tag}": fam["serve"]["launches"],
                       f"train_{tag}": fam["train"]["launches"]})

@@ -9,16 +9,17 @@ stacked on a leading axis under ``params["layers"]``), so
 attention, so ``forward`` accepts ``use_kernel`` and ignores it, as the JAX
 ``forward`` does through ``**_``.
 
-The family runs sharded under a ``tp=False`` policy (its ``default_policy``,
-and ``layout="fsdp"``): given the rank's ``Comm`` as ``act_specs["mesh"]`` and
+The family runs sharded: given the rank's ``Comm`` as ``act_specs["mesh"]`` and
 the ``Policy`` as ``act_specs["policy"]``, ``forward``, ``init_cache`` and
 ``decode_step`` run one rank's rows on its blocks of the parameters
-(``parallel/tensor_parallel.py``): each layer's FSDP leaves (``w_in``'s rows,
-``w_out``'s columns) all-gathered over ``data`` as it runs and ``_mix`` on the
-whole weights, the embedding and unembedding gathered the same way.  The
-decode state is the rank's rows' whole state, where JAX's ``cache_specs``
-splits the SSM state's P and the conv channels over ``model``.  A ``tp=True``
-policy raises (ROADMAP item 14.5).
+(``parallel/tensor_parallel.py``), each layer's FSDP leaves (``w_in``'s rows,
+``w_out``'s columns) all-gathered over ``data`` as it runs, the embedding and
+unembedding gathered the same way (vocab-parallel where a ``tp=True`` policy
+splits the vocab).  Under a ``tp=False`` policy (its ``default_policy``, and
+``layout="fsdp"``) ``_mix`` runs on the whole weights and the decode state is
+the rank's rows' whole state.  Under a ``tp=True`` one ``_mix`` runs on the
+rank's P / n channels of every head (``_rank_weights``), and the decode state
+is ``cache_specs``' block: the SSM state's P / n and the conv's channel block.
 """
 
 from __future__ import annotations
@@ -65,12 +66,17 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, dtype=torch.bfloat16):
 
 
 def _segsum(x: torch.Tensor) -> torch.Tensor:
-    """Stable segment-sum: out[..., i, j] = sum_{k=j+1..i} x[..., k]; -inf above the diagonal."""
+    """Segment sums: out[..., i, j] = sum_{k=j+1..i} x[..., k] (0 on the diagonal);
+    -inf above the diagonal.  Each is summed on its own, a cumulative sum of x
+    masked to k > j, where the JAX version subtracts two cumulative sums of the
+    whole chunk: the decays dt·A add up to thousands over a chunk, and their
+    difference keeps float32's absolute error at that scale, which the SSD's
+    exponentials then amplify."""
     t = x.shape[-1]
-    c = torch.cumsum(x, dim=-1)
-    out = c[..., :, None] - c[..., None, :]
-    mask = torch.tril(torch.ones((t, t), dtype=torch.bool, device=x.device))
-    return torch.where(mask, out, -torch.inf)
+    low = torch.tril(torch.ones((t, t), dtype=torch.bool, device=x.device), diagonal=-1)
+    out = torch.cumsum(x[..., None].expand(*x.shape, t).masked_fill(~low, 0), dim=-2)
+    keep = torch.tril(torch.ones((t, t), dtype=torch.bool, device=x.device))
+    return out.masked_fill(~keep, -torch.inf)
 
 
 def ssd_chunked(x, dt, A, B, C, chunk: int, init_state=None):
@@ -79,7 +85,12 @@ def ssd_chunked(x, dt, A, B, C, chunk: int, init_state=None):
 
     Computed in float32 (float64 for float64 x).  The JAX version's four-operand einsum
     ``bcln,bcsn,bchls,bcshp->bclhp`` runs as C·Bᵀ, times the decay matrix,
-    times x·dt, so no (b, c, h, l, s, p) intermediate is formed.
+    times x·dt, so no (b, c, h, l, s, p) intermediate is formed.  The decays
+    within a chunk are sums of their own terms (``_segsum``), not differences
+    of cumulative sums as in JAX: the same function, at float32's relative
+    error rather than at its error on the chunk's whole decay (mamba2-130m at 4
+    layers, 1 x 512 tokens, on the CPU: the fp32 gradient 9.1e-3 from fp64
+    (relative L2) with the differences, 3.7e-5 without).
     """
     b, s, h, p = x.shape
     n = B.shape[-1]
@@ -105,8 +116,10 @@ def ssd_chunked(x, dt, A, B, C, chunk: int, init_state=None):
     scores = torch.einsum("bcln,bcsn->bcls", Cr, Br)  # (b,nc,q,q)
     y_diag = torch.einsum("bchls,bcshp->bclhp", scores[:, :, None] * Lmat, xdt)
 
-    # 2) chunk states
-    decay_states = torch.exp(dA_cs[:, :, -1:, :] - dA_cs)  # (b,nc,q,h)
+    # 2) chunk states; the decay from each position to the chunk's end,
+    # exp(sum_{k>l} dA_k), summed from the end (as _segsum, not a difference)
+    rev = torch.cumsum(dA.flip(2), dim=2).flip(2)  # sum_{k>=l} dA_k
+    decay_states = torch.exp(F.pad(rev[:, :, 1:], (0, 0, 0, 1)))  # (b,nc,q,h)
     states = torch.einsum("bclhp,bcln->bchpn", (decay_states * dtr)[..., None] * xr, Br)
 
     # 3) inter-chunk recurrence
@@ -129,19 +142,63 @@ def ssd_chunked(x, dt, A, B, C, chunk: int, init_state=None):
     return y.to(x.dtype), prev
 
 
-def _mix(cfg: ArchConfig, lp, x, conv_state=None, ssm_state=None, single_step=False):
-    """One mamba2 mixing layer. Returns (y, new_conv_state, new_ssm_state)."""
+def _rank_weights(cfg: ArchConfig, tp, lp):
+    """The rank's share of a layer's weights (FSDP undone) under a ``tp=True``
+    view, and the indices of its channels among d_inner: P / n of every head's
+    (head h, its channels h·P + index·P / n + j).  ``w_in`` and ``w_out`` are read
+    whole (``TensorParallel.read``) and the rank takes ``w_in``'s columns of its z
+    channels, of its block of the conv channels (``conv_w``'s block; all of them
+    where ``conv_w`` is whole over ``model``) and every head's dt, and
+    ``w_out``'s rows of its channels.  ``conv_w`` where whole, ``A_log``, ``D`` and
+    ``dt_bias`` enter through ``pvary``: the rank reads them for its channels
+    only, so their gradients sum over ``model``."""
+    di, h, p, n = dims(cfg)
+    plan = tp.plan.stack("layers")
+    pl = p // tp.n
+    dev = lp["w_in"].device
+    ch = (torch.arange(h, device=dev)[:, None] * p + tp.index * pl
+          + torch.arange(pl, device=dev)).reshape(-1)
+    c = lp["conv_w"].shape[-1]
+    lo = di + (tp.index * c if plan["conv_w"].split[1] else 0)
+    cols = torch.cat([ch, torch.arange(lo, lo + c, device=dev),
+                      torch.arange(2 * di + 2 * n, 2 * di + 2 * n + h, device=dev)])
+    return {
+        "norm": lp["norm"],
+        "w_in": tp.read(lp["w_in"], plan["w_in"])[:, cols],
+        "conv_w": lp["conv_w"] if plan["conv_w"].split[1] else tp.pvary(lp["conv_w"]),
+        **{k: tp.pvary(lp[k]) for k in ("A_log", "D", "dt_bias")},
+        "w_out": tp.read(lp["w_out"], plan["w_out"])[ch],
+    }, ch
+
+
+def _mix(cfg: ArchConfig, lp, x, conv_state=None, ssm_state=None, single_step=False,
+         tp=None):
+    """One mamba2 mixing layer. Returns (y, new_conv_state, new_ssm_state).
+
+    With ``tp`` (a view that splits over ``model``) ``x`` is replicated over
+    ``model`` and the layer runs on the rank's channels (``_rank_weights``): the
+    conv on its block of the conv channels, all-gathered over ``model`` after the
+    silu, the scan on its x channels with the whole B and C, the states the
+    rank's, the output its rows' part summed over ``model``."""
     b, s, d = x.shape
     di, h, p, n = dims(cfg)
+    ch = None
+    if tp is not None:  # x is replicated over model; the rank's columns give a part of d(x)
+        lp, ch = _rank_weights(cfg, tp, lp)
+        x = tp.pvary(x)
     proj = x @ lp["w_in"]
-    z, xin, Bm, Cm, dt = torch.split(proj, [di, di, n, n, h], dim=-1)
-    conv_in = torch.cat([xin, Bm, Cm], dim=-1)
+    c = lp["conv_w"].shape[-1]
+    z, conv_in, dt = torch.split(proj, [proj.shape[-1] - c - h, c, h], dim=-1)
     conv_out, new_conv = L.causal_conv1d(conv_in, lp["conv_w"], conv_state)
     conv_out = F.silu(conv_out)
+    if tp is not None and c < di + 2 * n:  # the rank's block -> every conv channel
+        conv_out = tp.all_columns(conv_out)
     xc, Bc, Cc = torch.split(conv_out, [di, n, n], dim=-1)
+    if ch is not None:
+        xc = xc[..., ch]
     dt = F.softplus(dt.float() + lp["dt_bias"])
     A = -torch.exp(lp["A_log"])
-    xh = xc.reshape(b, s, h, p)
+    xh = xc.reshape(b, s, h, -1)
     if single_step:
         # recurrent step: state' = exp(dt*A) state + dt * B ⊗ x, in float32
         dA = torch.exp(dt[:, 0] * A)  # (b,h)
@@ -151,18 +208,20 @@ def _mix(cfg: ArchConfig, lp, x, conv_state=None, ssm_state=None, single_step=Fa
     else:
         y, new_state = ssd_chunked(xh, dt, A, Bc, Cc, cfg.ssm_chunk, ssm_state)
     y = y + lp["D"][None, None, :, None] * xh[:, :s]  # float32, as JAX promotes
-    y = y.reshape(b, s, di).to(x.dtype)
+    y = y.reshape(b, s, -1).to(x.dtype)
     y = y * F.silu(z)
-    return y @ lp["w_out"], new_conv, new_state
+    out = y @ lp["w_out"]
+    return (out if tp is None else tp.sum(out)), new_conv, new_state
 
 
 def _layer(cfg: ArchConfig, lp, h, aux, positions=None, enc=None, use_kernel=False, tp=None):
     """One residual layer of ``layer_sequence``: (h, aux) -> (h + mix(norm(h)), aux);
-    with ``tp`` ``lp`` holds the rank's blocks, all-gathered over ``data`` here."""
+    with ``tp`` ``lp`` holds the rank's blocks, all-gathered over ``data`` here,
+    and the mix runs on the rank's channels under a ``tp=True`` view."""
     if tp is not None:
         lp = tp.layer(lp)
     a = L.apply_norm(h, lp["norm"], cfg.norm_type)
-    y, _, _ = _mix(cfg, lp, a)
+    y, _, _ = _mix(cfg, lp, a, tp=None if tp is None else tp.model_view)
     return h + y, aux
 
 
@@ -194,10 +253,18 @@ def forward(cfg: ArchConfig, params, tokens: torch.Tensor, remat: bool = True, a
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16, device=None,
                act_specs=None):
     """Constant-size state: conv tail + SSM state per layer (``max_len`` is not
-    needed).  With a sharded ``act_specs`` the rank's rows' whole state."""
-    tp_lib.context(cfg, act_specs)  # raises for a policy the family does not hold
+    needed).  With a sharded ``act_specs`` the rank's rows' state: whole under a
+    ``tp=False`` policy, under a ``tp=True`` one ``cache_specs``' block (P / n of
+    every head's SSM state, the conv's channel block where ``model`` divides the
+    conv channels)."""
+    tp = tp_lib.context(cfg, act_specs)
+    split = None if tp is None else tp.model_view
     di, h, p, n = dims(cfg)
     conv_ch = di + 2 * n
+    if split is not None:
+        p //= split.n
+        if conv_ch % split.n == 0:
+            conv_ch //= split.n
     return {
         "conv": torch.zeros((cfg.n_layers, batch, cfg.conv_width - 1, conv_ch), dtype=dtype,
                             device=device),
@@ -212,9 +279,11 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, positions=None, act_spec
     As ``transformer.decode_step``, the new states are written into the
     cache passed in, which is the one returned, and ``cache["len"]`` is a
     Python int.  With a sharded ``act_specs`` ``params`` are the rank's blocks,
-    ``tokens`` its rows and ``cache`` its ``init_cache``.
+    ``tokens`` its rows and ``cache`` its ``init_cache``; the logits are the whole
+    vocab's on every rank along ``model``.
     """
     tp = tp_lib.context(cfg, act_specs)
+    split = None if tp is None else tp.model_view
     if tp is not None:
         tp.check(params)
     x = params["embed"][tokens.long()] if tp is None else tp.embed(params, tokens)
@@ -223,7 +292,7 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, positions=None, act_spec
             lp = tp.layer(lp)
         a = L.apply_norm(x, lp["norm"], cfg.norm_type)
         y, new_conv, new_ssm = _mix(cfg, lp, a, cache["conv"][i], cache["ssm"][i],
-                                    single_step=True)
+                                    single_step=True, tp=split)
         cache["conv"][i].copy_(new_conv)
         cache["ssm"][i].copy_(new_ssm)
         x = x + y

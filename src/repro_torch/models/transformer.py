@@ -25,11 +25,12 @@ The four families also run sharded: given the rank's ``Comm`` as
 parameters (``parallel/tensor_parallel.py``), through the same
 ``decoder_layer``, ``_attn_block``, ``_mlp_block`` and encoder, where JAX's
 jitted steps leave the split to GSPMD; under autograd too (training,
-``train/steps.py``).  Under a ``tp=True`` policy (dense, MoE, VLM) the layers
-split over ``model`` (the MoE's experts on d_ff, ``moe.moe_apply_tp``, or under
-``moe_mode`` "ep" and "gshard" on E: ``_moe_view``); under a ``tp=False`` one
-(every family here, audio included) they gather their FSDP leaves and run whole,
-but for EP, which cuts the rank's E / n experts.
+``train/steps.py``).  Under a ``tp=True`` policy the layers split over
+``model`` (the MoE's experts on d_ff, ``moe.moe_apply_tp``, or under
+``moe_mode`` "ep" and "gshard" on E: ``_moe_view``; the audio family's encoder
+and decoder self-attention and gelu MLPs alike, its cross-attention whole on
+every rank); under a ``tp=False`` one they gather their FSDP leaves and run
+whole, but for EP, which cuts the rank's E / n experts.
 """
 
 from __future__ import annotations
@@ -479,14 +480,16 @@ def encoder_embed(cfg: ArchConfig, enc, frames, tp=None):
 def encoder_layer(cfg: ArchConfig, lp, h, tp=None):
     """One encoder layer on its (unstacked) weights ``lp``: non-causal
     self-attention (plain, never the kernel, as in JAX) and a gelu MLP.  With
-    ``tp`` (a ``tp=False`` view: the audio family has no split over ``model``)
-    ``lp`` holds the rank's blocks, all-gathered over ``data`` here."""
+    ``tp`` ``lp`` holds the rank's blocks, all-gathered over ``data`` here; under a
+    ``tp=True`` view both split over ``model`` as the decoder's do."""
+    split_tp = None if tp is None else tp.model_view
     if tp is not None:
         lp = tp.layer(lp, "encoder.layers")
     a = L.apply_norm(h, lp["attn_norm"], cfg.norm_type)
-    h = h + _attn_block(cfg, lp, a, _positions_default(h), causal=False, window=0)
+    h = h + _attn_block(cfg, lp, a, _positions_default(h), causal=False, window=0,
+                        tp=split_tp)
     m = L.apply_norm(h, lp["mlp_norm"], cfg.norm_type)
-    return h + _mlp_block(cfg, lp, m)
+    return h + _mlp_block(cfg, lp, m, split_tp)
 
 
 def _encoder_forward(cfg: ArchConfig, enc, frames, checkpointed: bool, tp=None):
@@ -514,7 +517,8 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
     which stay zero, as in JAX (``decode_step``).  With a sharded ``act_specs``
     (``forward``) the rank's cache of its ``batch`` rows: under a ``tp=True``
     policy's pair route (L, rows, max_len, kv heads, hd) of its share, else every
-    kv head (``tensor_parallel``)."""
+    kv head (``tensor_parallel``); ``xk``/``xv`` under a ``tp=True`` policy
+    ``cache_specs``' block (``TensorParallel.cross_cache_shape``)."""
     hd = cfg.kq_head_dim
     tp = tp_lib.context(cfg, act_specs)
     split_tp = None if tp is None else tp.model_view
@@ -526,7 +530,8 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
         "len": 0,
     }
     if cfg.enc_layers:
-        xshape = (cfg.n_layers, batch, cfg.enc_seq, cfg.n_kv_heads, hd)
+        xshape = ((cfg.n_layers, batch, cfg.enc_seq, cfg.n_kv_heads, hd) if split_tp is None
+                  else split_tp.cross_cache_shape(cfg.n_layers, batch))
         cache["xk"] = torch.zeros(xshape, dtype=dtype, device=device)
         cache["xv"] = torch.zeros(xshape, dtype=dtype, device=device)
     return cache
@@ -548,7 +553,9 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, positions=None, act_spec
 
     The audio family's cross-attention reads ``cache["xk"]``/``cache["xv"]``,
     which nothing fills (neither here nor in JAX): its softmax over zero
-    scores averages zero values, so each layer adds ``0 @ xwo``.
+    scores averages zero values, so each layer adds ``0 @ xwo``.  Under a
+    ``tp=True`` policy it runs on the rank's block of them
+    (``TensorParallel.cross_decode``).
 
     With a sharded ``act_specs`` (``forward``) ``params`` are the rank's blocks,
     ``tokens`` its rows and ``cache`` its ``init_cache``; the logits are the
@@ -597,9 +604,13 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, positions=None, act_spec
             x = x + split_tp.sum(split_tp.columns(o, b) @ lp["wo"])
         if cfg.enc_layers:
             xa = L.apply_norm(x, lp["xattn_norm"], cfg.norm_type)
-            qx = (xa @ lp["xwq"]).reshape(b, 1, h_, hd)
-            o = L.attention_decode(qx, cache["xk"][i], cache["xv"][i], cfg.enc_seq)
-            x = x + o.reshape(b, 1, h_ * hd) @ lp["xwo"]
+            xk, xv = cache["xk"][i], cache["xv"][i]
+            if split_tp is None:
+                qx = (xa @ lp["xwq"]).reshape(b, 1, h_, hd)
+                o = L.attention_decode(qx, xk, xv, cfg.enc_seq)
+                x = x + o.reshape(b, 1, h_ * hd) @ lp["xwo"]
+            else:
+                x = x + split_tp.cross_decode(xa, lp["xwq"], lp["xwo"], xk, xv)
         m = L.apply_norm(x, lp["mlp_norm"], cfg.norm_type)
         if cfg.family == "moe" and tp is not None:
             y, _ = _moe_view(cfg, tp, lp["moe"], m, decode=True)

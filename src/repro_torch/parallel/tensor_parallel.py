@@ -10,7 +10,7 @@ step on its own blocks of the parameters, under
 ``"policy"``.  A family's layers lie in stacks (``stacks``: the transformer's
 ``layers``, the hybrid's ``blocks.rec``, ``blocks.attn`` and ``tail``), each
 leaf of a stack holding a layer on its leading axis.  Under a ``tp=True``
-policy (the dense, MoE, VLM and hybrid families) a layer runs as Megatron's:
+policy (every family) a layer runs as Megatron's:
 
 * FSDP: a leaf whose spec splits a dimension over ``data`` is all-gathered
   along it when its layer runs (``Comm.all_gather``), one layer at a time, as
@@ -72,6 +72,25 @@ policy (the dense, MoE, VLM and hybrid families) a layer runs as Megatron's:
   ``pvary``, whose transpose sums the ranks' parts of its gradient over
   ``model`` (every other whole leaf, a norm scale, gets its whole gradient on
   every model rank);
+* the SSM layer (``models/mamba2.py``): ``ssd_chunked`` is channel-local given
+  its head's dt and A and the shared B and C, so a rank runs it on P / n of
+  every head's channels, the split ``cache_specs`` gives the SSM state (its
+  (B, H, P / n, N) block).  ``w_in`` (z | x | B | C | dt) may be whole or split
+  over ``model`` (3352 = 2^3 x 419 columns), so it is read whole
+  (``TensorParallel.read``: all-gathered over ``model`` where split, through
+  ``pvary`` where whole), and the rank projects its z channels, its block of
+  the conv channels (``conv_w``'s block, ``cache_specs``' conv state) and every
+  head's dt; the conv output is all-gathered over ``model`` (``all_columns``)
+  and the rank takes its x channels and the whole B and C; ``w_out``'s rows
+  for its channels come from ``w_out`` read whole (on (1, 16) a rank's 96
+  rows at rest are 1.5 heads), and the layer ends in the row sum.  ``A_log``,
+  ``D`` and ``dt_bias`` are whole and read with the rank's channels: through
+  ``pvary``;
+* the audio family's gelu MLP (``TensorParallel.mlp``): ``w_up`` and the rank's
+  columns of the whole ``b_up`` (through ``pvary``), gelu, ``w_down``, the row
+  sum, then ``b_down`` once after it.  Its cross-attention runs on the whole
+  ``x*`` weights (no rule of ``param_specs`` splits them) on every rank; in
+  decode on the rank's block of the cross-attention cache (``cross_decode``);
 * ``wo``, ``w_down``, ``w_out`` row-parallel: the rank's rows, then a sum over ``model``
   built as a ring all-reduce is: a ``Comm.reduce_scatter`` of the flat
   partial (an all-to-all and a sum in group order in float32), then an
@@ -97,7 +116,8 @@ Decode keeps a cache of the rank's rows and kv heads only: under the pair route
 (L, rows, S, kv_heads, hd), the bytes of ``cache_specs``' block, laid out by
 (row, kv head) where ``cache_specs`` splits head_dim when the kv heads do not
 divide ``model``; under the gather route (L, B_local, S, KV, hd), ``model``
-times those bytes.
+times those bytes.  The audio family's cross-attention cache, the SSM state and
+the conv states are ``cache_specs``' blocks.
 
 Training.  Each exchange has the backward that matches how its output is used
 (Megatron's *f* and *g*; a wrong one is off by a factor of ``model`` or
@@ -149,10 +169,6 @@ over ``model``; with ``layout="fsdp"`` (``data_axes=("data", "model")``)
 over ``data`` only, and ``sum_over_data`` sums each leaf's gradient over the
 data axes that leave it whole.  The audio family's encoder layers are gathered
 the same way.
-
-Not ported, each raising with its ROADMAP item (``_unported``): the SSM family
-under a ``tp=True`` policy (14.5: ``param_specs`` gives it no Megatron layout)
-and the audio family under one (14.6).
 """
 
 from __future__ import annotations
@@ -173,14 +189,11 @@ from repro_torch.parallel import sharding as shard_lib
 
 def context(cfg: ArchConfig, act_specs) -> TensorParallel | None:
     """The rank's ``TensorParallel`` when ``act_specs`` asks for it (a ``"policy"``
-    that splits, ``_splits``, and the rank's ``Comm`` as ``"mesh"``), else None."""
+    that splits, ``sharded``, and the rank's ``Comm`` as ``"mesh"``), else None."""
     act_specs = act_specs or {}
     policy = act_specs.get("policy")
-    if policy is None or not _splits(policy):
+    if policy is None or not sharded(cfg, policy):
         return None
-    unported = _unported(cfg, policy)
-    if unported:
-        raise ValueError(f"{cfg.name}: {unported}")
     comm = act_specs.get("mesh")
     if not isinstance(comm, Comm):
         raise ValueError(f"{cfg.name}: a sharded policy needs the rank's core.comm Comm as "
@@ -188,9 +201,11 @@ def context(cfg: ArchConfig, act_specs) -> TensorParallel | None:
     if policy.model_axis not in comm.mesh.shape:
         raise ValueError(f"{cfg.name}: the mesh {comm.mesh.axis_names} has no "
                          f"{policy.model_axis!r} axis")
-    if policy.tp and (cfg.act != "swiglu" or cfg.rope_type not in ("rope", "mrope")):
-        raise ValueError(f"{cfg.name}: tensor parallelism takes SwiGLU and RoPE or M-RoPE")
     n = comm.axis_size(policy.model_axis)
+    if policy.tp and cfg.family == "ssm" and cfg.ssm_head_dim % n:
+        raise ValueError(f"{cfg.name}: a rank runs the SSM on P / {n} channels of every head "
+                         f"(cache_specs' split of the state), and P = {cfg.ssm_head_dim} does "
+                         f"not divide by {n}")
     if cfg.family == "moe" and cfg.moe_mode == "ep" and cfg.n_experts % n:
         raise ValueError(f"{cfg.name}: moe_mode='ep' splits the {cfg.n_experts} experts over "
                          f"the {n} ranks of {policy.model_axis!r}, and {cfg.n_experts} does not "
@@ -198,32 +213,12 @@ def context(cfg: ArchConfig, act_specs) -> TensorParallel | None:
     return TensorParallel(cfg, comm, policy, manual_data=bool(act_specs.get("manual_data")))
 
 
-def _unported(cfg: ArchConfig, policy) -> str | None:
-    """Why ``cfg`` has no sharded path under ``policy``, or None."""
-    if cfg.family == "ssm" and policy.tp:
-        return ("the SSM family under a tp=True policy is ROADMAP item 14.5: param_specs "
-                "gives it no Megatron layout (w_in's z | x | B | C | dt columns, "
-                "2 d_inner + 2 d_state + n_heads of them, stay whole where they do not "
-                "divide model, and conv_w's channels split across the x | B | C boundary); "
-                "its default_policy has tp=False")
-    if cfg.family == "audio" and policy.tp:
-        return ("the audio family under a tp=True policy is ROADMAP item 14.6 (its gelu "
-                "MLP with biases and learned positions are not the SwiGLU and RoPE the "
-                "Megatron layer takes; its default_policy has tp=False)")
-    return None
-
-
-def _splits(policy) -> bool:
-    """Whether ``policy`` splits the parameters: over ``model`` (TP) or over
-    ``data`` (FSDP).  A policy that splits neither runs the whole model on a rank."""
-    return policy.tp or policy.fsdp
-
-
 def sharded(cfg: ArchConfig, policy) -> bool:
-    """Whether ``context`` gives a rank of ``cfg`` under ``policy`` a view (where it
-    returns None this is False, and where it raises, a family the path does not
-    hold, too)."""
-    return _splits(policy) and _unported(cfg, policy) is None
+    """Whether ``context`` gives a rank of ``cfg`` under ``policy`` a view: whether
+    ``policy`` splits the parameters, over ``model`` (TP) or over ``data`` (FSDP).
+    A policy that splits neither runs the whole model on a rank; every family
+    takes either split."""
+    return policy.tp or policy.fsdp
 
 
 class _Leaf:
@@ -254,7 +249,8 @@ def _stacked(name: str, paths) -> bool:
 
 # the products of a layer split over ``model`` under a tp=True policy, and the
 # dimension of the layer's block split there: the column-parallel ones (and the
-# hybrid's conv taps, on their channels) on 1, the row-parallel ones on 0
+# hybrid's conv taps, on their channels) on 1, the row-parallel ones on 0 (the
+# SSM layer reads its leaves whole or split alike: ``TensorParallel.read``)
 _SPLIT_DIM = {**dict.fromkeys(("wq", "wk", "wv", "w_gate", "w_up", "w_gate_in", "w_x_in",
                                "w_a", "w_i", "conv_w"), 1),
               **dict.fromkeys(("wo", "w_down", "w_out"), 0)}
@@ -307,7 +303,7 @@ class _Plan:
         if self.slice_experts:
             for name in ("w_gate", "w_up", "w_down"):
                 moe[name].expert = True
-        if policy.tp:  # the column- and row-parallel products need their split
+        if policy.tp and cfg.family != "ssm":  # column and row products need their split
             want = []
             for path in paths:
                 layer = self.stack(path)
@@ -563,10 +559,32 @@ class TensorParallel:
         parts = self.gather(x, self.axis)  # (n, ..., c)
         return parts.movedim(0, -2).reshape(*x.shape[:-1], -1)
 
+    def read(self, t: torch.Tensor, leaf: _Leaf) -> torch.Tensor:
+        """A leaf's block ``t`` (FSDP undone) as the whole leaf, for a rank that
+        reads a part of it of its own choosing: all-gathered over ``model`` along
+        the dimension its spec splits there (the transpose reduce-scatters the
+        ranks' parts of the gradient to the blocks), or where it is whole over
+        ``model`` through ``pvary`` (the transpose psums them)."""
+        if True not in leaf.split:
+            return self.pvary(t)
+        dim = leaf.split.index(True)
+        parts = self.gather(t, self.axis)  # (n, *block)
+        shape = list(t.shape)
+        shape[dim] *= self.n
+        return parts.movedim(0, dim).reshape(shape)
+
     def mlp(self, lp: dict, x: torch.Tensor) -> torch.Tensor:
-        """SwiGLU on the rank's columns of ``w_gate``/``w_up`` and rows of
-        ``w_down``, summed over ``model``."""
-        return self.sum(L.swiglu(self.pvary(x), lp["w_gate"], lp["w_up"], lp["w_down"]))
+        """The MLP on the rank's columns of ``w_gate``/``w_up`` and rows of
+        ``w_down``, summed over ``model``: SwiGLU, or gelu with the rank's columns
+        of ``b_up`` (whole, so through ``pvary``) and ``b_down`` added once, after
+        the sum."""
+        x = self.pvary(x)
+        if "w_gate" in lp:
+            return self.sum(L.swiglu(x, lp["w_gate"], lp["w_up"], lp["w_down"]))
+        c = lp["w_up"].shape[-1]
+        b_up = self.pvary(lp["b_up"])[self.index * c:(self.index + 1) * c]
+        h = torch.nn.functional.gelu(x @ lp["w_up"] + b_up, approximate="tanh")
+        return self.sum(h @ lp["w_down"]) + lp["b_down"]
 
     # -- attention: the rank's columns <-> whole heads -------------------------
 
@@ -616,6 +634,52 @@ class TensorParallel:
         """(rows, kv heads) of the rank's cache for a batch of ``batch`` rows."""
         hs = self.split(batch)
         return (batch, self.cfg.n_kv_heads) if hs is None else (hs.rows, hs.kv_heads)
+
+    def cross_split(self) -> str | None:
+        """How ``cache_specs`` splits the cross-attention cache (L, B, S, KV, hd)
+        over ``model``: ``"heads"`` where the kv heads divide it, else
+        ``"head_dim"`` where head_dim does, else None (whole)."""
+        if self.cfg.n_kv_heads % self.n == 0:
+            return "heads"
+        return "head_dim" if self.cfg.kq_head_dim % self.n == 0 else None
+
+    def cross_cache_shape(self, layers: int, batch: int) -> tuple[int, ...]:
+        """The rank's block of the cross-attention cache for ``batch`` rows."""
+        kv, hd = self.cfg.n_kv_heads, self.cfg.kq_head_dim
+        split = self.cross_split()
+        if split == "heads":
+            kv //= self.n
+        elif split == "head_dim":
+            hd //= self.n
+        return (layers, batch, self.cfg.enc_seq, kv, hd)
+
+    def cross_decode(self, xa, wq, wo, k, v) -> torch.Tensor:
+        """The decode step's cross-attention of the normed input ``xa`` (B, 1, d) on
+        the rank's block ``k``, ``v`` of its cache (``cross_split``), with the whole
+        ``xwq`` and ``xwo``: the rank's columns of q, the output's rows for them,
+        summed over ``model``.  On a head_dim block the scores are psum'd over
+        ``model`` before the softmax.  Every key of the cache counts, as in the
+        unsharded step (``attention_decode`` at the encoder's length)."""
+        b = xa.shape[0]
+        h, kv, hd = self.cfg.n_heads, self.cfg.n_kv_heads, self.cfg.kq_head_dim
+        split = self.cross_split()
+        if split is None:
+            o = L.attention_decode((xa @ wq).reshape(b, 1, h, hd), k, v, k.shape[1])
+            return o.reshape(b, 1, h * hd) @ wo
+        if split == "heads":
+            hl = h // self.n
+            cols = slice(self.index * hl * hd, (self.index + 1) * hl * hd)
+            o = L.attention_decode((xa @ wq[:, cols]).reshape(b, 1, hl, hd), k, v, k.shape[1])
+            return self.sum(o.reshape(b, 1, hl * hd) @ wo[cols])
+        w = hd // self.n
+        cols = (torch.arange(h, device=xa.device)[:, None] * hd + self.index * w
+                + torch.arange(w, device=xa.device)).reshape(-1)
+        q = (xa @ wq[:, cols]).reshape(b, 1, h, w)
+        k, v = L._repeat_kv(k, h // kv), L._repeat_kv(v, h // kv)
+        scores = torch.einsum("bqhd,bkhd->bhqk", q / math.sqrt(hd), k).float()
+        probs = torch.softmax(self.psum(scores, self.axis), dim=-1).to(q.dtype)
+        o = torch.einsum("bhqk,bkhd->bqhd", probs, v)
+        return self.sum(o.reshape(b, 1, h * w) @ wo[cols])
 
     # -- gradients ---------------------------------------------------------
 

@@ -342,14 +342,14 @@ def test_vocab_parallel_embed_is_the_lookup_bit_for_bit(case, dtype):
 @pytest.mark.parametrize("family_arch", ["moonshot-v1-16b-a3b", "mamba2-130m",
                                          "recurrentgemma-9b", "qwen2-vl-7b", "whisper-tiny"])
 def test_tp_policy_on_another_family_raises(family_arch):
-    """What the sharded path does not hold raises, naming its ROADMAP item: the
-    SSM family under a ``tp=True`` policy (14.5) and the audio family under one
-    (14.6).  The MoE under every ``moe_mode`` (``"ep"`` and ``"gshard"`` split
-    the experts on E: ``test_torch_tp_moe_ep.py``), the VLM with ``ce_chunk``
-    (``test_torch_tp_ce_chunk.py``) and the hybrid under ``Policy()``, and the
-    audio and SSM families under their ``default_policy`` (``tp=False``), take
-    the sharded path (``test_torch_tp_families.py``, ``test_torch_tp_recurrent.py``).
-    EP raises where the experts do not divide ``model``, naming the divisibility."""
+    """Every family takes the sharded path under ``Policy()``: the SSM and audio
+    families too (``test_torch_tp_ssm_audio.py``), their steps built and
+    ``sharded`` true; the MoE under every ``moe_mode`` (``"ep"`` and ``"gshard"``
+    split the experts on E: ``test_torch_tp_moe_ep.py``), the VLM with
+    ``ce_chunk`` (``test_torch_tp_ce_chunk.py``) and the hybrid, and the audio and
+    SSM families under their ``default_policy`` (``tp=False``), take it as well
+    (``test_torch_tp_families.py``, ``test_torch_tp_recurrent.py``).  EP raises
+    where the experts do not divide ``model``, naming the divisibility."""
     cfg = get_config(family_arch, smoke=True)
     mesh = TraceMesh((1, 4), AXES)
 
@@ -361,12 +361,10 @@ def test_tp_policy_on_another_family_raises(family_arch):
                 lambda: TS.make_decode_step(c, act_specs=act(policy, m)),
                 lambda: TS.make_loss_fn(c, TS.TrainOptions(), act_specs=act(policy, m)))
 
-    raising = {"mamba2-130m": [(cfg, POLICY, "14.5")],
-               "whisper-tiny": [(cfg, POLICY, "14.6")]}
-    for c, policy, item in raising.get(family_arch, []):
-        for make in steps(c, policy):
-            with pytest.raises(ValueError, match=f"ROADMAP item {item}"):
-                make()
+    if family_arch in ("mamba2-130m", "whisper-tiny"):
+        assert tp_lib.sharded(cfg, POLICY)
+        assert all(make() is not None for make in steps(cfg, POLICY))
+        assert tp_lib.context(cfg, act(POLICY)).model_view is not None
     if family_arch == "moonshot-v1-16b-a3b":
         for m in ("ep", "gshard"):
             c = dataclasses.replace(cfg, moe_mode=m)

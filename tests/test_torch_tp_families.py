@@ -231,18 +231,15 @@ def test_plan_blocks_are_the_specs_blocks(arch, layout):
                                   "recurrentgemma-9b-smoke"])
 def test_context_is_none_exactly_where_sharded_is_false(arch, tp, fsdp):
     """The run (``tensor_parallel.context``) and the dry-run (``sharded``) take one
-    rule: a view where the policy splits the parameters and the family's path is
-    held; None where the policy splits nothing; a raise naming the ROADMAP item
-    for a family the path does not hold."""
+    rule: a view where the policy splits the parameters (every family's path is
+    held), None where it splits nothing."""
     cfg = get_config(arch)
     policy = sh.Policy(tp=tp, fsdp=fsdp)
     act = {"policy": policy, "mesh": Comm(TraceMesh((2, 4), AXES), 0)}
-    if tp_lib.sharded(cfg, policy):
+    assert tp_lib.sharded(cfg, policy) == (tp or fsdp)
+    if tp or fsdp:
         view = tp_lib.context(cfg, act)
         assert view is not None and (view.model_view is view) == tp
-    elif tp or fsdp:
-        with pytest.raises(ValueError, match="ROADMAP item 14"):
-            tp_lib.context(cfg, act)
     else:
         assert tp_lib.context(cfg, act) is None
 

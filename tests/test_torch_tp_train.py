@@ -596,22 +596,20 @@ def test_step_updates_blocks_in_place_and_checks_them():
 
 
 def test_other_families_and_options_raise():
-    """What the sharded training path does not hold raises, naming its ROADMAP
-    item: the SSM family under a ``tp=True`` policy (14.5) and the audio family
-    under one (14.6).  ``moe_mode`` ``"ep"`` and ``"gshard"`` and ``ce_chunk``
-    under such a policy take the path (``test_torch_tp_moe_ep.py``,
-    ``test_torch_tp_ce_chunk.py``); the hybrid family under ``Policy()`` takes
-    it too, and reads no ``ce_chunk`` there, as its unsharded loss does not."""
+    """Every family and option takes the sharded training path under
+    ``Policy()``: the SSM and audio families (``test_torch_tp_ssm_audio_train.py``),
+    their train step and cut route built and ``sharded`` true; ``moe_mode``
+    ``"ep"`` and ``"gshard"`` and ``ce_chunk`` (``test_torch_tp_moe_ep.py``,
+    ``test_torch_tp_ce_chunk.py``); the hybrid family too, which reads no
+    ``ce_chunk`` there, as its unsharded loss does not."""
     mesh = TraceMesh((1, 4), AXES)
     act = {"mesh": Comm(mesh, 0), "policy": sh.Policy()}
     ocfg = opt.AdamWConfig()
     moe = get_config("moonshot-v1-16b-a3b", smoke=True)
-    for cfg, item in ((get_config("mamba2-130m", smoke=True), "14.5"),
-                      (get_config("whisper-tiny", smoke=True), "14.6")):
-        for make in (lambda: TS.make_train_step(cfg, ocfg, TS.TrainOptions(), act_specs=act),
-                     lambda: TS.make_tp_value_and_grad(cfg, TS.TrainOptions(), act)):
-            with pytest.raises(ValueError, match=f"ROADMAP item {item}"):
-                make()
+    for cfg in (get_config("mamba2-130m", smoke=True), get_config("whisper-tiny", smoke=True)):
+        assert tp_lib.sharded(cfg, sh.Policy())
+        assert TS.make_train_step(cfg, ocfg, TS.TrainOptions(), act_specs=act) is not None
+        assert TS.make_tp_value_and_grad(cfg, TS.TrainOptions(), act) is not None
     for cfg in (dataclasses.replace(moe, moe_mode="ep"), dataclasses.replace(moe, moe_mode="gshard")):
         assert TS.make_train_step(cfg, ocfg, TS.TrainOptions(), act_specs=act) is not None
         assert TS.make_tp_value_and_grad(cfg, TS.TrainOptions(), act) is not None
