@@ -180,13 +180,20 @@ MoE, VLM and audio families in their sharded layouts:
    (1, 4): rank 0 a thread on the card, ranks 1-3 threads on the host, so
    that the card holds rank 0 alone); the card's own bf16 GEMM rate and
    HBM copy bandwidth beside the roofline's data-sheet constants;
-23. the flow simulator's torch backend (``repro_torch.core.flowsim``): the
+23. the flow simulator's torch backend (``repro_torch.core.flowsim``), each
+   card case timed and its device chunks counted (``flowsim.device_chunks``,
+   above 0 or the phase fails), within 1e-5 of its reference on the host: the
    max ECMP link load of uniform all-to-all on the paper's small Hx2Mesh
-   (1,024 accelerators, 64 switches) and on a 6,400-accelerator one, on the
-   card against the NumPy engine on the host within 1e-5, both timed; and of
-   sparse demands (``core/traffic.py``: ``skewed-alltoall:h8:seed3`` and
-   ``bisection``) at 4,096 accelerators through the chunked pass, the same
-   way;
+   (1,024 accelerators, 64 switches; the NumPy engine) and on a
+   6,400-accelerator one (the symmetry reduction, exact); on Table II's large
+   Hx2Mesh 64 x 64 and Hx4Mesh 32 x 32 (16,384 accelerators each), the card's
+   chunked pass over every source against the symmetry reduction; the
+   all-to-all fraction of the small Hx2Mesh under ``fail=boards:1%:seed7``, of
+   a job's sub-fabric on its 8 x 8 boards (``subnetwork``) and the max load
+   of a dragonfly (``build_network(Dragonfly(16, 8, 8, 9))``), against the
+   NumPy engine; and sparse demands (``core/traffic.py``:
+   ``skewed-alltoall:h8:seed3`` and ``bisection``) at 4,096 accelerators
+   through the chunked pass against the NumPy chunked pass;
 24. tensor parallelism over ``model`` in serving (``phase_tp_serve``, after
    23): llama3.2-3b at full width and depth, its weights cut into each rank's
    blocks under ``sanitize_specs(param_specs)`` (``shard_tree``; the whole
@@ -3540,9 +3547,23 @@ GEMM_N = 8192  # the bf16 GEMM that measures the card's tensor-core rate
 COPY_BYTES = 1 << 31  # the device-to-device copy that measures HBM bandwidth
 FLOWSIM_RTOL = 1e-5  # the JAX backend's own tolerance against NumPy (float32)
 # the paper's small Hx2Mesh (2 x 2 boards, 16 x 16: 1,024 accelerators, 64
-# switches), then the largest whose NumPy reference stays well inside 60 s on
-# the host (40 x 40: 6,400 accelerators; 48 x 48 is near 60 s)
-FLOWSIM_MESHES = ((2, 2, 16, 16), (2, 2, 40, 40))
+# switches) against the NumPy engine's full pass, then 40 x 40 (6,400
+# accelerators) against the symmetry reduction, exact (its NumPy pass took ~26 s
+# on the host)
+FLOWSIM_MESHES = ((2, 2, 16, 16, "numpy"), (2, 2, 40, 40, "symmetry"))
+# Table II's large cluster (core/topology.py: large_cluster): Hx2Mesh 64 x 64 and
+# Hx4Mesh 32 x 32, 16,384 accelerators each, uniform all-to-all through the card's
+# chunked pass against the symmetry reduction; beside each, its max link load from
+# the JAX package's NumPy engine on a CPU, and the paper's alltoall fraction
+FLOWSIM_TABLE2 = {(2, 2, 64, 64): 0.984435085149, (4, 4, 32, 32): 2.764483509329}
+# the small Hx2Mesh under failures, then a job's sub-fabric on its boards (r, c),
+# r, c < FLOWSIM_PLACEMENT; Table II's dragonflies (16, 8, 8, 8) and (32, 17, 16,
+# 30) fail build_dragonfly's assertion (a*h must divide groups - 1), in the JAX
+# package too, so the dragonfly is the nearest that builds (1,152 endpoints)
+FLOWSIM_FAILED = ((2, 2, 16, 16), "fail=boards:1%:seed7")
+FLOWSIM_PLACEMENT = 8
+FLOWSIM_DRAGONFLY = {"a": 16, "p": 8, "h": 8, "groups": 9}
+FLOWSIM_EXACT_PATHS = 2 ** 24  # the torch backend keeps path counts in float32
 # sparse demands (core/traffic.py) through the chunked pass, at 4,096 accelerators
 # (32 x 32 boards): a non-symmetric token and bisection, whose NumPy references
 # take ~10 s each on the host
@@ -3790,47 +3811,213 @@ def _dryrun_tp_rank(cfg, rtol: float, smi, tokens: int | None = None, shape=None
 
 
 def phase_flowsim(smi) -> dict:
-    """The flow simulator's torch backend on the card against its NumPy engine on
-    the host: the max ECMP link load of uniform all-to-all on HxMesh planes, then
-    of sparse demands at 4,096 accelerators (``_flowsim_sparse``)."""
+    """The flow simulator's torch backend on the card against a reference on the
+    host: the max ECMP link load of uniform all-to-all on HxMesh planes
+    (``_flowsim_table2`` at 16,384 accelerators), of failed, placed and dragonfly
+    fabrics (``_flowsim_fabrics``) and of sparse demands at 4,096 accelerators
+    (``_flowsim_sparse``).  Every card case runs the torch backend's chunked pass
+    (``flowsim.device_chunks`` above 0)."""
     from repro_torch.core import flowsim as fs
+    from repro_torch.core import traffic as tr
 
     out = {}
-    for a, b, x, y in FLOWSIM_MESHES:
+    for a, b, x, y, reference in FLOWSIM_MESHES:
         net = fs.build_hxmesh(a, b, x, y)
-        traffic = fs.alltoall_matrix(net)
+        traffic = fs.traffic_matrix(net, "alltoall")
         t0 = time.perf_counter()
-        ref = fs.max_link_load(net, traffic)
-        numpy_s = time.perf_counter() - t0
-        torch_s = []
-        for _ in range(2):  # the first call includes the card's warm-up
-            t0 = time.perf_counter()
-            got = fs.max_link_load(net, traffic, backend="torch")
-            torch_s.append(time.perf_counter() - t0)
-        rel = abs(got - ref) / ref
+        if reference == "numpy":
+            ref = fs.max_link_load(net, traffic)
+        else:
+            ref = fs.symmetric_max_link_load(net, tr.demand(net, "alltoall"))
+        ref_s = time.perf_counter() - t0
         tag = f"hx{a}x{b}-{x}x{y}"
+        runs = [_flowsim_on_card(tag, lambda: fs.max_link_load(net, traffic, backend="torch"))
+                for _ in range(2)]  # the first call includes the card's warm-up
+        got = runs[-1][0]
+        rel = abs(got - ref) / ref
         log(f"[flowsim] {tag}: {net.n_endpoints} accelerators, "
             f"{net.n_nodes - net.n_endpoints} switches, {len(net.directed_edges()[0])} directed "
-            f"links; all-to-all max link load numpy {ref:.9f} in {numpy_s:.2f}s (host), torch "
-            f"{got:.9f} in {torch_s[0]:.3f}s / {torch_s[1]:.3f}s (cuda, float32); rel "
-            f"{rel:.2e} (tol {FLOWSIM_RTOL}) [{smi}]")
+            f"links; all-to-all max link load {reference} {ref:.9f} in {ref_s:.2f}s (host), "
+            f"torch {got:.9f} in {runs[0][1]:.3f}s / {runs[1][1]:.3f}s, {runs[1][2]} device "
+            f"chunks (cuda, float32); rel {rel:.2e} (tol {FLOWSIM_RTOL}) [{smi}]")
         if not rel <= FLOWSIM_RTOL:
-            raise AssertionError(f"flowsim {tag}: torch {got} vs numpy {ref} (rel {rel:.2e})")
-        out[tag] = {"endpoints": net.n_endpoints, "nodes": net.n_nodes, "numpy": ref,
-                    "torch": got, "rel": rel, "numpy_s": numpy_s, "torch_s": torch_s}
-    out["sparse"] = _flowsim_sparse(smi)
+            raise AssertionError(f"flowsim {tag}: torch {got} vs {reference} {ref} "
+                                 f"(rel {rel:.2e})")
+        out[tag] = {"endpoints": net.n_endpoints, "nodes": net.n_nodes, "reference": reference,
+                    reference: ref, "torch": got, "rel": rel, f"{reference}_s": ref_s,
+                    "torch_s": [r[1] for r in runs], "device_chunks": runs[1][2]}
     first = out[next(iter(out))]
     if (first["endpoints"], first["nodes"] - first["endpoints"]) != (1024, 64):
         raise AssertionError(f"the small Hx2Mesh has {first['endpoints']} accelerators and "
                              f"{first['nodes'] - first['endpoints']} switches, want 1024 and 64")
+    out["table2"] = _flowsim_table2(smi)
+    out["fabrics"] = _flowsim_fabrics(smi)
+    out["sparse"] = _flowsim_sparse(smi)
+    return out
+
+
+def _flowsim_on_card(tag, call):
+    """(value, seconds, device chunks) of one call that must run the torch
+    backend's chunked pass on the card."""
+    from repro_torch.core import flowsim as fs
+
+    fs.device_chunks = 0
+    t0 = time.perf_counter()
+    value = call()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if fs.device_chunks == 0:
+        raise AssertionError(f"flowsim {tag}: the card case ran no device chunk")
+    return value, seconds, fs.device_chunks
+
+
+def _flowsim_max_paths(net, sources) -> float:
+    """The most shortest paths between any of ``sources`` and any node (NumPy):
+    the torch backend's float32 counts are exact below FLOWSIM_EXACT_PATHS."""
+    from repro_torch.core import flowsim as fs
+
+    most = float(fs.shortest_paths(net, sources)[1].max())
+    if not most < FLOWSIM_EXACT_PATHS:
+        raise AssertionError(f"{most} shortest paths: float32 counts are not exact")
+    return most
+
+
+def _flowsim_table2(smi) -> dict:
+    """Table II's 16,384-accelerator HxMeshes: uniform all-to-all through the
+    card's chunked pass over every source (``demand_edge_loads``), against the
+    symmetry reduction on the host (one NumPy BFS a class of endpoints), which
+    is held to the JAX package's value (FLOWSIM_TABLE2)."""
+    import numpy as np
+
+    from repro_torch.core import flowsim as fs
+    from repro_torch.core import traffic as tr
+
+    out = {}
+    for (a, b, x, y), want in FLOWSIM_TABLE2.items():
+        tag = f"hx{a}x{b}-{x}x{y}"
+        t0 = time.perf_counter()
+        net = fs.build_hxmesh(a, b, x, y)
+        n_links = len(net.directed_edges()[0])
+        dem = tr.demand(net, "alltoall")
+        build_s = time.perf_counter() - t0
+        if net.n_endpoints != 16384:
+            raise AssertionError(f"{tag} has {net.n_endpoints} accelerators, want 16384")
+        t0 = time.perf_counter()
+        ref = fs.symmetric_max_link_load(net, dem)
+        sym_s = time.perf_counter() - t0
+        frac = fs.alltoall_fraction(net, net.meta["links_per_endpoint"])
+        reps = np.unique(fs.endpoint_classes(net), return_index=True)[1]
+        max_paths = _flowsim_max_paths(net, reps)
+        # one call: the card is warm from FLOWSIM_MESHES, and a call takes seconds
+        loads, torch_s, chunks = _flowsim_on_card(
+            tag, lambda: fs.demand_edge_loads(net, dem, backend="torch"))
+        got = float(loads.max())
+        rel = abs(got - ref) / ref
+        split = _flowsim_chunk_split(net, dem)
+        log(f"[flowsim] {tag} (Table II): {net.n_endpoints} accelerators, "
+            f"{net.n_nodes - net.n_endpoints} switches, {n_links} directed links, built with "
+            f"its demand in {build_s:.2f}s; all-to-all max link load: symmetry {ref:.12f} "
+            f"({len(reps)} representatives) in {sym_s:.3f}s (host; JAX's NumPy engine "
+            f"{want:.12f}), fraction {frac:.9f}; torch {got:.12f} in {torch_s:.3f}s over "
+            f"{chunks} device chunks (cuda, fp64 BFS, float32 sweep; at most "
+            f"{max_paths:.0f} shortest paths); rel {rel:.2e} (tol "
+            f"{FLOWSIM_RTOL}); a chunk of {split['sources']}: its rows {split['rows_ms']:.1f} "
+            f"ms (host), the BFS {split['bfs_ms']:.1f} ms ({split['products']} fp64 products, "
+            f"{split['bfs_tflops']:.1f} TFLOP/s), the whole chunk {split['chunk_ms']:.1f} ms "
+            f"(CUDA events) [{smi}]")
+        if not rel <= FLOWSIM_RTOL or abs(ref - want) > 1e-9 * want:
+            raise AssertionError(f"flowsim {tag}: torch {got} vs symmetry {ref} (rel "
+                                 f"{rel:.2e}), JAX's NumPy engine {want}")
+        out[tag] = {"endpoints": net.n_endpoints, "nodes": net.n_nodes, "links": n_links,
+                    "symmetry": ref, "fraction": frac, "torch": got, "rel": rel,
+                    "build_s": build_s, "symmetry_s": sym_s,
+                    "torch_s": torch_s, "device_chunks": chunks, "max_paths": max_paths,
+                    "chunk": split}
+        del net, dem, loads
+        torch.cuda.empty_cache()  # the 2.2 GB fp64 adjacency
+    return out
+
+
+def _flowsim_chunk_split(net, dem, sources: int = 512) -> dict:
+    """Where one source chunk of the torch backend's pass goes: the host's dense
+    rows (host clock), the BFS alone and the whole chunk on the card (CUDA
+    events), and the BFS's fp64 rate from its products, (S, n) . (n, n) each."""
+    from repro_torch.core import flowsim as fs
+
+    U, V, M = net.directed_edges()
+    A = fs._dense_adjacency(net, torch.device("cuda"))
+    sources = min(sources, dem.n_sources)
+    srcs = dem.sources[:sources]
+    t0 = time.perf_counter()
+    rows = dem.rows(0, sources)
+    rows_ms = (time.perf_counter() - t0) * 1e3
+    bfs_ms = cuda_ms(lambda: fs._bfs_torch(A, srcs), reps=3, warmup=1)
+    chunk_ms = cuda_ms(lambda: fs._edge_loads_chunk_torch(net, srcs, rows, U, V, M, None, A),
+                       reps=3, warmup=1)
+    products = int(fs._bfs_torch(A, srcs)[0].max()) + 1  # one past the deepest level
+    n = net.n_nodes
+    del A
+    return {"sources": sources, "rows_ms": rows_ms, "bfs_ms": bfs_ms, "chunk_ms": chunk_ms,
+            "products": products,
+            "bfs_tflops": products * 2 * sources * n * n / (bfs_ms * 1e-3) / 1e12}
+
+
+def _flowsim_fabrics(smi) -> dict:
+    """Failures, a placement and the dragonfly, built with ``build_network`` from
+    the port's topology specs: the torch backend's chunked pass on the card
+    against the NumPy engine on the host (none of these fabrics declares
+    symmetry classes, so each whole call runs every source)."""
+    from repro_torch.core import flowsim as fs
+    from repro_torch.core import topology as top
+
+    (a, b, x, y), failures = FLOWSIM_FAILED
+    failed = fs.build_network(top.HxMesh(a, b, x, y), failures)
+    k = FLOWSIM_PLACEMENT
+    boards = [(r, c) for r in range(k) for c in range(k)]
+    cases = {
+        f"hx{a}x{b}-{x}x{y} {failures}": (failed, "alltoall_fraction"),
+        f"hx{a}x{b}-{x}x{y} subnetwork {k}x{k} boards": (
+            fs.subnetwork(failed, fs.placement_endpoints(failed, boards)),
+            "alltoall_fraction"),
+        "dragonfly a{a} p{p} h{h} g{groups}".format(**FLOWSIM_DRAGONFLY): (
+            fs.build_network(top.Dragonfly(**FLOWSIM_DRAGONFLY)), "max_link_load"),
+    }
+    out = {}
+    for tag, (net, metric) in cases.items():
+        links = net.meta["links_per_endpoint"]
+        if metric == "alltoall_fraction":
+            call = functools.partial(fs.alltoall_fraction, net, links)
+        else:
+            call = functools.partial(fs.max_link_load, net, "alltoall")
+        act = net.active_endpoints()
+        t0 = time.perf_counter()
+        ref = call()
+        numpy_s = time.perf_counter() - t0
+        max_paths = _flowsim_max_paths(net, act)
+        runs = [_flowsim_on_card(tag, lambda: call(backend="torch")) for _ in range(2)]
+        got = runs[-1][0]
+        rel = abs(got - ref) / ref
+        log(f"[flowsim] {tag}: {len(act)} active endpoints of {net.n_endpoints}, "
+            f"{net.n_nodes - net.n_endpoints} switches; all-to-all {metric} numpy {ref:.9f} in "
+            f"{numpy_s:.2f}s (host), torch {got:.9f} in {runs[0][1]:.3f}s / {runs[1][1]:.3f}s "
+            f"over {runs[1][2]} device chunks (cuda; at most {max_paths:.0f} shortest paths, "
+            f"float32 exact below 2**24); rel {rel:.2e} (tol {FLOWSIM_RTOL}) [{smi}]")
+        if not rel <= FLOWSIM_RTOL:
+            raise AssertionError(f"flowsim {tag}: torch {got} vs numpy {ref} (rel {rel:.2e})")
+        out[tag] = {"active": len(act), "nodes": net.n_nodes, metric: ref, "torch": got,
+                    "rel": rel, "numpy_s": numpy_s, "torch_s": [r[1] for r in runs],
+                    "device_chunks": runs[1][2], "max_paths": max_paths}
     return out
 
 
 def _flowsim_sparse(smi) -> dict:
     """The torch backend on a sparse ``Demand`` (a traffic token bound to the
     fabric, its rows made a source chunk at a time) on the card against the NumPy
-    engine on the host, on FLOWSIM_SPARSE_MESH: the token itself (its demand
-    built in the call, the card's warm-up), then its ``Demand``."""
+    engine's chunked pass on the host, on FLOWSIM_SPARSE_MESH: the token itself
+    (its demand built in the call, the card's warm-up), then its ``Demand``.  A
+    bisection on a healthy HxMesh takes the symmetry fast path in
+    ``max_link_load``, on the host, so its card case calls ``demand_edge_loads``;
+    the symmetry value is held to the same reference."""
     from repro_torch.core import flowsim as fs
     from repro_torch.core import traffic as tr
 
@@ -3844,25 +4031,33 @@ def _flowsim_sparse(smi) -> dict:
         dem = tr.demand(net, token)
         build_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        ref = fs.demand_max_link_load(net, dem)
+        ref = float(fs.demand_edge_loads(net, dem).max())
         numpy_s = time.perf_counter() - t0
-        got, torch_s = [], []
-        for traffic in (token, dem):
-            t0 = time.perf_counter()
-            got.append(fs.max_link_load(net, traffic, backend="torch"))
-            torch_s.append(time.perf_counter() - t0)
-        rel = max(abs(g - ref) / ref for g in got)
+        sym = fs.symmetric_max_link_load(net, dem)
         tag = f"hx{a}x{b}-{x}x{y} {token}"
+        if sym is None:
+            calls = [lambda: fs.max_link_load(net, token, backend="torch"),
+                     lambda: fs.max_link_load(net, dem, backend="torch")]
+        else:
+            calls = [lambda: float(fs.demand_edge_loads(net, tr.demand(net, token),
+                                                        backend="torch").max()),
+                     lambda: float(fs.demand_edge_loads(net, dem, backend="torch").max())]
+        runs = [_flowsim_on_card(tag, call) for call in calls]
+        got = [r[0] for r in runs]
+        rel = max(abs(g - ref) / ref for g in [*got, *([sym] if sym is not None else [])])
         log(f"[flowsim] {tag}: {net.n_endpoints} accelerators, sparse demand of "
             f"{dem.n_sources} sources ({len(dem.dsts)} explicit entries, {len(dem.groups)} "
             f"spread groups) built in {build_s:.3f}s; max link load numpy {ref:.9f} in "
-            f"{numpy_s:.2f}s (host, the chunked pass), torch {got[0]:.9f} from the token in "
-            f"{torch_s[0]:.3f}s (its demand built, warm-up) / {got[1]:.9f} from the Demand in "
-            f"{torch_s[1]:.3f}s (cuda, float32); rel {rel:.2e} (tol {FLOWSIM_RTOL}) [{smi}]")
+            f"{numpy_s:.2f}s (host, the chunked pass), symmetry {sym}, torch {got[0]:.9f} from "
+            f"the token in {runs[0][1]:.3f}s (its demand built, warm-up) / {got[1]:.9f} from "
+            f"the Demand in {runs[1][1]:.3f}s over {runs[1][2]} device chunks (cuda, float32); "
+            f"rel {rel:.2e} (tol {FLOWSIM_RTOL}) [{smi}]")
         if not rel <= FLOWSIM_RTOL:
-            raise AssertionError(f"flowsim {tag}: torch {got} vs numpy {ref} (rel {rel:.2e})")
-        out[token] = {"endpoints": net.n_endpoints, "numpy": ref, "torch": got, "rel": rel,
-                      "build_s": build_s, "numpy_s": numpy_s, "torch_s": torch_s}
+            raise AssertionError(f"flowsim {tag}: torch {got}, symmetry {sym} vs numpy {ref} "
+                                 f"(rel {rel:.2e})")
+        out[token] = {"endpoints": net.n_endpoints, "numpy": ref, "symmetry": sym, "torch": got,
+                      "rel": rel, "build_s": build_s, "numpy_s": numpy_s,
+                      "torch_s": [r[1] for r in runs], "device_chunks": runs[1][2]}
     return out
 
 

@@ -15,10 +15,10 @@ dense matrix:
   exists (a 16,384-endpoint float64 matrix is 2 GiB).
 
 The nine families of the original are registered here with the same
-builders and grammar.  The original's flow engine also takes a symmetry-class
-fast path for ``symmetric`` and bisection demands; that path is NumPy with no
-device part and is not copied, so this package runs the chunked pass for
-every demand (``flowsim.demand_max_link_load``).
+builders and grammar.  Demands flagged ``symmetric``, and bisection demands
+with a ``half_cut``, take the flow engine's symmetry-class fast path on a
+healthy HxMesh or torus (``flowsim.demand_max_link_load``): one BFS a class
+of endpoints instead of one an endpoint.
 """
 
 from __future__ import annotations
@@ -71,9 +71,9 @@ class Demand:
     # grid-row index of a bisection cut the demand is invariant under: the
     # demand only commutes with *half-preserving* fabric automorphisms
     # (board-row permutations within each side of the cut).  Set by the
-    # bisection builder on healthy hxmesh fabrics, where the original's
-    # engine takes its half-symmetry fast path; kept here as a record of the
-    # demand.  ``None`` everywhere else.
+    # bisection builder on healthy hxmesh fabrics; the flow engine then takes
+    # the half-symmetry fast path (one BFS per side x on-board position)
+    # instead of one BFS per endpoint.  ``None`` everywhere else.
     half_cut: int | None = None
 
     @property
@@ -100,8 +100,8 @@ class Demand:
         return out
 
     def rows_for(self, source_ids) -> np.ndarray:
-        """Dense rows for specific source endpoint ids; ids must be members
-        of ``sources``."""
+        """Dense rows for specific source endpoint ids (symmetry-class
+        representatives); ids must be members of ``sources``."""
         idx = np.searchsorted(self.sources, np.asarray(source_ids))
         if (idx >= len(self.sources)).any() or \
                 (self.sources[idx] != source_ids).any():

@@ -2,13 +2,15 @@
 package's ``repro.core.flowsim``, on the CPU.
 
 * The copied builders give the original's directed edges and multiplicities,
-  and ``alltoall_matrix`` the original's dense ``alltoall`` traffic.
+  and ``traffic_matrix`` the original's dense ``alltoall`` traffic.
 * The copied NumPy engine gives the original's distances, path counts, link
   loads and max link load exactly (the same float64 arithmetic).
 * ``backend="torch"`` on ``device="cpu"`` agrees with the original's
   ``backend="jax"`` and ``backend="numpy"`` within rel 1e-5 (float32: the
   tolerance of ``tests/test_flowsim_vec.py``'s JAX check), on a torus, an
-  HxMesh, a fat tree and an HxMesh with failed nodes (unreachable: D = -1).
+  HxMesh, a fat tree and an HxMesh with failed nodes (unreachable: D = -1),
+  which each package builds with its own ``build_network`` (the same
+  adjacency, dict for dict).
 * Without ``device="cpu"`` the torch backend wants a GPU and raises here; an
   unknown backend raises.
 """
@@ -32,17 +34,17 @@ FAILED = [5, 17, ("board", 1, 2)]  # two accelerators and a board of the 4x4 HxM
 
 def _pair(name):
     if name == "failed":
-        ref = F.build_network(F.build_hxmesh(2, 2, 4, 4), failures=FAILED)
-        return ref, G.Network(ref.n_endpoints, {k: list(v) for k, v in ref.adj.items()},
-                              dict(ref.meta))
+        return (F.build_network(F.build_hxmesh(2, 2, 4, 4), failures=FAILED),
+                G.build_network(G.build_hxmesh(2, 2, 4, 4), failures=FAILED))
     return NETS[name](F), NETS[name](G)
 
 
-@pytest.mark.parametrize("name", list(NETS))
+@pytest.mark.parametrize("name", [*NETS, "failed"])
 def test_builders_match_the_original(name):
     ref, net = _pair(name)
     assert net.n_endpoints == ref.n_endpoints and net.n_nodes == ref.n_nodes
     assert net.meta == ref.meta
+    assert net.adj == ref.adj
     for a, b in zip(net.directed_edges(), ref.directed_edges(), strict=True):
         np.testing.assert_array_equal(a, b)
 
@@ -50,7 +52,7 @@ def test_builders_match_the_original(name):
 @pytest.mark.parametrize("name", [*NETS, "failed"])
 def test_alltoall_and_the_numpy_engine_match_the_original(name):
     ref, net = _pair(name)
-    T = G.alltoall_matrix(net)
+    T = G.traffic_matrix(net, "alltoall")
     np.testing.assert_array_equal(T, F.traffic_matrix(ref, "alltoall"))
     D, Np = G.shortest_paths(net)
     rD, rNp = F.shortest_paths(ref)
@@ -64,7 +66,7 @@ def test_alltoall_and_the_numpy_engine_match_the_original(name):
 @pytest.mark.parametrize("name", ["torus8x8", "hxmesh2x2-4x4", "fat_tree64", "failed"])
 def test_torch_backend_matches_jax_and_numpy(name):
     ref, net = _pair(name)
-    T = G.alltoall_matrix(net)
+    T = G.traffic_matrix(net, "alltoall")
     want = F.max_link_load(ref, T)
     jx = F.max_link_load(ref, T, backend="jax")
     got = G.max_link_load(net, T, backend="torch", device="cpu")
@@ -83,7 +85,7 @@ def test_torch_backend_matches_jax_and_numpy(name):
 
 def test_torch_backend_wants_a_gpu_unless_told_cpu():
     net = G.build_torus(4, 4)
-    T = G.alltoall_matrix(net)
+    T = G.traffic_matrix(net, "alltoall")
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is valid")
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -96,7 +98,7 @@ def test_torch_backend_wants_a_gpu_unless_told_cpu():
 
 def test_torch_backend_builds_the_adjacency_once_and_keeps_tf32_alone(monkeypatch):
     net = G.build_hxmesh(2, 2, 4, 4)
-    T = G.alltoall_matrix(net)
+    T = G.traffic_matrix(net, "alltoall")
     built = []
     dense = G._dense_adjacency
     monkeypatch.setattr(G, "_dense_adjacency", lambda n, dev: built.append(dev) or dense(n, dev))

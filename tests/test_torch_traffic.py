@@ -5,9 +5,9 @@ the flow simulator's demand path (``repro_torch.core.flowsim``:
 ``repro.core.traffic`` and ``repro.core.flowsim``, on the CPU.
 
 * Every registered family's ``Demand`` on the fabrics of
-  ``tests/test_torch_flowsim.py`` and on an HxMesh with failed nodes (the
-  port's ``Network`` built from the original's ``adj`` and ``meta``): its
-  sources, CSR rows, spread groups, flags and dense rows equal the original's.
+  ``tests/test_torch_flowsim.py`` and on an HxMesh with failed nodes (each
+  package's own ``build_network``): its sources, CSR rows, spread groups,
+  flags and dense rows equal the original's.
 * ``parse_traffic`` gives the original's canonical specs and strings, which
   round-trip; aliases, defaults, legacy keyword arguments and malformed tokens
   as in the original.
@@ -16,8 +16,10 @@ the flow simulator's demand path (``repro_torch.core.flowsim``:
 * ``max_link_load`` / ``demand_max_link_load`` with ``backend="torch",
   device="cpu"`` agree with the original's ``backend="numpy"`` and
   ``backend="jax"`` within rel 1e-5 (float32, ``test_torch_flowsim.py``'s
-  tolerance), the symmetric tokens (alltoall, bisection) included, where the
-  original takes its symmetry-class fast path and the port its chunked pass.
+  tolerance).  For the symmetric tokens (alltoall, bisection) on a healthy
+  HxMesh or torus both packages take the symmetry-class fast path on the
+  NumPy engine, so ``demand_edge_loads`` on the torch backend (the device
+  pass, its chunks counted) is held to the same values.
 * Without ``device="cpu"`` the torch backend wants a GPU and raises here.
 """
 
@@ -51,8 +53,8 @@ def _pair(name):
     if name not in _NETS:
         if name == "failed":
             ref = F.build_network(F.build_hxmesh(2, 2, 4, 4), failures=FAILED)
-            net = G.Network(ref.n_endpoints, {k: list(v) for k, v in ref.adj.items()},
-                            dict(ref.meta))
+            net = G.build_network(G.build_hxmesh(2, 2, 4, 4), failures=FAILED)
+            assert net.adj == ref.adj and net.meta == ref.meta
         else:
             ref, net = NETS[name](F), NETS[name](G)
         _NETS[name] = ref, net
@@ -136,7 +138,8 @@ def test_the_numpy_engine_matches_the_originals_chunked_pass(name):
 def test_torch_backend_matches_numpy_and_jax(token, name):
     """The port's torch backend on the CPU against the original's max link load
     through both of its backends (for alltoall and bisection on a healthy mesh
-    or torus, its symmetry-class fast path), a token, a spec and a Demand."""
+    or torus, both packages' symmetry-class fast path), a token, a spec and a
+    Demand; for those two, the torch backend's chunked pass as well."""
     ref_net, net = _pair(name)
     got = G.max_link_load(net, token, source_chunk=200, backend="torch", device="cpu")
     for backend in ("numpy", "jax"):
@@ -145,6 +148,13 @@ def test_torch_backend_matches_numpy_and_jax(token, name):
     dem = T.demand(net, token)
     assert G.demand_max_link_load(net, dem, backend="torch", device="cpu") == pytest.approx(
         got, rel=RTOL)
+    if token in ("alltoall", "bisection"):
+        G.device_chunks = 0
+        loads = G.demand_edge_loads(net, dem, source_chunk=200, backend="torch", device="cpu")
+        assert G.device_chunks == -(-dem.n_sources // 200)
+        for backend in ("numpy", "jax"):
+            assert loads.max() == pytest.approx(F.max_link_load(ref_net, token, backend=backend),
+                                                rel=RTOL), backend
     assert G.max_link_load(net, T.parse_traffic(token)) == G.demand_max_link_load(net, dem)
 
 
