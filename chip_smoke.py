@@ -1725,7 +1725,6 @@ MOE_EP_RANKS = 4
 # moe_apply_ep against moe_apply on the card: check_moe_ep's rtol 1e-4, its atol
 # (1e-5 on outputs of ~0.1) scaled to the largest output, here ~1e3
 MOE_EP_RTOL = 1e-4
-MOE_SPANS = ("route", "slots", "scatter", "experts", "gather", "attention")
 
 
 @contextlib.contextmanager
@@ -1797,42 +1796,28 @@ def _routing_agreement(a, b) -> tuple[float, int, int]:
 
 @contextlib.contextmanager
 def _spans():
-    """Device time of the MoE layer's parts and of attention, from CUDA events
-    around each call (read after the caller's sync): ms by part."""
-    from unittest import mock
+    """Device time by span of the calls inside, from the program's tracer
+    (``repro_torch.trace``, read after the block): each span's own ms (less its
+    children's) summed by its range name, ``<name>.<phase>``."""
+    from repro_torch import trace
 
-    from repro_torch.models import layers, moe
-
-    events = {name: [] for name in MOE_SPANS}
-
-    def timed(name, fn):
-        def wrapped(*args, **kwargs):
-            start, end = (torch.cuda.Event(enable_timing=True),
-                          torch.cuda.Event(enable_timing=True))
-            start.record()
-            out = fn(*args, **kwargs)
-            end.record()
-            events[name].append((start, end))
-            return out
-        return wrapped
-
-    targets = {"route": (moe, "_route"), "slots": (moe, "_slots"),
-               "scatter": (moe, "_scatter"), "experts": (moe, "_experts_ffn"),
-               "gather": (moe, "_gather"), "attention": (layers, "attention")}
     ms = {}
-    with contextlib.ExitStack() as stack:
-        for name, (mod, attr) in targets.items():
-            stack.enter_context(mock.patch.object(mod, attr, timed(name, getattr(mod, attr))))
+    trace.reset()
+    trace.enable()
+    try:
         yield ms
-    torch.cuda.synchronize()
-    ms.update({name: sum(a.elapsed_time(b) for a, b in ev) for name, ev in events.items()})
+    finally:
+        trace.disable()
+    for r in trace.snapshot().records:
+        ms[r.label] = ms.get(r.label, 0.0) + r.self_ms
+    trace.reset()
 
 
 def _span_line(ms: dict, total_ms: float) -> str:
     rest = total_ms - sum(ms.values())
-    return "; ".join(f"{k} {v:.1f} ms ({v / total_ms:.1%})" for k, v in ms.items()) + (
-        f"; the rest (projections, norms, embedding, unembed, loss, optimizer) {rest:.1f} ms "
-        f"({rest / total_ms:.1%})")
+    return "; ".join(f"{k} {v:.1f} ms ({v / total_ms:.1%})" for k, v in
+                     sorted(ms.items(), key=lambda kv: -kv[1])) + (
+        f"; outside every span {rest:.1f} ms ({rest / total_ms:.1%})")
 
 
 def phase_moe_serve(smi) -> tuple[dict, dict]:
@@ -1890,7 +1875,7 @@ def phase_moe_serve(smi) -> tuple[dict, dict]:
     with _spans() as ms:
         _, t_span = _prefill(cfg, params, tokens, use_kernel=True)
     log(f"[moe-prefill] device time by part over one prefill ({t_span * 1e3:.1f} ms on the "
-        f"host clock, CUDA events around each call): {_span_line(ms, t_span * 1e3)}")
+        f"host clock; each span's own device time): {_span_line(ms, t_span * 1e3)}")
     _profile("one moonshot bf16 prefill", lambda: _prefill(cfg, params, tokens, use_kernel=True))
 
     prompts = torch.from_numpy(make_batch(cfg, SERVE_PROMPT, SERVE_BATCH)["tokens"]).cuda()
@@ -2153,7 +2138,7 @@ def phase_moe_train(cfg, params, smi) -> dict:
         torch.cuda.synchronize()
         t_span = time.perf_counter() - t0
     log(f"[moe-train] device time by part over one step ({t_span * 1e3:.1f} ms on the host "
-        f"clock; forward and remat recompute, not their backward): "
+        f"clock; each span's own device time, forward, recompute and backward): "
         f"{_span_line(ms, t_span * 1e3)}")
     _profile("one moonshot train step", lambda: step_fn(params, ostate, batches[0]))
     del params, ostate, batches, batch, m

@@ -4,13 +4,14 @@
 CUDA kernel on CUDA tensors (``flash_attention.variant`` picks which) and the
 plain version on CPU tensors; the backward
 recomputes through ``ref.flash_attention_ref``, as the JAX package's
-``custom_vjp`` does.
+``custom_vjp`` does, under the ``attn.bwd`` span (``repro_torch.trace``).
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch import trace
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref
 
@@ -24,11 +25,12 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v = (t.detach().requires_grad_(True) for t in ctx.saved_tensors)
-        with torch.enable_grad():
-            out = ref.flash_attention_ref(q, k, v, ctx.causal, ctx.window)
-            dq, dk, dv = torch.autograd.grad(out, (q, k, v), g)
-        return dq, dk, dv, None, None
+        with trace.span("attn", "bwd"):
+            q, k, v = (t.detach().requires_grad_(True) for t in ctx.saved_tensors)
+            with torch.enable_grad():
+                out = ref.flash_attention_ref(q, k, v, ctx.causal, ctx.window)
+                dq, dk, dv = torch.autograd.grad(out, (q, k, v), g)
+            return dq, dk, dv, None, None
 
 
 def flash_attention(q, k, v, causal: bool = True, window: int = 0) -> torch.Tensor:

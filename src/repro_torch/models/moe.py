@@ -36,6 +36,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import trace
+
 GROUP_TOKENS = 4096  # tokens per dispatch group (bounds the capacity buffer)
 
 
@@ -164,15 +166,21 @@ class _SiluMul(torch.autograd.Function):
 
 def _experts_ffn(buf, w_gate, w_up, w_down):
     """SwiGLU of every expert on its buffer, batched over experts: buf (..., E, C, D)."""
-    h = _SiluMul.apply(torch.einsum("...ecd,edf->...ecf", buf, w_gate),
-                       torch.einsum("...ecd,edf->...ecf", buf, w_up))
-    return torch.einsum("...ecf,efd->...ecd", h, w_down)
+    with trace.span("moe.experts") as sp:
+        buf = sp.inputs(buf)
+        h = _SiluMul.apply(torch.einsum("...ecd,edf->...ecf", buf, w_gate),
+                           torch.einsum("...ecd,edf->...ecf", buf, w_up))
+        return sp.outputs(torch.einsum("...ecf,efd->...ecd", h, w_down))
 
 
 def _group_dispatch(xg, gates, experts, w_gate, w_up, w_down, cap):
     """Every group at once: xg (G, T, D); experts (G, T, k); returns (G, T, D)."""
     e, k = w_gate.shape[0], experts.shape[-1]
     flat_e, pos_c, keep = _slots(experts, e, cap)
+    if trace.on():  # the pairs routed, those that fit, and the buffers' rows
+        trace.count("moe.pairs", keep.numel())
+        trace.count("moe.kept", keep.sum())
+        trace.count("moe.slots", keep.shape[0] * e * cap)
     buf = _scatter(xg, flat_e, pos_c, keep, e, cap, k)
     out = _experts_ffn(buf, w_gate, w_up, w_down)
     return _gather(out, flat_e, pos_c, keep, gates, k)
@@ -191,17 +199,19 @@ def _groups(x):
 def moe_apply(x, params, top_k: int, capacity_factor: float = 1.25):
     """x: (B, S, D) -> ((B, S, D), aux). params: router (D, E), w_gate/up
     (E, D, F), w_down (E, F, D)."""
-    b, s, d = x.shape
-    xg, n_groups, group, pad = _groups(x)
-    e = params["router"].shape[1]
-    cap = capacity(group, top_k, e, capacity_factor)
-    gates, experts, aux = _route(xg, params["router"], top_k)
-    y = _group_dispatch(xg, gates, experts, params["w_gate"], params["w_up"],
-                        params["w_down"], cap)
-    y = y.reshape(b, n_groups * group, d)
-    if pad:
-        y = y[:, :s]
-    return y, torch.mean(aux)
+    with trace.span("moe") as sp:
+        x = sp.inputs(x)
+        b, s, d = x.shape
+        xg, n_groups, group, pad = _groups(x)
+        e = params["router"].shape[1]
+        cap = capacity(group, top_k, e, capacity_factor)
+        gates, experts, aux = _route(xg, params["router"], top_k)
+        y = _group_dispatch(xg, gates, experts, params["w_gate"], params["w_up"],
+                            params["w_down"], cap)
+        y = y.reshape(b, n_groups * group, d)
+        if pad:
+            y = y[:, :s]
+        return sp.outputs(y, torch.mean(aux))
 
 
 def moe_apply_tp(tp, x, params, top_k: int, capacity_factor: float = 1.25):

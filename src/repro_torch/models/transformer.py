@@ -39,6 +39,7 @@ import torch
 import torch.utils.checkpoint
 from torch import nn
 
+from repro_torch import trace
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
@@ -148,17 +149,24 @@ def _positions_default(tokens):
 
 
 def _apply_pos(cfg, q, k, positions):
-    if cfg.rope_type == "rope":
-        return (
-            L.apply_rope(q, positions, cfg.rope_theta),
-            L.apply_rope(k, positions, cfg.rope_theta),
-        )
-    if cfg.rope_type == "mrope":
+    if cfg.rope_type not in ("rope", "mrope"):
+        return q, k
+    with trace.span("rope"):
+        if cfg.rope_type == "rope":
+            return (
+                L.apply_rope(q, positions, cfg.rope_theta),
+                L.apply_rope(k, positions, cfg.rope_theta),
+            )
         return (
             L.apply_mrope(q, positions, cfg.mrope_sections, cfg.rope_theta),
             L.apply_mrope(k, positions, cfg.mrope_sections, cfg.rope_theta),
         )
-    return q, k
+
+
+def _norm(cfg: ArchConfig, x, p):
+    """``layers.apply_norm`` of a decoder layer or the head, under the ``norm`` span."""
+    with trace.span("norm"):
+        return L.apply_norm(x, p, cfg.norm_type)
 
 
 def _attn_block(cfg: ArchConfig, p, x, positions, causal, window, kv_seq=None,
@@ -192,11 +200,15 @@ def _attn_block(cfg: ArchConfig, p, x, positions, causal, window, kv_seq=None,
 
 
 def _mlp_block(cfg: ArchConfig, p, x, tp=None):
-    if tp is not None:
-        return tp.mlp(p, x)
-    if cfg.act == "swiglu":
-        return L.swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
-    return L.gelu_mlp(x, p["w_up"], p["b_up"], p["w_down"], p["b_down"])
+    with trace.span("mlp") as sp:
+        x = sp.inputs(x)
+        if tp is not None:
+            y = tp.mlp(p, x)
+        elif cfg.act == "swiglu":
+            y = L.swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
+        else:
+            y = L.gelu_mlp(x, p["w_up"], p["b_up"], p["w_down"], p["b_down"])
+        return sp.outputs(y)
 
 
 def _moe_ep(cfg: ArchConfig, mp, x, comm):
@@ -355,16 +367,17 @@ def forward(
 
     x, aux = forward_layers(cfg, params["layers"], x, positions, enc_out, remat=remat,
                             use_kernel=use_kernel, act_specs=act_specs)
-    x = L.apply_norm(x, params["final_norm"], cfg.norm_type)
     aux = aux / cfg.n_layers
-    if return_hidden:
-        return x, aux
-    logits = x @ L.unembed(params)
-    if logits.shape[-1] != cfg.vocab:  # padded vocab: mask the tail
-        keep = torch.arange(logits.shape[-1], device=logits.device) < cfg.vocab
-        logits = torch.where(keep, logits, torch.tensor(-1e30, dtype=logits.dtype,
-                                                        device=logits.device))
-    return logits, aux
+    with trace.span("head") as sp:
+        x = _norm(cfg, sp.inputs(x), params["final_norm"])
+        if return_hidden:
+            return sp.outputs(x), aux
+        logits = x @ L.unembed(params)
+        if logits.shape[-1] != cfg.vocab:  # padded vocab: mask the tail
+            keep = torch.arange(logits.shape[-1], device=logits.device) < cfg.vocab
+            logits = torch.where(keep, logits, torch.tensor(-1e30, dtype=logits.dtype,
+                                                            device=logits.device))
+        return sp.outputs(logits), aux
 
 
 def _forward_tp(cfg: ArchConfig, tp, params, tokens, positions, encoder_frames, remat,
@@ -451,22 +464,24 @@ def decoder_layer(cfg: ArchConfig, lp, h, aux, positions, enc=None, use_kernel=F
     the rank's blocks, all-gathered over ``data`` here; the products split over
     ``model`` under a ``tp=True`` view, and run whole under a ``tp=False`` one."""
     split_tp = None if tp is None else tp.model_view
-    if tp is not None:
-        lp = tp.layer(lp)
-    a = L.apply_norm(h, lp["attn_norm"], cfg.norm_type)
-    h = h + _attn_block(cfg, lp, a, positions, causal=True, window=0,
-                        use_kernel=use_kernel, tp=split_tp)
-    if enc is not None:
-        xa = L.apply_norm(h, lp["xattn_norm"], cfg.norm_type)
-        xp = {k[1:]: v for k, v in lp.items() if k.startswith("x") and k != "xattn_norm"}
-        h = h + _attn_block(cfg, xp, xa, positions, causal=False, window=0, kv_seq=enc)
-    m = L.apply_norm(h, lp["mlp_norm"], cfg.norm_type)
-    if cfg.family == "moe":
-        y, a_loss = _moe_block(cfg, lp["moe"], m, act_specs, tp)
-        aux = aux + a_loss
-    else:
-        y = _mlp_block(cfg, lp, m, split_tp)
-    return h + y, aux
+    with trace.span("layer") as sp:
+        h, aux = sp.inputs(h, aux)
+        if tp is not None:
+            lp = tp.layer(lp)
+        a = _norm(cfg, h, lp["attn_norm"])
+        h = h + _attn_block(cfg, lp, a, positions, causal=True, window=0,
+                            use_kernel=use_kernel, tp=split_tp)
+        if enc is not None:
+            xa = _norm(cfg, h, lp["xattn_norm"])
+            xp = {k[1:]: v for k, v in lp.items() if k.startswith("x") and k != "xattn_norm"}
+            h = h + _attn_block(cfg, xp, xa, positions, causal=False, window=0, kv_seq=enc)
+        m = _norm(cfg, h, lp["mlp_norm"])
+        if cfg.family == "moe":
+            y, a_loss = _moe_block(cfg, lp["moe"], m, act_specs, tp)
+            aux = aux + a_loss
+        else:
+            y = _mlp_block(cfg, lp, m, split_tp)
+        return sp.outputs(h + y, aux)
 
 
 def encoder_embed(cfg: ArchConfig, enc, frames, tp=None):

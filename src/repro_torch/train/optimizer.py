@@ -19,6 +19,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import trace
 from repro_torch import tree as tree_lib
 
 
@@ -99,25 +100,26 @@ def apply(cfg: AdamWConfig, state: AdamWState, params, grads, norm_fn=global_nor
     of the parameters or moments, only a few leaf-sized temporaries.
     ``norm_fn`` is ``clip_by_global_norm``'s.
     """
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, norm_fn)
-    step = state.step + 1
-    lr = schedule_lr(cfg, step)
-    fstep = step.float()
-    b1c = 1.0 - torch.pow(torch.tensor(cfg.b1, device=fstep.device), fstep)
-    b2c = 1.0 - torch.pow(torch.tensor(cfg.b2, device=fstep.device), fstep)
+    with trace.span("opt"):
+        grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, norm_fn)
+        step = state.step + 1
+        lr = schedule_lr(cfg, step)
+        fstep = step.float()
+        b1c = 1.0 - torch.pow(torch.tensor(cfg.b1, device=fstep.device), fstep)
+        b2c = 1.0 - torch.pow(torch.tensor(cfg.b2, device=fstep.device), fstep)
 
-    flat_p = tree_lib.leaves(params)
-    flat_g = tree_lib.leaves(grads)
-    flat_m = tree_lib.leaves(state.m)
-    flat_v = tree_lib.leaves(state.v)
-    for p, g, m, v in zip(flat_p, flat_g, flat_m, flat_v, strict=True):
-        g32 = g.float()
-        m.mul_(cfg.b1).add_(g32 * (1 - cfg.b1))
-        v.mul_(cfg.b2).add_((g32 * (1 - cfg.b2)).mul_(g32))
-        denom = (v / b2c).sqrt_().add_(cfg.eps)
-        delta = (m / b1c).div_(denom)
-        del denom
-        p32 = p.float()
-        delta.add_(p32 * cfg.weight_decay)
-        p.copy_(p32 - delta.mul_(lr))
-    return params, AdamWState(step, state.m, state.v), {"lr": lr, "grad_norm": gnorm}
+        flat_p = tree_lib.leaves(params)
+        flat_g = tree_lib.leaves(grads)
+        flat_m = tree_lib.leaves(state.m)
+        flat_v = tree_lib.leaves(state.v)
+        for p, g, m, v in zip(flat_p, flat_g, flat_m, flat_v, strict=True):
+            g32 = g.float()
+            m.mul_(cfg.b1).add_(g32 * (1 - cfg.b1))
+            v.mul_(cfg.b2).add_((g32 * (1 - cfg.b2)).mul_(g32))
+            denom = (v / b2c).sqrt_().add_(cfg.eps)
+            delta = (m / b1c).div_(denom)
+            del denom
+            p32 = p.float()
+            delta.add_(p32 * cfg.weight_decay)
+            p.copy_(p32 - delta.mul_(lr))
+        return params, AdamWState(step, state.m, state.v), {"lr": lr, "grad_norm": gnorm}

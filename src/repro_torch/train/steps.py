@@ -38,6 +38,7 @@ import dataclasses
 import torch
 import torch.utils.checkpoint
 
+from repro_torch import trace
 from repro_torch import tree as tree_lib
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import collectives as coll
@@ -133,14 +134,16 @@ def make_loss_fn(cfg: ArchConfig, options: TrainOptions, act_specs=None):
                 **extras,
             )
             unembed = params["unembed"] if "unembed" in params else params["embed"].T
-            loss = chunked_cross_entropy(
-                hidden, unembed, batch["labels"], cfg.vocab, options.ce_chunk)
+            with trace.span("loss") as sp:
+                loss = sp.outputs(chunked_cross_entropy(
+                    sp.inputs(hidden), unembed, batch["labels"], cfg.vocab, options.ce_chunk))
         else:
             logits, aux = model.forward(
                 cfg, params, batch["tokens"], remat=options.remat,
                 use_kernel=options.use_kernel, act_specs=act_specs, **extras,
             )
-            loss = cross_entropy(logits, batch["labels"])
+            with trace.span("loss") as sp:
+                loss = sp.outputs(cross_entropy(sp.inputs(logits), batch["labels"]))
         return loss + options.moe_aux_weight * aux, (loss, aux)
 
     return loss_fn
@@ -565,9 +568,10 @@ def make_train_step(cfg: ArchConfig, ocfg: opt.AdamWConfig, options: TrainOption
         grad_fn = value_and_grad(make_loss_fn(cfg, options, act_specs=act_specs))
 
         def train_step(params, opt_state, batch):
-            (_, (loss, aux)), grads = grad_fn(params, batch)
-            params, opt_state, m = opt.apply(ocfg, opt_state, params, grads)
-            return params, opt_state, {"loss": loss, "aux": aux, **m}
+            with trace.span("train_step"):
+                (_, (loss, aux)), grads = grad_fn(params, batch)
+                params, opt_state, m = opt.apply(ocfg, opt_state, params, grads)
+                return params, opt_state, {"loss": loss, "aux": aux, **m}
 
         return train_step
 
@@ -589,14 +593,15 @@ def make_train_step(cfg: ArchConfig, ocfg: opt.AdamWConfig, options: TrainOption
         return _sync_grads(comm, grads, loss, aux, options, axes, dp_shape)
 
     def train_step(params, opt_state, batch):
-        shards = [_data_shard(batch, mesh.axis_index(r, axes), dp_total)
-                  for r in range(mesh.size)]
-        grads, loss, aux = mesh.run(synced_grads, [params] * mesh.size, shards)[0]
-        flat, spec = tree_lib.flatten(params)
-        grads = tree_lib.unflatten(spec, [g.to(p.device) for g, p in
-                                          zip(tree_lib.leaves(grads), flat)])
-        params, opt_state, m = opt.apply(ocfg, opt_state, params, grads)
-        return params, opt_state, {"loss": loss, "aux": aux, **m}
+        with trace.span("train_step"):
+            shards = [_data_shard(batch, mesh.axis_index(r, axes), dp_total)
+                      for r in range(mesh.size)]
+            grads, loss, aux = mesh.run(synced_grads, [params] * mesh.size, shards)[0]
+            flat, spec = tree_lib.flatten(params)
+            grads = tree_lib.unflatten(spec, [g.to(p.device) for g, p in
+                                              zip(tree_lib.leaves(grads), flat)])
+            params, opt_state, m = opt.apply(ocfg, opt_state, params, grads)
+            return params, opt_state, {"loss": loss, "aux": aux, **m}
 
     return train_step
 
@@ -635,12 +640,12 @@ def make_prefill_step(cfg: ArchConfig, options: TrainOptions, act_specs=None):
 
     @torch.no_grad()
     def prefill_step(params, batch):
-        extras = model_extras(batch)
-        logits, _ = model.forward(
-            cfg, params, batch["tokens"], remat=options.remat,
-            use_kernel=options.use_kernel, act_specs=act_specs, **extras,
-        )
-        return logits[:, -1:]
+        with trace.span("prefill"):
+            logits, _ = model.forward(
+                cfg, params, batch["tokens"], remat=options.remat,
+                use_kernel=options.use_kernel, act_specs=act_specs, **model_extras(batch),
+            )
+            return logits[:, -1:]
 
     return prefill_step
 
